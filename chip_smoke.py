@@ -9,26 +9,44 @@
 3. kernel phases at the ex1 serving shapes: each kernel against its plain
    PyTorch version on the same inputs, with its time, the plain version's,
    one PyTorch library call's as a yardstick, and the card's bound;
-4. serving phase, the port's main path: ``Predictor`` answers batches of 8
-   with the full-width ex1 SimpleTransformer (random weights from a seed),
-   for fourier and galerkin attention at n = 8192 and n = 2048, timing
-   each request on the host clock (numpy in, numpy out).  Outputs
+4. backward kernel phases: ``galerkin_scores_bwd`` at the ex1 shape
+   against its plain version (and bit-equal on a second call), and the
+   fourier attention backward (three ``fourier_chain`` launches) at the
+   training shape against ``fourier_attention_bwd_reference``;
+5. serving phase, the port's first main path: ``Predictor`` answers batches
+   of 8 with the full-width ex1 SimpleTransformer (random weights from a
+   seed), for fourier and galerkin attention at n = 8192 and n = 2048,
+   timing each request on the host clock (numpy in, numpy out).  Outputs
    must be finite, of shape (8, n, 1), agree with the same weights run on
    the CPU through the plain path, and each attention type's kernel must
    launch exactly once per encoder layer per request;
-5. prints one {"kernels": [...]} line, then the result line
-   {"ok": true, "device": {...}}.
+6. training phase, the second main path: one ``train_step`` of the
+   full-width ex1 model on a batch of 8 at n = 2048 from ``BurgersDataset``
+   and ``DataLoader`` (synthetic Cole–Hopf data), on the card and on the
+   CPU from the same seed, for both attention types: losses and every
+   gradient must agree; then the median step time over timed steps, the
+   grid-points/s and the device's busy share; each step must launch
+   exactly 16 ``fourier_chain`` (fourier) or 4 ``galerkin_scores`` + 4
+   ``galerkin_scores_bwd`` (galerkin);
+7. driver phase: ``examples/ex1_burgers.py`` of the port, in-process, for
+   2 epochs; its losses must be finite, and its best checkpoint must load
+   into ``Predictor`` and serve a batch;
+8. prints one {"kernels": [...]} line (launches summed over the three main
+   paths), then the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a GPU it exits 1 and
 prints no result.
 """
 from __future__ import annotations
 
+import glob
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +55,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from galerkin_transformer_torch import Predictor, SimpleTransformer, load_config  # noqa: E402
+from galerkin_transformer_torch.data import BurgersDataset, DataLoader  # noqa: E402
+from galerkin_transformer_torch.examples import ex1_burgers  # noqa: E402
+from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss,  # noqa: E402
+                                              make_burgers_steps)
 from galerkin_transformer_torch.ops.cuda import _build  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import fourier as FC  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import galerkin as GS  # noqa: E402
@@ -65,6 +87,16 @@ TOL_FOURIER = 1e-3
 # served predictions vs the CPU plain path: four encoder layers and the DFT
 # regressor, each a float32 sum of up to 8192 terms in another order
 TOL_SERVE = 1e-3
+# one train step on the card vs the CPU: losses relative, gradients against
+# the largest entry of each (a forward and a backward through four layers)
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_GRAD = 1e-3
+SUBSAMPLE = 4                  # the ex1 default
+TRAIN_N = 8192 // SUBSAMPLE
+TRAIN_SAMPLES = 64
+TRAIN_STEPS = 12
+LAUNCHES_PER_STEP = {"fourier": {"fourier_chain": 16},
+                     "galerkin": {"galerkin_scores": 4, "galerkin_scores_bwd": 4}}
 
 
 def peaks_for(name: str) -> dict:
@@ -158,6 +190,83 @@ def fourier_phase(rng, dev, peak):
                 **bound(nbytes, flops, peak))
 
 
+def galerkin_bwd_phase(rng, dev, peak):
+    b, h, n, d_k, p = BATCH, 1, RESOLUTIONS[0], 96, 1
+    d_eff = d_k + p
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    k, v = (t(rng.standard_normal((b, h, n, d_k))) for _ in range(2))
+    pos = t(np.linspace(0, 1, n)[None, :, None].repeat(b, 0))
+    params = [t(1 + 0.1 * rng.standard_normal((h, d_k))), t(0.1 * rng.standard_normal((h, d_k))),
+              t(1 + 0.1 * rng.standard_normal((h, d_k))), t(0.1 * rng.standard_normal((h, d_k)))]
+    ds = t(rng.standard_normal((b, h, d_eff, d_eff)))
+    args = (k, v, pos, *params, ds)
+    got = GS.galerkin_scores_bwd(*args)
+    ref = GS.galerkin_scores_bwd_reference(*args)
+    torch.cuda.synchronize()
+    errs = []
+    for name, g, r in zip(("dk", "dv", "dpos", "dscale_k", "dbias_k", "dscale_v",
+                           "dbias_v"), got, ref):
+        err, scale = max_err(g, r)
+        errs.append(err)
+        print(f"galerkin_scores_bwd {name}: max_abs_err={err:.3e} max|ref|={scale:.3e} "
+              f"rel={err / scale:.3e} tol={TOL_GALERKIN:.0e}")
+        if not err <= TOL_GALERKIN * scale:
+            raise AssertionError(f"galerkin_scores_bwd {name} disagrees with its plain version")
+    again = GS.galerkin_scores_bwd(*args)
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError("galerkin_scores_bwd is not deterministic run to run")
+
+    # timed as the training path calls it: positions need no gradient
+    ms = time_ms(lambda: GS.galerkin_scores_bwd(*args, need_dpos=False), 50)
+    plain_ms = time_ms(lambda: GS.galerkin_scores_bwd_reference(*args), 20)
+    ph = pos[:, None].expand(b, h, n, p)
+    kc = torch.cat([ph, per_head_layer_norm(k, *params[:2])], -1)
+    vc = torch.cat([ph, per_head_layer_norm(v, *params[2:])], -1)
+    library_ms = time_ms(lambda: (torch.matmul(kc, ds),
+                                  torch.matmul(vc, ds.transpose(-2, -1))), 50)
+    # read k, v, pos, dS and the LN parameters; write dk, dv and their gradients
+    nbytes = 4 * (4 * b * h * n * d_k + b * n * p + b * h * d_eff * d_eff + 8 * h * d_k)
+    # the two row-by-matrix products, and LN forward (7 flops an element) and
+    # backward with the affine sums (11) for k and for v
+    flops = 4 * b * h * n * d_eff * d_eff + 2 * 18 * b * h * n * d_k
+    print(f"galerkin_scores_bwd (B,H,n,d_k,p)=({b},{h},{n},{d_k},{p}): {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library (two matmuls) {library_ms:.4f} ms")
+    return dict(name="galerkin_scores_bwd", route="cuda",
+                source="galerkin_transformer_torch/csrc/galerkin_scores_bwd.cu",
+                replaces="galerkin_transformer_tpu/ops/pallas/galerkin.py:208",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound(nbytes, flops, peak))
+
+
+def fourier_bwd_phase(rng, dev, peak):
+    """The backward of fourier attention at the training shape: three
+    fourier_chain launches, against fourier_attention_bwd_reference."""
+    bh, n, d = BATCH, TRAIN_N, 97
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    q, k, v, g = (t(rng.standard_normal((bh, 1, n, d))) for _ in range(4))
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(FC.fourier_attention_tiled(*xs), xs, g)
+    ref = FC.fourier_attention_bwd_reference(q, k, v, g)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dQ", "dK", "dV"), got, ref):
+        err, scale = max_err(a, r)
+        print(f"fourier backward {name} (BH,n,d)=({bh},{n},{d}): max_abs_err={err:.3e} "
+              f"max|ref|={scale:.3e} rel={err / scale:.3e} tol={TOL_FOURIER:.0e}")
+        if not err <= TOL_FOURIER * scale:
+            raise AssertionError(f"fourier backward {name} disagrees with its plain version")
+    flat = [x.reshape(bh, n, d) for x in (q, k, v, g)]
+    qf, kf, vf, gf = flat
+    sweeps = ((gf, vf, kf), (vf, gf, qf), (kf, qf, gf))
+    ms = time_ms(lambda: [FC.fourier_chain(*o) for o in sweeps], 3)
+    plain_ms = time_ms(lambda: FC.fourier_attention_bwd_reference(q, k, v, g), 3)
+    library_ms = time_ms(lambda: [torch.matmul(torch.matmul(a, b.transpose(1, 2)), c)
+                                  for a, b, c in sweeps], 3)
+    b_ = bound(3 * 4 * (bh * n * d * 4), 3 * 2 * bh * n * n * (d + d), peak)
+    print(f"fourier backward, three fourier_chain launches (BH,n,d)=({bh},{n},{d}): "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (2 matmuls x 3) "
+          f"{library_ms:.4f} ms, bound {b_['bound_ms']:.4f} ms ({b_['bound_by']})")
+
+
 def bound(nbytes: int, flops: int, peak: dict) -> dict:
     t_bytes = nbytes / peak["bytes"] * 1e3
     t_ops = flops / peak["f32_flops"] * 1e3
@@ -189,13 +298,19 @@ def request_breakdown(pred, batch, top: int = 5) -> str:
 
 def launches():
     return {"galerkin_scores": GS.galerkin_scores.launches,
+            "galerkin_scores_bwd": GS.galerkin_scores_bwd.launches,
             "fourier_chain": FC.fourier_chain.launches}
 
 
-def serving_phase(rng):
-    """The main path.  Returns the launch counts of its whole run."""
+def reset_launches():
     GS.galerkin_scores.launches = 0
+    GS.galerkin_scores_bwd.launches = 0
     FC.fourier_chain.launches = 0
+
+
+def serving_phase(rng):
+    """The first main path.  Returns the launch counts of its whole run."""
+    reset_launches()
     for attention_type in ATTENTION_TYPES:
         cfg = load_config("ex1_burgers")
         cfg["attention_type"] = attention_type
@@ -243,6 +358,114 @@ def serving_phase(rng):
     return launches()
 
 
+def step_breakdown(train_step, batch, top: int = 5) -> str:
+    """Device time of one train step by kernel (torch.profiler), and the
+    device's busy share of the step's host-clock time."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.device_time_total / 1e3, e.key) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    busy_ms = sum(ms for ms, _ in kernels)
+    top_k = ", ".join(f"{key[:48]} {ms:.3f}" for ms, key in sorted(kernels, reverse=True)[:top])
+    return (f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms profiled "
+            f"({100 * busy_ms / wall_ms:.1f} %); top kernels (ms): {top_k}")
+
+
+def training_phase():
+    """The second main path: the ex1 train step.  Returns the launch
+    counts of its whole run."""
+    reset_launches()
+    h = 1 / TRAIN_N
+    train = BurgersDataset(subsample=SUBSAMPLE, train_data=True, train_portion=0.5,
+                           n_samples_synthetic=TRAIN_SAMPLES)
+    batches = list(DataLoader(train, BATCH, shuffle=True, drop_last=True, seed=SEED))
+    batch = batches[0]
+    for attention_type in ATTENTION_TYPES:
+        cfg = load_config("ex1_burgers")
+        cfg["attention_type"] = attention_type
+        steps, models = {}, {}
+        for device in ("cuda", "cpu"):
+            model = SimpleTransformer.from_config(cfg, device=device, seed=SEED)
+            opt = AdamOneCycle(model.parameters(), 1e-3, 100 * len(batches))
+            steps[device] = make_burgers_steps(
+                model, WeightedL2Loss(regularizer=True, h=h, gamma=0.1),
+                WeightedL2Loss(h=h), opt)[0]
+            models[device] = model
+        before = launches()
+        got = [float(x) for x in steps["cuda"](batch)]
+        after = launches()
+        want = [float(x) for x in steps["cpu"](batch)]
+        for name in after:
+            n_want = LAUNCHES_PER_STEP[attention_type].get(name, 0)
+            if after[name] - before[name] != n_want:
+                raise AssertionError(f"train {attention_type}: {name} launched "
+                                     f"{after[name] - before[name]} times in one step, "
+                                     f"expected {n_want}")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want) if b != 0)
+        if not (all(math.isfinite(x) for x in got) and loss_err <= TOL_TRAIN_LOSS):
+            raise AssertionError(f"train {attention_type}: losses {got} vs CPU {want}")
+        cpu_grads = dict(models["cpu"].named_parameters())
+        grad_err = 0.0
+        for key, p in models["cuda"].named_parameters():
+            ref = cpu_grads[key].grad
+            err, scale = max_err(p.grad.cpu(), ref)
+            grad_err = max(grad_err, err / scale if scale > 0 else err)
+            if not err <= TOL_TRAIN_GRAD * scale:
+                raise AssertionError(f"train {attention_type}: gradient of {key} "
+                                     f"max_abs_err={err:.3e} max|ref|={scale:.3e}")
+
+        for b in batches[1:3]:   # warm-up
+            steps["cuda"](b)
+        torch.cuda.synchronize()
+        ms = []
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            steps["cuda"](batches[i % len(batches)])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms = statistics.median(ms)
+        print(f"train {attention_type} n={TRAIN_N} batch={BATCH}: losses {got} vs CPU "
+              f"{want} (max rel err {loss_err:.3e}, tol {TOL_TRAIN_LOSS:.0e}); gradients "
+              f"max err/max|g| {grad_err:.3e} (tol {TOL_TRAIN_GRAD:.0e}); "
+              f"launches/step {LAUNCHES_PER_STEP[attention_type]}")
+        print(f"train {attention_type} n={TRAIN_N} batch={BATCH}: median step "
+              f"{step_ms:.2f} ms over {TRAIN_STEPS} (min {min(ms):.2f}, max {max(ms):.2f}), "
+              f"{BATCH * TRAIN_N / step_ms * 1e3:.4e} grid-points/s")
+        print(f"  breakdown train {attention_type}: {step_breakdown(steps['cuda'], batch)}")
+    return launches()
+
+
+def driver_phase():
+    """The port's ex1 entry point for 2 epochs, then its best checkpoint
+    served.  Returns the launch counts of its run."""
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        val = ex1_burgers.main(["--n-samples", str(TRAIN_SAMPLES), "--epochs", "2"],
+                               model_save_path=tmp)
+        logs = [json.loads(line) for f in glob.glob(os.path.join(tmp, "*.jsonl"))
+                for line in open(f)]
+        ckpts = glob.glob(os.path.join(tmp, "*.ckpt"))
+        if not (math.isfinite(val) and len(logs) == 2 and len(ckpts) == 1
+                and all(math.isfinite(x) for e in logs for x in e["loss"])):
+            raise AssertionError(f"driver: val={val}, epochs logged {len(logs)}, "
+                                 f"checkpoints {ckpts}")
+        cfg = load_config("ex1_burgers")
+        pred = Predictor.from_checkpoint(SimpleTransformer.from_config(cfg, seed=1), ckpts[0])
+    valid = BurgersDataset(subsample=SUBSAMPLE, train_data=False, valid_portion=100,
+                           n_samples_synthetic=TRAIN_SAMPLES)
+    batch = next(iter(DataLoader(valid, 4)))
+    out = pred(batch)
+    if out.shape != (4, TRAIN_N, 1) or not np.isfinite(out).all():
+        raise AssertionError(f"driver: served checkpoint gave {out.shape}")
+    print(f"driver: 2 epochs, best validation metric {val:.4e}; the best checkpoint "
+          f"served a batch of {out.shape}")
+    return launches()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -268,10 +491,13 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
-    kernels = [fourier_phase(rng, dev, peak), galerkin_phase(rng, dev, peak)]
-    counts = serving_phase(rng)
+    kernels = [fourier_phase(rng, dev, peak), galerkin_phase(rng, dev, peak),
+               galerkin_bwd_phase(rng, dev, peak)]
+    fourier_bwd_phase(rng, dev, peak)
+    paths = [serving_phase(rng), training_phase(), driver_phase()]
+    print(f"launches by main path (serving, training, driver): {paths}")
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = sum(c[k["name"]] for c in paths)
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

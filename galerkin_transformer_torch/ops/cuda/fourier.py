@@ -6,7 +6,10 @@ without storing the score matrix.  On a CUDA tensor it launches
 ``csrc/fourier_chain.cu``; on a CPU tensor it runs
 ``fourier_chain_reference``, the plain PyTorch version.  Anything else
 raises.  ``fourier_attention_tiled`` is the attention on top of it:
-(Q Kᵀ · s) V with s = 1/(√d·n), d counting the pos columns.
+(Q Kᵀ · s) V with s = 1/(√d·n), d counting the pos columns, differentiable
+through ``FourierAttention`` (the counterpart of the custom VJP
+``_fourier_fwd``/``_fourier_bwd``): its backward is three more chain
+launches, and nothing n×n is ever stored.
 """
 from __future__ import annotations
 
@@ -53,9 +56,6 @@ def _check(a, b, c):
             raise TypeError(f"the kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, c)):
-        raise NotImplementedError("fourier_chain has no backward kernel yet; "
-                                  "run under torch.no_grad()/inference_mode()")
 
 
 def fourier_chain(a, b, c) -> torch.Tensor:
@@ -87,14 +87,51 @@ def fourier_chain(a, b, c) -> torch.Tensor:
 fourier_chain.launches = 0
 
 
+def fourier_attention_bwd_reference(q, k, v, g):
+    """Plain PyTorch (dQ, dK, dV) of `fourier_attention_tiled` given g, the
+    gradient of its output, through `fourier_chain_reference`
+    (``_fourier_bwd``).  q, k, v, g: (B, H, n, d)."""
+    return _fourier_bwd(q, k, v, g, fourier_chain_reference)
+
+
+def _flatten(x):
+    b, h, n, d = x.shape
+    return x.reshape(b * h, n, d)
+
+
+def _fourier_bwd(q, k, v, g, chain, needs=(True, True, True)):
+    b, h, n, d = q.shape
+    s = 1.0 / (math.sqrt(d) * n)
+    gf = _flatten(g.float().contiguous())
+    qf, kf, vf = _flatten(q), _flatten(k), _flatten(v)
+    # dQ = (g Vᵀ) K · s; dK = (V gᵀ) Q · s (rows are k positions); dV = (K Qᵀ) g · s
+    operands = ((gf, vf, kf, q), (vf, gf, qf, k), (kf, qf, gf, v))
+    return tuple((chain(a, bb, c) * s).to(x.dtype).reshape(x.shape) if need else None
+                 for (a, bb, c, x), need in zip(operands, needs))
+
+
+class FourierAttention(torch.autograd.Function):
+    """(Q Kᵀ · s) V through `fourier_chain`; saves q, k, v, never the scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        b, h, n, d = q.shape
+        s = 1.0 / (math.sqrt(d) * n)
+        ctx.save_for_backward(q, k, v)
+        out = fourier_chain(_flatten(q), _flatten(k), _flatten(v))
+        return (out * s).to(q.dtype).reshape(b, h, n, v.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return _fourier_bwd(q, k, v, g, fourier_chain, ctx.needs_input_grad)
+
+
 def fourier_attention_tiled(q, k, v):
     """out = (Q Kᵀ · s) V through `fourier_chain`; q, k, v: (B, H, n, d).
 
     s = 1/(√d·n), d the last dim of q (pos columns included).
-    Returns (B, H, n, d) in q's dtype.
+    Returns (B, H, n, d) in q's dtype.  Differentiable: the backward runs
+    `fourier_chain` once for each of q, k, v that needs a gradient.
     """
-    b, h, n, d = q.shape
-    s = 1.0 / (math.sqrt(d) * n)
-    flat = (x.reshape(b * h, n, x.shape[-1]) for x in (q, k, v))
-    out = fourier_chain(*flat)
-    return (out * s).to(q.dtype).reshape(b, h, n, v.shape[-1])
+    return FourierAttention.apply(q, k, v)

@@ -58,8 +58,11 @@ def _dft_mats_1d(n: int, modes: int):
 
 @functools.lru_cache(maxsize=16)
 def _dft_mats_1d_on(n: int, modes: int, device: torch.device):
-    """The matrices of `_dft_mats_1d`, copied once to `device`."""
-    return tuple(torch.from_numpy(m).to(device) for m in _dft_mats_1d(n, modes))
+    """The matrices of `_dft_mats_1d`, copied once to `device`.  Made as
+    normal tensors even when the first caller runs under inference_mode
+    (a Predictor), so that training can save them for backward."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(m).to(device) for m in _dft_mats_1d(n, modes))
 
 
 def spectral_conv_1d_dft(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

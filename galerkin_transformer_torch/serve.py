@@ -14,6 +14,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .train.checkpoint import load_checkpoint
 from .utils.device import resolve_device
 
 
@@ -33,10 +34,9 @@ class Predictor:
     def from_checkpoint(cls, model: torch.nn.Module, checkpoint_path: str,
                         normalizer: Optional[Tuple] = None,
                         device: Optional[Union[str, torch.device]] = None):
-        """Load a ``torch.save``'d state_dict of the port into `model`."""
-        state = torch.load(checkpoint_path, map_location="cpu",
-                           weights_only=True)
-        model.load_state_dict(state)
+        """Load the weights of a training checkpoint
+        (``train.checkpoint.save_checkpoint``) into `model`."""
+        model.load_state_dict(load_checkpoint(checkpoint_path)["params"])
         return cls(model, normalizer=normalizer, device=device)
 
     def __call__(self, batch: dict) -> np.ndarray:

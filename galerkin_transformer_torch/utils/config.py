@@ -1,4 +1,4 @@
-"""Model configs as Python dicts.
+"""Model configs as Python dicts, and the data and checkpoint directories.
 
 The port does not read ``config.yml``: the GPU machine has no YAML
 parser.  Each block here mirrors its block of ``config.yml`` key for key
@@ -7,6 +7,12 @@ parser.  Each block here mirrors its block of ``config.yml`` key for key
 from __future__ import annotations
 
 import copy
+import os
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# the JAX package's default directories (both listed in .gitignore)
+MODEL_PATH = os.environ.get("MODEL_PATH", os.path.join(REPO_ROOT, "models_ckpt"))
+DATA_PATH = os.environ.get("DATA_PATH", os.path.join(REPO_ROOT, "data_files"))
 
 # config.yml:4-39
 EX1_BURGERS = {

@@ -95,3 +95,104 @@ def test_galerkin_attention_fused_matches_pallas_attention():
         *(torch.from_numpy(a) for a in (q, k, v, pos, *params)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=1e-4, atol=1e-5)
+
+
+# ----------------------------------------------------------------- backward
+
+@pytest.mark.parametrize("p", [1, None])
+def test_galerkin_scores_bwd_reference_matches_jax_vjp(p):
+    from galerkin_transformer_tpu.ops.pallas.galerkin import galerkin_scores_fused
+    n, d = 200, 16
+    k, v, pos, params = _galerkin_inputs(2, 2, n, d, p, seed=11)
+    d_eff = d + (p or 0)
+    ds = np.random.default_rng(12).standard_normal((2, 2, d_eff, d_eff)).astype(np.float32)
+    j = lambda a: None if a is None else jnp.asarray(a)
+    if p is None:
+        fn = lambda k_, v_, *ps: galerkin_scores_fused(k_, v_, None, *ps, 1e-5, 128, INTERPRET)
+        _, vjp = jax.vjp(fn, j(k), j(v), *(j(a) for a in params))
+        want = vjp(jnp.asarray(ds))
+        want = want[:2] + (None,) + want[2:]
+    else:
+        fn = lambda *xs: galerkin_scores_fused(*xs, 1e-5, 128, INTERPRET)
+        _, vjp = jax.vjp(fn, j(k), j(v), j(pos), *(j(a) for a in params))
+        want = vjp(jnp.asarray(ds))
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    got = TG.galerkin_scores_bwd_reference(t(k), t(v), t(pos), *(t(a) for a in params),
+                                           t(ds))
+    assert len(got) == 7
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n", [128, 200])
+def test_fourier_attention_grads_match_jax_vjp(n):
+    rng = np.random.default_rng(n + 1)
+    q, k, v, g = (rng.standard_normal((2, 2, n, 17)).astype(np.float32) for _ in range(4))
+    fn = lambda *xs: j_fourier(*xs, tile_q=128, tile_k=128, interpret=INTERPRET)
+    _, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    TF.fourier_attention_tiled(*ts).backward(torch.from_numpy(g))
+    for t, w in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
+    ref = TF.fourier_attention_bwd_reference(*(torch.from_numpy(a) for a in (q, k, v, g)))
+    for r, w in zip(ref, want):
+        np.testing.assert_allclose(r.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("p", [1, None])
+def test_galerkin_scores_function_matches_autograd_of_plain_forward(p):
+    k, v, pos, params = _galerkin_inputs(2, 3, 50, 8, p, seed=21)
+    ds = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (2, 3, 8 + (p or 0), 8 + (p or 0))).astype(np.float32))
+
+    def grads(fn):
+        xs = [None if a is None else torch.from_numpy(a.copy()).requires_grad_()
+              for a in (k, v, pos, *params)]
+        fn(*xs).backward(ds)
+        return [None if x is None else x.grad for x in xs]
+
+    got = grads(TG.galerkin_scores)
+    want = grads(TG.galerkin_scores_reference)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_galerkin_scores_function_skips_dpos_for_positions_without_grad():
+    k, v, pos, params = _galerkin_inputs(1, 2, 40, 8, 1, seed=3)
+    xs = [torch.from_numpy(a).requires_grad_() for a in (k, v, *params)]
+    pos_t = torch.from_numpy(pos)
+    TG.galerkin_scores(xs[0], xs[1], pos_t, *xs[2:]).sum().backward()
+    assert pos_t.grad is None
+    assert all(x.grad is not None and torch.isfinite(x.grad).all() for x in xs)
+
+
+def test_fourier_attention_function_matches_autograd_of_plain_forward():
+    from galerkin_transformer_torch.ops.attention import fourier_attention
+    rng = np.random.default_rng(5)
+    arrays = [rng.standard_normal((2, 1, 60, 9)).astype(np.float32) for _ in range(3)]
+    g = torch.from_numpy(rng.standard_normal((2, 1, 60, 9)).astype(np.float32))
+    a = [torch.from_numpy(x).requires_grad_() for x in arrays]
+    b = [torch.from_numpy(x).requires_grad_() for x in arrays]
+    TF.fourier_attention_tiled(*a).backward(g)
+    fourier_attention(*b)[0].backward(g)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-5, atol=1e-6)
+
+
+def test_backward_on_cpu_counts_no_launch():
+    TG.galerkin_scores_bwd.launches = 0
+    TF.fourier_chain.launches = 0
+    k, v, pos, params = _galerkin_inputs(1, 1, 30, 8, 1, seed=4)
+    xs = [torch.from_numpy(a).requires_grad_() for a in (k, v, *params)]
+    TG.galerkin_scores(xs[0], xs[1], torch.from_numpy(pos), *xs[2:]).sum().backward()
+    q = torch.from_numpy(k[0]).requires_grad_()
+    TF.fourier_attention_tiled(q[None], q[None], q[None]).sum().backward()
+    assert TG.galerkin_scores_bwd.launches == 0
+    assert TF.fourier_chain.launches == 0

@@ -15,6 +15,7 @@ from galerkin_transformer_tpu.serve import Predictor as JaxPredictor
 from galerkin_transformer_tpu.utils import load_config as jax_load_config
 from galerkin_transformer_tpu.utils.torch_compat import convert_state_dict
 from galerkin_transformer_torch import Predictor, SimpleTransformer, load_config
+from galerkin_transformer_torch.train.checkpoint import save_checkpoint
 from galerkin_transformer_torch.utils.weights import params_from_jax
 
 RTOL, ATOL = 1e-3, 1e-4   # tests/test_torch_compat.py
@@ -120,8 +121,8 @@ def test_predictor_serves_two_resolutions_like_jax(attention_type, tmp_path):
     cfg = _small_cfg(attention_type)
     b64, b128 = _batch(64), _batch(128, seed=1)
     jmodel, params = _jax_params(cfg, b64)
-    ckpt = tmp_path / "port.pt"
-    torch.save(params_from_jax(params), ckpt)
+    ckpt = tmp_path / "port.ckpt"
+    save_checkpoint(str(ckpt), params_from_jax(params))
     model = SimpleTransformer.from_config(cfg, device="cpu", seed=9)
     pred = Predictor.from_checkpoint(model, str(ckpt), device="cpu")
     jpred = JaxPredictor(jmodel, params)

@@ -144,3 +144,21 @@ def test_initializers_statistics():
     a = scaled_xavier_uniform(torch.empty(4, 4), torch.Generator().manual_seed(3))
     b = scaled_xavier_uniform(torch.empty(4, 4), torch.Generator().manual_seed(3))
     torch.testing.assert_close(a, b)
+
+
+def test_dft_basis_cached_while_serving_still_trains():
+    # the basis is cached per (n, modes, device); when a Predictor (under
+    # inference_mode) fills the cache first, training must still be able to
+    # save it for backward
+    from galerkin_transformer_torch.ops.spectral import spectral_conv_1d_dft
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 46, 3)).astype(np.float32))
+    w = torch.complex(*(torch.from_numpy(rng.standard_normal((3, 2, 5)).astype(np.float32))
+                        for _ in range(2)))
+    with torch.inference_mode():
+        want = spectral_conv_1d_dft(x, w)
+    wp = torch.nn.Parameter(torch.view_as_real(w).clone())
+    got = spectral_conv_1d_dft(x, torch.view_as_complex(wp))
+    got.square().sum().backward()
+    torch.testing.assert_close(got.detach(), want)
+    assert wp.grad is not None and torch.isfinite(wp.grad).all()

@@ -6,9 +6,13 @@
 1. prints the card (nvidia-smi) and turns TF32 off;
 2. builds every CUDA kernel of the port from galerkin_transformer_torch/csrc
    (one nvcc per source, in parallel, into build/);
-3. kernel phases at the ex1 serving shapes: each kernel against its plain
+3. kernel phases at the serving shapes: each kernel against its plain
    PyTorch version on the same inputs, with its time, the plain version's,
-   one PyTorch library call's as a yardstick, and the card's bound;
+   one PyTorch library call's as a yardstick, and the card's bound: the
+   float32 ``fourier_chain`` and ``galerkin_scores`` at the ex1 shapes,
+   ``galerkin_scores`` again at the ex2 shape, and the bfloat16 tensor-core
+   kernels ``galerkin_scores_bf16`` (ex1 and ex2 shapes) and
+   ``fourier_chain_bf16`` (ex1 shape);
 4. backward kernel phases: ``galerkin_scores_bwd`` at the ex1 shape
    against its plain version (and bit-equal on a second call), and the
    fourier attention backward (three ``fourier_chain`` launches) at the
@@ -19,7 +23,18 @@
    timing each request on the host clock (numpy in, numpy out).  Outputs
    must be finite, of shape (8, n, 1), agree with the same weights run on
    the CPU through the plain path, and each attention type's kernel must
-   launch exactly once per encoder layer per request;
+   launch exactly once per encoder layer per request; then the same with
+   ``dtype=torch.bfloat16`` (the bfloat16 kernels, against the CPU's
+   bfloat16 plain path);
+   2D serving phase, the third main path: ``Predictor`` answers batches of 4
+   with the full-width ex2 Darcy FourierTransformer2D (random weights from a
+   seed, a normalizer, the Dirichlet boundary) at (n_f, n_c) = (141, 43) and
+   (211, 71), in float32 and bfloat16: outputs finite, of shape
+   (4, n_f, n_f, 1), zero on the boundary ring, agreeing with the CPU plain
+   path (float32: to 1e-3 of how far the model's own part of the output
+   varies over the grid, the normalizer undone; bfloat16: to 2^-6 of that
+   part's largest entry), with exactly 6 launches of the matching galerkin
+   kernel per request;
 6. training phase, the second main path: one ``train_step`` of the
    full-width ex1 model on a batch of 8 at n = 2048 from ``BurgersDataset``
    and ``DataLoader`` (synthetic Cole–Hopf data), on the card and on the
@@ -31,7 +46,7 @@
 7. driver phase: ``examples/ex1_burgers.py`` of the port, in-process, for
    2 epochs; its losses must be finite, and its best checkpoint must load
    into ``Predictor`` and serve a batch;
-8. prints one {"kernels": [...]} line (launches summed over the three main
+8. prints one {"kernels": [...]} line (launches summed over the main
    paths), then the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a GPU it exits 1 and
@@ -54,8 +69,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from galerkin_transformer_torch import Predictor, SimpleTransformer, load_config  # noqa: E402
-from galerkin_transformer_torch.data import BurgersDataset, DataLoader  # noqa: E402
+from galerkin_transformer_torch import (FourierTransformer2D, Predictor,  # noqa: E402
+                                        SimpleTransformer, load_config)
+from galerkin_transformer_torch.data import (BurgersDataset, DataLoader,  # noqa: E402
+                                             darcy_grids, get_scaler_sizes)
 from galerkin_transformer_torch.examples import ex1_burgers  # noqa: E402
 from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss,  # noqa: E402
                                               make_burgers_steps)
@@ -69,24 +86,41 @@ BATCH = 8
 RESOLUTIONS = (8192, 2048)      # the full 2^13 Burgers grid and subsample 4
 REQUESTS = 5
 ATTENTION_TYPES = ("fourier", "galerkin")
-KERNEL_OF = {"fourier": "fourier_chain", "galerkin": "galerkin_scores"}
+KERNEL_OF = {("fourier", None): "fourier_chain",
+             ("galerkin", None): "galerkin_scores",
+             ("fourier", torch.bfloat16): "fourier_chain_bf16",
+             ("galerkin", torch.bfloat16): "galerkin_scores_bf16"}
+DTYPES = (None, torch.bfloat16)     # the encoder's compute type; None is float32
+BATCH_2D = 4
+GRIDS_2D = ((141, 43), (211, 71))   # (n_f, n_c): the ex2 example's defaults on the
+                                    # 421 grid (subsample 3 / 10), and the paper's fine setting
 SPIN_CYCLES = 200_000_000     # ~0.1 s at 2 GHz: longer than queueing the timed calls
 
-# float32 outside the tensor cores and memory rate, dense, at the full power
-# limit (NVIDIA H100 data sheet)
+# float32 outside the tensor cores, dense bfloat16 on the tensor cores, and
+# memory rate, at the full power limit (NVIDIA H100 data sheet)
 PEAKS = {
-    "H100 SXM": dict(f32_flops=67e12, bytes=3.35e12),
-    "H100 PCIe": dict(f32_flops=51e12, bytes=2.0e12),
-    "H100 NVL": dict(f32_flops=60e12, bytes=3.9e12),
+    "H100 SXM": dict(f32_flops=67e12, bf16_flops=989e12, bytes=3.35e12),
+    "H100 PCIe": dict(f32_flops=51e12, bf16_flops=756e12, bytes=2.0e12),
+    "H100 NVL": dict(f32_flops=60e12, bf16_flops=835e12, bytes=3.9e12),
 }
 
 # kernel vs plain version on the same card: float32 sums over n = 8192 terms
 # taken in another order; measured relative to the largest entry
 TOL_GALERKIN = 1e-4
 TOL_FOURIER = 1e-3
+# a bfloat16 kernel vs its plain version: both round the same float32 values
+# to bfloat16 and sum the same products in float32, in another order; a value
+# on a rounding boundary may round the other way (one bfloat16 step, 2^-8, of
+# one term)
+TOL_BF16_KERNEL = 1e-3
 # served predictions vs the CPU plain path: four encoder layers and the DFT
 # regressor, each a float32 sum of up to 8192 terms in another order
 TOL_SERVE = 1e-3
+# bfloat16 serving vs the CPU's bfloat16 plain path: every matrix product of
+# the encoder (cuBLAS there, oneDNN here) sums in another order before it
+# rounds to bfloat16, so activations differ by single bfloat16 steps (2^-8)
+# that add up over the layers: four steps of the largest output
+TOL_SERVE_BF16 = 2.0 ** -6
 # one train step on the card vs the CPU: losses relative, gradients against
 # the largest entry of each (a forward and a backward through four layers)
 TOL_TRAIN_LOSS = 1e-4
@@ -129,26 +163,47 @@ def max_err(got, ref):
     return (got - ref).abs().max().item(), ref.abs().max().item()
 
 
-def galerkin_phase(rng, dev, peak):
-    b, h, n, d_k, p = BATCH, 1, RESOLUTIONS[0], 96, 1
+def _tensor(a, dev, dtype=None):
+    t = torch.from_numpy(a.astype(np.float32)).to(dev)
+    return t if dtype is None else t.to(dtype)
+
+
+def galerkin_phase(rng, dev, peak, shape=(BATCH, 1, RESOLUTIONS[0], 96, 1), dtype=None,
+                   eps=1e-5):
+    """`galerkin_scores` (float32) or `galerkin_scores_bf16` at
+    (B, H, n, d_k, p): against the plain version, bit-equal run to run, timed."""
+    b, h, n, d_k, p = shape
     d_eff = d_k + p
-    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
-    k, v = (t(rng.standard_normal((b, h, n, d_k))) for _ in range(2))
-    pos = t(np.linspace(0, 1, n)[None, :, None].repeat(b, 0))
-    params = [t(1 + 0.1 * rng.standard_normal((h, d_k))), t(0.1 * rng.standard_normal((h, d_k))),
-              t(1 + 0.1 * rng.standard_normal((h, d_k))), t(0.1 * rng.standard_normal((h, d_k)))]
-    args = (k, v, pos, *params)
+    bf16 = dtype == torch.bfloat16
+    name = "galerkin_scores_bf16" if bf16 else "galerkin_scores"
+    tol = TOL_BF16_KERNEL if bf16 else TOL_GALERKIN
+    k, v = (_tensor(rng.standard_normal((b, h, n, d_k)), dev, dtype) for _ in range(2))
+    if p == 1:
+        pos = np.linspace(0, 1, n)[None, :, None].repeat(b, 0)
+    else:   # the nodes of a square grid, as the 2D model passes them
+        side = math.isqrt(n)
+        pos = darcy_grids(side, side)[0][None].repeat(b, 0)
+    pos = _tensor(pos, dev, dtype)
+    params = [_tensor(1 + 0.1 * rng.standard_normal((h, d_k)), dev),
+              _tensor(0.1 * rng.standard_normal((h, d_k)), dev),
+              _tensor(1 + 0.1 * rng.standard_normal((h, d_k)), dev),
+              _tensor(0.1 * rng.standard_normal((h, d_k)), dev)]
+    args = (k, v, pos, *params, eps)
+    counter = COUNTERS[name]
+    before = counter.launches
     got = GS.galerkin_scores(*args)
+    if counter.launches != before + 1:
+        raise AssertionError(f"{name} did not count its launch")
     ref = GS.galerkin_scores_reference(*args)
     torch.cuda.synchronize()
     err, scale = max_err(got, ref)
-    print(f"galerkin_scores (B,H,n,d_k,p)=({b},{h},{n},{d_k},{p}): max_abs_err={err:.3e} "
-          f"max|ref|={scale:.3e} rel={err / scale:.3e} tol={TOL_GALERKIN:.0e}")
-    if not err <= TOL_GALERKIN * scale:
-        raise AssertionError("galerkin_scores disagrees with its plain version")
+    print(f"{name} (B,H,n,d_k,p)=({b},{h},{n},{d_k},{p}) eps={eps:.0e}: "
+          f"max_abs_err={err:.3e} max|ref|={scale:.3e} rel={err / scale:.3e} tol={tol:.0e}")
+    if not err <= tol * scale:
+        raise AssertionError(f"{name} disagrees with its plain version")
     again = GS.galerkin_scores(*args)
     if not torch.equal(got, again):
-        raise AssertionError("galerkin_scores is not deterministic run to run")
+        raise AssertionError(f"{name} is not deterministic run to run")
 
     ms = time_ms(lambda: GS.galerkin_scores(*args), 50)
     plain_ms = time_ms(lambda: GS.galerkin_scores_reference(*args), 20)
@@ -156,38 +211,57 @@ def galerkin_phase(rng, dev, peak):
     kc = torch.cat([ph, per_head_layer_norm(k, *params[:2])], -1)
     vc = torch.cat([ph, per_head_layer_norm(v, *params[2:])], -1)
     library_ms = time_ms(lambda: torch.matmul(kc.transpose(-2, -1), vc), 50)
-    nbytes = 4 * (2 * b * h * n * d_k + b * n * p + 4 * h * d_k + b * h * d_eff * d_eff)
+    size = 2 if bf16 else 4
+    nbytes = (size * (2 * b * h * n * d_k + b * n * p)
+              + 4 * (4 * h * d_k + b * h * d_eff * d_eff))
     flops = 2 * b * h * n * d_eff * d_eff + 2 * 8 * b * h * n * d_k   # product + LN
-    return dict(name="galerkin_scores", route="cuda",
-                source="galerkin_transformer_torch/csrc/galerkin_scores.cu",
-                replaces="galerkin_transformer_tpu/ops/pallas/galerkin.py:46",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bound(nbytes, flops, peak))
+    res = dict(name=name, route="cuda",
+               source=f"galerkin_transformer_torch/csrc/{name}.cu",
+               replaces="galerkin_transformer_tpu/ops/pallas/galerkin.py:46",
+               shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               **bound(nbytes, flops, peak, "bf16_flops" if bf16 else "f32_flops"))
+    print(f"  {ms:.4f} ms, plain {plain_ms:.4f} ms, library (matmul of the normalised "
+          f"concatenations) {library_ms:.4f} ms, bound {res['bound_ms']:.5f} ms "
+          f"({res['bound_by']})")
+    return res
 
 
-def fourier_phase(rng, dev, peak):
+def fourier_phase(rng, dev, peak, dtype=None):
+    """`fourier_chain` (float32) or `fourier_chain_bf16` at the ex1 shape."""
     bh, n, d = BATCH, RESOLUTIONS[0], 97    # d = 96 + the pos column
-    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
-    a, b, c = (t(rng.standard_normal((bh, n, d))) for _ in range(3))
+    bf16 = dtype == torch.bfloat16
+    name = "fourier_chain_bf16" if bf16 else "fourier_chain"
+    tol = TOL_BF16_KERNEL if bf16 else TOL_FOURIER
+    a, b, c = (_tensor(rng.standard_normal((bh, n, d)), dev, dtype) for _ in range(3))
+    counter = COUNTERS[name]
+    before = counter.launches
     got = FC.fourier_chain(a, b, c)
+    if counter.launches != before + 1:
+        raise AssertionError(f"{name} did not count its launch")
     ref = FC.fourier_chain_reference(a, b, c)
     torch.cuda.synchronize()
     err, scale = max_err(got, ref)
-    print(f"fourier_chain (BH,R=M,d)=({bh},{n},{d}): max_abs_err={err:.3e} "
-          f"max|ref|={scale:.3e} rel={err / scale:.3e} tol={TOL_FOURIER:.0e}")
-    if not err <= TOL_FOURIER * scale:
-        raise AssertionError("fourier_chain disagrees with its plain version")
+    print(f"{name} (BH,R=M,d)=({bh},{n},{d}): max_abs_err={err:.3e} "
+          f"max|ref|={scale:.3e} rel={err / scale:.3e} tol={tol:.0e}")
+    if not err <= tol * scale:
+        raise AssertionError(f"{name} disagrees with its plain version")
 
     ms = time_ms(lambda: FC.fourier_chain(a, b, c), 5)
     plain_ms = time_ms(lambda: FC.fourier_chain_reference(a, b, c), 3)
     library_ms = time_ms(lambda: torch.matmul(torch.matmul(a, b.transpose(1, 2)), c), 3)
-    nbytes = 4 * (bh * n * d * 4)               # a, b, c read once, out written once
+    # a, b, c read once, out (float32) written once
+    nbytes = (2 if bf16 else 4) * (bh * n * d * 3) + 4 * bh * n * d
     flops = 2 * bh * n * n * (d + d)
-    return dict(name="fourier_chain", route="cuda",
-                source="galerkin_transformer_torch/csrc/fourier_chain.cu",
-                replaces="galerkin_transformer_tpu/ops/pallas/fourier.py:31",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bound(nbytes, flops, peak))
+    res = dict(name=name, route="cuda",
+               source=f"galerkin_transformer_torch/csrc/{name}.cu",
+               replaces="galerkin_transformer_tpu/ops/pallas/fourier.py:31",
+               shape=[bh, n, d], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               **bound(nbytes, flops, peak, "bf16_flops" if bf16 else "f32_flops"))
+    print(f"  {ms:.4f} ms, plain {plain_ms:.4f} ms, library ((a@b^T)@c, two matmuls) "
+          f"{library_ms:.4f} ms, bound {res['bound_ms']:.5f} ms ({res['bound_by']})")
+    return res
 
 
 def galerkin_bwd_phase(rng, dev, peak):
@@ -234,7 +308,7 @@ def galerkin_bwd_phase(rng, dev, peak):
     return dict(name="galerkin_scores_bwd", route="cuda",
                 source="galerkin_transformer_torch/csrc/galerkin_scores_bwd.cu",
                 replaces="galerkin_transformer_tpu/ops/pallas/galerkin.py:208",
-                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                shape=[b, h, n, d_k, p], max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 **bound(nbytes, flops, peak))
 
 
@@ -267,9 +341,11 @@ def fourier_bwd_phase(rng, dev, peak):
           f"{library_ms:.4f} ms, bound {b_['bound_ms']:.4f} ms ({b_['bound_by']})")
 
 
-def bound(nbytes: int, flops: int, peak: dict) -> dict:
+def bound(nbytes: int, flops: int, peak: dict, rate: str = "f32_flops") -> dict:
+    """The least time the card could take: bytes over its memory rate or
+    operations over its peak `rate`, whichever is larger."""
     t_bytes = nbytes / peak["bytes"] * 1e3
-    t_ops = flops / peak["f32_flops"] * 1e3
+    t_ops = flops / peak[rate] * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -280,91 +356,14 @@ def make_batch(rng, n):
     return dict(node=node, pos=pos, grid=pos)
 
 
-def request_breakdown(pred, batch, top: int = 5) -> str:
-    """Device time of one request by kernel (torch.profiler), and the
-    device's busy share of the request's host-clock time."""
+def breakdown(work, top: int = 5) -> str:
+    """Device time of one `work()` call (a served request, or a train step)
+    by kernel (torch.profiler), and the device's busy share of its
+    host-clock time, the final synchronize included."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred(batch)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.device_time_total / 1e3, e.key) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-    busy_ms = sum(ms for ms, _ in kernels)
-    top_k = ", ".join(f"{key[:48]} {ms:.3f}" for ms, key in sorted(kernels, reverse=True)[:top])
-    return (f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms profiled "
-            f"({100 * busy_ms / wall_ms:.1f} %); top kernels (ms): {top_k}")
-
-
-def launches():
-    return {"galerkin_scores": GS.galerkin_scores.launches,
-            "galerkin_scores_bwd": GS.galerkin_scores_bwd.launches,
-            "fourier_chain": FC.fourier_chain.launches}
-
-
-def reset_launches():
-    GS.galerkin_scores.launches = 0
-    GS.galerkin_scores_bwd.launches = 0
-    FC.fourier_chain.launches = 0
-
-
-def serving_phase(rng):
-    """The first main path.  Returns the launch counts of its whole run."""
-    reset_launches()
-    for attention_type in ATTENTION_TYPES:
-        cfg = load_config("ex1_burgers")
-        cfg["attention_type"] = attention_type
-        n_layers = cfg["num_encoder_layers"]
-        gpu = Predictor(SimpleTransformer.from_config(cfg, device="cuda", seed=SEED))
-        cpu = Predictor(SimpleTransformer.from_config(cfg, device="cpu", seed=SEED),
-                        device="cpu")
-        for key, w in gpu.model.state_dict().items():
-            if not torch.equal(w.cpu(), cpu.model.state_dict()[key]):
-                raise AssertionError(f"seeded weights differ at {key}")
-        for n in RESOLUTIONS:
-            batches = [make_batch(rng, n) for _ in range(REQUESTS)]
-            gpu.warmup(batches[0])
-            before = launches()
-            outs, ms = [], []
-            for batch in batches:   # Predictor returns numpy: each call ends synchronized
-                t0 = time.perf_counter()
-                outs.append(gpu(batch))
-                ms.append((time.perf_counter() - t0) * 1e3)
-            after = launches()
-            for name in after:
-                want = n_layers * REQUESTS if name == KERNEL_OF[attention_type] else 0
-                if after[name] - before[name] != want:
-                    raise AssertionError(
-                        f"{attention_type} n={n}: {name} launched "
-                        f"{after[name] - before[name]} times in {REQUESTS} requests, "
-                        f"expected {want}")
-            for out in outs:
-                if out.shape != (BATCH, n, 1) or not np.isfinite(out).all():
-                    raise AssertionError(f"{attention_type} n={n}: bad output "
-                                         f"{out.shape}, finite={np.isfinite(out).all()}")
-            ref = cpu(batches[0])
-            err = float(np.abs(outs[0] - ref).max())
-            scale = float(np.abs(ref).max())
-            latency = statistics.median(ms)
-            print(f"serve {attention_type} n={n} batch={BATCH}: median request "
-                  f"{latency:.2f} ms over {REQUESTS} (min {min(ms):.2f}, max {max(ms):.2f}), "
-                  f"{BATCH * n / latency * 1e3:.4e} grid-points/s, "
-                  f"{KERNEL_OF[attention_type]} launches/request={n_layers}, "
-                  f"vs CPU plain path max_abs_err={err:.3e} max|ref|={scale:.3e} "
-                  f"tol={TOL_SERVE:.0e}")
-            if not err <= TOL_SERVE * scale:
-                raise AssertionError(f"{attention_type} n={n}: GPU and CPU disagree")
-            print(f"  breakdown {attention_type} n={n}: {request_breakdown(gpu, batches[1])}")
-    return launches()
-
-
-def step_breakdown(train_step, batch, top: int = 5) -> str:
-    """Device time of one train step by kernel (torch.profiler), and the
-    device's busy share of the step's host-clock time."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(batch)
+        work()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.device_time_total / 1e3, e.key) for e in prof.key_averages()
@@ -373,6 +372,162 @@ def step_breakdown(train_step, batch, top: int = 5) -> str:
     top_k = ", ".join(f"{key[:48]} {ms:.3f}" for ms, key in sorted(kernels, reverse=True)[:top])
     return (f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms profiled "
             f"({100 * busy_ms / wall_ms:.1f} %); top kernels (ms): {top_k}")
+
+
+# each wrapper counts its kernel's launches on itself
+COUNTERS = {"galerkin_scores": GS.galerkin_scores,
+            "galerkin_scores_bwd": GS.galerkin_scores_bwd,
+            "galerkin_scores_bf16": GS.galerkin_scores_bf16,
+            "fourier_chain": FC.fourier_chain,
+            "fourier_chain_bf16": FC.fourier_chain_bf16}
+
+
+def launches():
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def reset_launches():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def serve_and_check(tag, gpu, cpu, batches, kernel, per_request, points, shape, tol,
+                    check=None, scale_of=lambda ref: float(np.abs(ref).max())):
+    """Warm up, time `gpu` on `batches` (host clock, numpy in, numpy out),
+    hold the launch counts to exactly `per_request` of `kernel` and none of
+    any other, check every output, and compare the first one with `cpu` on
+    the same weights, relative to `scale_of` the CPU's output (its largest
+    entry, unless the caller knows a part of it that the model does not
+    compute).  Returns the first output."""
+    gpu.warmup(batches[0])
+    before = launches()
+    outs, ms = [], []
+    for batch in batches:   # Predictor returns numpy: each call ends synchronized
+        t0 = time.perf_counter()
+        outs.append(gpu(batch))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    after = launches()
+    for name in after:
+        want = per_request * len(batches) if name == kernel else 0
+        if after[name] - before[name] != want:
+            raise AssertionError(f"{tag}: {name} launched {after[name] - before[name]} "
+                                 f"times in {len(batches)} requests, expected {want}")
+    for out in outs:
+        if out.shape != shape or not np.isfinite(out).all():
+            raise AssertionError(f"{tag}: bad output {out.shape}, "
+                                 f"finite={np.isfinite(out).all()}")
+        if check is not None:
+            check(out)
+    ref = cpu(batches[0])
+    err = float(np.abs(outs[0] - ref).max())
+    scale = scale_of(ref)
+    latency = statistics.median(ms)
+    print(f"serve {tag}: median request {latency:.2f} ms over {len(batches)} "
+          f"(min {min(ms):.2f}, max {max(ms):.2f}), "
+          f"{points / latency * 1e3:.4e} grid-points/s, "
+          f"{kernel} launches/request={per_request}, "
+          f"vs CPU plain path max_abs_err={err:.3e} scale={scale:.3e} tol={tol:.1e}")
+    if not err <= tol * scale:
+        raise AssertionError(f"{tag}: GPU and CPU disagree")
+    print(f"  breakdown {tag}: {breakdown(lambda: gpu(batches[1]))}")
+    return outs[0]
+
+
+def same_weights(gpu, cpu):
+    for key, w in gpu.model.state_dict().items():
+        if not torch.equal(w.cpu(), cpu.model.state_dict()[key]):
+            raise AssertionError(f"seeded weights differ at {key}")
+
+
+def dtype_name(dtype):
+    return "f32" if dtype is None else "bf16"
+
+
+def serving_phase(rng):
+    """The first main path: ex1, in float32 and with the bfloat16 encoder.
+    Returns the launch counts of its whole run."""
+    reset_launches()
+    for dtype in DTYPES:
+        for attention_type in ATTENTION_TYPES:
+            cfg = load_config("ex1_burgers")
+            cfg["attention_type"] = attention_type
+            n_layers = cfg["num_encoder_layers"]
+            gpu = Predictor(SimpleTransformer.from_config(cfg, device="cuda", seed=SEED,
+                                                          dtype=dtype))
+            cpu = Predictor(SimpleTransformer.from_config(cfg, device="cpu", seed=SEED,
+                                                          dtype=dtype), device="cpu")
+            same_weights(gpu, cpu)
+            for n in RESOLUTIONS:
+                batches = [make_batch(rng, n) for _ in range(REQUESTS)]
+                serve_and_check(
+                    f"ex1 {attention_type} {dtype_name(dtype)} n={n} batch={BATCH}",
+                    gpu, cpu, batches, KERNEL_OF[attention_type, dtype], n_layers,
+                    BATCH * n, (BATCH, n, 1),
+                    TOL_SERVE if dtype is None else TOL_SERVE_BF16)
+    return launches()
+
+
+def serving_2d_phase(rng):
+    """The third main path: the full-width ex2 Darcy FourierTransformer2D
+    behind `Predictor`, with a normalizer and the Dirichlet boundary, at two
+    grid pairs, in float32 and with the bfloat16 encoder and scalers.
+    Returns the launch counts of its whole run."""
+    reset_launches()
+
+    def ring_is_zero(out):
+        if (out[:, 0].any() or out[:, -1].any() or out[:, :, 0].any()
+                or out[:, :, -1].any() or not out[:, 1:-1, 1:-1].any()):
+            raise AssertionError("the Dirichlet ring is not zero, or the interior is")
+
+    for n_f, n_c in GRIDS_2D:
+        cfg = load_config("ex2_darcy")
+        cfg["downscaler_size"], cfg["upscaler_size"] = get_scaler_sizes(n_f, n_c)
+        # the ex2 example's rule for the galerkin LayerNorm's eps
+        cfg["norm_eps"] = 1e-7 if n_f < 211 else 1e-5
+        n_layers = cfg["num_encoder_layers"]
+        normalizer = ((0.1 * rng.standard_normal((n_f, n_f, 1))).astype(np.float32),
+                      rng.uniform(0.5, 1.5, (n_f, n_f, 1)).astype(np.float32),
+                      np.float32(1e-5))
+
+        def model_part(out):
+            """The interior with the normalizer undone: what the model computes."""
+            mean, std, eps = normalizer
+            return ((out - mean) / (std + eps))[:, 1:-1, 1:-1]
+
+        def variation(out):
+            """How far the model's part moves over the grid and the batch.  With
+            random weights a constant (the decoder's bias) is most of the output;
+            the encoder shows in what is left."""
+            part = model_part(out)
+            return float(np.abs(part - part.mean()).max())
+
+        def largest(out):
+            return float(np.abs(model_part(out)).max())
+
+        pos, grid = darcy_grids(n_f, n_c)
+        batches = [dict(node=rng.standard_normal((BATCH_2D, n_f, n_f, 1)).astype(np.float32),
+                        pos=pos[None].repeat(BATCH_2D, 0), grid=grid[None].repeat(BATCH_2D, 0))
+                   for _ in range(REQUESTS)]
+        first = {}
+        for dtype in DTYPES:
+            gpu = Predictor(FourierTransformer2D.from_config(cfg, seed=SEED, dtype=dtype),
+                            normalizer=normalizer)
+            cpu = Predictor(FourierTransformer2D.from_config(cfg, device="cpu", seed=SEED,
+                                                             dtype=dtype),
+                            normalizer=normalizer, device="cpu")
+            same_weights(gpu, cpu)
+            first[dtype] = serve_and_check(
+                f"ex2 galerkin {dtype_name(dtype)} (n_f,n_c)=({n_f},{n_c}) "
+                f"scalers={cfg['downscaler_size']},{cfg['upscaler_size']} batch={BATCH_2D}",
+                gpu, cpu, batches, KERNEL_OF["galerkin", dtype], n_layers,
+                BATCH_2D * n_f * n_f, (BATCH_2D, n_f, n_f, 1),
+                TOL_SERVE if dtype is None else TOL_SERVE_BF16, check=ring_is_zero,
+                scale_of=variation if dtype is None else largest)
+        far = float(np.abs(first[torch.bfloat16] - first[None]).max())
+        print(f"  ex2 (n_f,n_c)=({n_f},{n_c}): bf16 output is {far:.3e} from the f32 output, "
+              f"whose model part is at most {largest(first[None]):.3e} and varies by "
+              f"{variation(first[None]):.3e}")
+    return launches()
 
 
 def training_phase():
@@ -435,7 +590,7 @@ def training_phase():
         print(f"train {attention_type} n={TRAIN_N} batch={BATCH}: median step "
               f"{step_ms:.2f} ms over {TRAIN_STEPS} (min {min(ms):.2f}, max {max(ms):.2f}), "
               f"{BATCH * TRAIN_N / step_ms * 1e3:.4e} grid-points/s")
-        print(f"  breakdown train {attention_type}: {step_breakdown(steps['cuda'], batch)}")
+        print(f"  breakdown train {attention_type}: {breakdown(lambda: steps['cuda'](batch))}")
     return launches()
 
 
@@ -491,16 +646,23 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
 
     rng = np.random.default_rng(SEED)
+    ex2_shape = (BATCH_2D, 4, GRIDS_2D[1][1] ** 2, 32, 2)   # (4, 4, 5041, 32, 2)
+    bf16 = torch.bfloat16
     kernels = [fourier_phase(rng, dev, peak), galerkin_phase(rng, dev, peak),
-               galerkin_bwd_phase(rng, dev, peak)]
+               galerkin_bwd_phase(rng, dev, peak),
+               galerkin_phase(rng, dev, peak, ex2_shape, bf16, eps=1e-7),
+               fourier_phase(rng, dev, peak, bf16)]
+    # the same kernels at the other main path's shape (printed, not in the line)
+    galerkin_phase(rng, dev, peak, ex2_shape, eps=1e-7)
+    galerkin_phase(rng, dev, peak, dtype=bf16)
     fourier_bwd_phase(rng, dev, peak)
-    paths = [serving_phase(rng), training_phase(), driver_phase()]
-    print(f"launches by main path (serving, training, driver): {paths}")
+    paths = [serving_phase(rng), serving_2d_phase(rng), training_phase(), driver_phase()]
+    print(f"launches by main path (ex1 serving, ex2 serving, training, driver): {paths}")
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths)
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on the main path")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+    keys = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

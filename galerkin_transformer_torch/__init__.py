@@ -6,11 +6,13 @@ kernel under ``csrc/``, built with ``nvcc`` on first use and bound with
 ``ctypes`` (``ops/cuda``).  Importing this package imports neither jax
 nor anything of the JAX package, and builds nothing.
 
-Entry points (``SimpleTransformer``, ``Predictor``) run on ``cuda``
+Entry points (``SimpleTransformer``, ``FourierTransformer2D``,
+``Predictor``) run on ``cuda``
 unless the caller passes ``device="cpu"``; without a GPU they raise.
 """
-from .models import SimpleTransformer
+from .models import FourierTransformer2D, SimpleTransformer
 from .serve import Predictor
 from .utils import load_config
 
-__all__ = ["SimpleTransformer", "Predictor", "load_config"]
+__all__ = ["SimpleTransformer", "FourierTransformer2D", "Predictor",
+           "load_config"]

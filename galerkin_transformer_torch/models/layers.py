@@ -1,5 +1,5 @@
 """Core layers (counterpart of ``models/layers.py``): feed-forward, Galerkin
-and Fourier attention, 1D spectral convolution.
+and Fourier attention, 1D and 2D spectral convolutions.
 
 Modules are built on the CPU from an explicit ``torch.Generator`` and
 moved by the entry point that owns them.  Parameter names follow the
@@ -61,6 +61,18 @@ def linear(in_features: int, out_features: int,
     return torch_linear_init(skip_init(nn.Linear, in_features, out_features), g)
 
 
+def dense(lin: nn.Linear, x: torch.Tensor,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """`lin(x)`, or with a compute `dtype` what flax's ``Dense(dtype=...)``
+    does: input, weight and bias are cast to `dtype`, the product is
+    rounded to it, and the bias is added in it.  The parameters stay
+    float32."""
+    if dtype is None:
+        return lin(x)
+    y = F.linear(x.to(dtype), lin.weight.to(dtype))
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
 class Activation(nn.Module):
     """An entry of ACTIVATIONS as a module, for ``nn.Sequential``."""
 
@@ -94,17 +106,20 @@ class FeedForward(nn.Module):
     def __init__(self, in_dim: int = 256, dim_feedforward: int = 1024,
                  out_dim: Optional[int] = None,
                  activation: Optional[str] = "relu", dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = _generator(generator)
         # activation None resolves to relu (layers.py:47-48)
         self.act = get_activation(activation, "relu")
+        self.dtype = dtype   # compute dtype (parameters stay float32)
         self.lr1 = linear(in_dim, dim_feedforward, g)
         self.dropout = nn.Dropout(dropout)
         self.lr2 = linear(dim_feedforward, default(out_dim, in_dim), g)
 
     def forward(self, x):
-        return self.lr2(self.dropout(self.act(self.lr1(x))))
+        x = self.dropout(self.act(dense(self.lr1, x, self.dtype)))
+        return dense(self.lr2, x, self.dtype)
 
 
 class SimpleAttention(nn.Module):
@@ -122,7 +137,10 @@ class SimpleAttention(nn.Module):
 
     Kernels: galerkin with layer norm runs ``galerkin_scores``; fourier runs
     ``fourier_chain``.  On CUDA tensors those launch the hand-written
-    kernels, on CPU tensors their plain versions.  The other attention
+    kernels (the float32 ones, or with ``dtype=torch.bfloat16`` the
+    bfloat16 tensor-core ones), on CPU tensors their plain versions.  With
+    a compute `dtype` the projections and ``fc`` run as `dense` does; the
+    parameters stay float32.  The other attention
     types, masks, the mass-weight hook and fourier score dropout in
     training (the n×n scores are never formed) are not ported and raise.
     """
@@ -133,6 +151,7 @@ class SimpleAttention(nn.Module):
                  xavier_init: float = 1e-4, diagonal_weight: float = 1e-2,
                  symmetric_init: bool = False, norm: bool = False,
                  norm_type: str = "layer", eps: float = 1e-5,
+                 dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if d_model % n_head:
@@ -155,6 +174,7 @@ class SimpleAttention(nn.Module):
         self.is_galerkin = attention_type == "galerkin"
         self.score_rate = default(score_dropout, dropout)
         self.norm, self.norm_type, self.eps = norm, norm_type, eps
+        self.dtype = dtype
 
         self.linears = nn.ModuleList()
         for _ in range(3):
@@ -199,7 +219,7 @@ class SimpleAttention(nn.Module):
         def split_heads(x):   # (B, n, d_model) -> (B, H, n, d_k)
             return x.reshape(bsz, -1, h, d_k).transpose(1, 2)
 
-        q, k, v = (split_heads(lin(x)) for lin, x
+        q, k, v = (split_heads(dense(lin, x, self.dtype)) for lin, x
                    in zip(self.linears, (query, key, value)))
         pos_in = None
         if pos is not None and self.pos_dim > 0:
@@ -238,7 +258,7 @@ class SimpleAttention(nn.Module):
 
         out = x.transpose(1, 2).reshape(bsz, n, -1)
         if pos_in is not None:
-            out = self.fc(out)
+            out = dense(self.fc, out, self.dtype)
         return out, p_attn
 
 
@@ -271,3 +291,45 @@ class SpectralConv1d(nn.Module):
         w = torch.complex(self.fourier_weight[..., 0], self.fourier_weight[..., 1])
         out = S.spectral_conv_1d_dft(x.float(), w)
         return self.act(out.to(res.dtype) + res)
+
+
+class SpectralConv2d(nn.Module):
+    """FNO2d layer with two-corner mode truncation (layers.py:427-476;
+    reference libs/layers.py:1109-1196).
+
+    Accepts (B, n², C) or (B, n, n, C).  ``fourier_weight`` holds the two
+    corners' weights (positive, then negative frequencies of the first
+    axis) as real pairs (in, out, modes, modes, 2), with torch
+    ``xavier_normal_(gain=1/(in·out)·√(in+out))`` statistics.  The
+    transform is the DFT-as-products form; ``ops.spectral.spectral_conv_2d``
+    is its FFT cross-check.
+    """
+
+    def __init__(self, in_dim: int, out_dim: int, modes: int,
+                 dropout: float = 0.1, activation: Optional[str] = "silu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = _generator(generator)
+        self.in_dim, self.out_dim = in_dim, out_dim
+        self.act = get_activation(activation, "silu")
+        self.linear = linear(in_dim, out_dim, g)
+        self.dropout = nn.Dropout(dropout)
+        gain = 1.0 / (in_dim * out_dim) * math.sqrt(in_dim + out_dim)
+        std = gain * math.sqrt(2.0 / ((in_dim + out_dim) * modes * modes * 2))
+        self.fourier_weight = nn.ParameterList(
+            nn.Parameter(torch.empty(in_dim, out_dim, modes, modes, 2)
+                         .normal_(0.0, std, generator=g)) for _ in range(2))
+
+    def forward(self, x):
+        flat = x.dim() == 3
+        if flat:
+            bsz = x.shape[0]
+            n = int(round(x.shape[1] ** 0.5))
+            x = x.reshape(bsz, n, n, self.in_dim)
+        res = self.linear(x)
+        x = self.dropout(x)
+        w_pos, w_neg = (torch.complex(w[..., 0], w[..., 1])
+                        for w in self.fourier_weight)
+        out = S.spectral_conv_2d_dft(x.float(), w_pos, w_neg)
+        out = self.act(out.to(res.dtype) + res)
+        return out.reshape(bsz, n * n, self.out_dim) if flat else out

@@ -2,10 +2,12 @@
 ``ops/pallas/fourier.py``).
 
 ``fourier_chain`` computes out[bh, r] = Σ_m (A_r · B_m) C_m in float32
-without storing the score matrix.  On a CUDA tensor it launches
-``csrc/fourier_chain.cu``; on a CPU tensor it runs
-``fourier_chain_reference``, the plain PyTorch version.  Anything else
-raises.  ``fourier_attention_tiled`` is the attention on top of it:
+without storing the score matrix.  On CUDA tensors it launches
+``csrc/fourier_chain.cu`` (float32 inputs, CUDA cores) or
+``csrc/fourier_chain_bf16.cu`` (bfloat16 inputs, tensor cores; the score
+tile is rounded to bfloat16 before the second product); on CPU tensors it
+runs ``fourier_chain_reference``, the plain PyTorch version of both.
+Anything else, and inputs of mixed types, raise.  ``fourier_attention_tiled`` is the attention on top of it:
 (Q Kᵀ · s) V with s = 1/(√d·n), d counting the pos columns, differentiable
 through ``FourierAttention`` (the counterpart of the custom VJP
 ``_fourier_fwd``/``_fourier_bwd``): its backward is three more chain
@@ -17,16 +19,19 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
-MAX_D = 128   # d and d_out that the kernel takes
+MAX_D = 128   # d and d_out that the kernels take
+MMA_TILE = 16  # the bf16 kernel's mma depth and tile width
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def fourier_chain_reference(a, b, c, row_block: int = 2048) -> torch.Tensor:
-    """Plain PyTorch (A Bᵀ) C per bh, float32; the score tile is cast to
-    C's dtype before the second product, as the TPU kernel does.
+    """Plain PyTorch (A Bᵀ) C per bh, float32 sums; the score tile is
+    complete over d and then cast to C's dtype before the second product,
+    as the TPU kernel does (a rounding to bfloat16 for bfloat16 inputs).
 
     a: (BH, R, d); b: (BH, M, d); c: (BH, M, d_out) → (BH, R, d_out) f32.
     Rows are taken `row_block` at a time to bound the score buffer.
@@ -52,19 +57,30 @@ def _check(a, b, c):
     for t in (a, b, c):
         if t.device != a.device:
             raise ValueError("all inputs must be on one device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
+
+
+def _check_types(a, b, c):
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the kernels take float32 or bfloat16, got {a.dtype}")
+    if b.dtype != a.dtype or c.dtype != a.dtype:
+        raise TypeError(f"a, b, c must be of one type, got {a.dtype}, "
+                        f"{b.dtype}, {c.dtype}")
 
 
 def fourier_chain(a, b, c) -> torch.Tensor:
     """out[bh, r] = Σ_m (A_r · B_m) C_m, (BH, R, d_out) float32, unscaled.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel,
-    which takes contiguous float32 with d, d_out <= 128.  Each launch adds
-    one to ``fourier_chain.launches``.
+    a, b, c are all float32 or all bfloat16 (mixed types raise).  CPU
+    tensors run the plain version; CUDA tensors launch a kernel, which
+    takes contiguous tensors with d, d_out <= 128.  Each float32 launch
+    adds one to ``fourier_chain.launches``, each bfloat16 launch one to
+    ``fourier_chain_bf16.launches``.
     """
+    _check_types(a, b, c)
+    if a.dtype == torch.bfloat16:
+        return fourier_chain_bf16(a, b, c)
     if a.device.type == "cpu":
         return fourier_chain_reference(a, b, c)
     if a.device.type != "cuda":
@@ -85,6 +101,42 @@ def fourier_chain(a, b, c) -> torch.Tensor:
 
 
 fourier_chain.launches = 0
+
+
+def fourier_chain_bf16(a, b, c) -> torch.Tensor:
+    """`fourier_chain` for bfloat16 a, b, c: out[bh, r] =
+    Σ_m bf16(A_r · B_m) C_m with float32 sums, (BH, R, d_out) float32.
+
+    CPU tensors run `fourier_chain_reference`; CUDA tensors launch
+    ``csrc/fourier_chain_bf16.cu``.  The kernel reads rows of one width, a
+    multiple of 16 (its mma depth), so a, b and c are padded here with zero
+    columns.  Each launch adds one to ``fourier_chain_bf16.launches``.
+    """
+    _check_types(a, b, c)
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"fourier_chain_bf16 takes bfloat16, got {a.dtype}")
+    if a.device.type == "cpu":
+        return fourier_chain_reference(a, b, c)
+    if a.device.type != "cuda":
+        raise ValueError(f"fourier_chain runs on cpu or cuda, not {a.device}")
+    _check(a, b, c)
+    bh, r, d = a.shape
+    m, d_out = c.shape[1], c.shape[2]
+    width = math.ceil(max(d, d_out) / MMA_TILE) * MMA_TILE
+    ap, bp, cp = (F.pad(t, (0, width - t.shape[2])) for t in (a, b, c))
+    out = torch.empty((bh, r, d_out), dtype=torch.float32, device=a.device)
+    fn = _build.function("fourier_chain_bf16", "fourier_chain_bf16_launch", _ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(ap.data_ptr(), bp.data_ptr(), cp.data_ptr(), out.data_ptr(),
+                bh, r, m, width, d_out, stream)
+    if rc != 0:
+        raise RuntimeError(f"fourier_chain_bf16 kernel launch failed: CUDA error {rc}")
+    fourier_chain_bf16.launches += 1
+    return out
+
+
+fourier_chain_bf16.launches = 0
 
 
 def fourier_attention_bwd_reference(q, k, v, g):
@@ -124,14 +176,23 @@ class FourierAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        return _fourier_bwd(q, k, v, g, fourier_chain, ctx.needs_input_grad)
+        if q.dtype == torch.float32:
+            return _fourier_bwd(q, k, v, g, fourier_chain, ctx.needs_input_grad)
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                "the bfloat16 backward of fourier attention (float32 gradient, "
+                "bfloat16 q, k, v) has no kernel yet")
+        # the operands are of mixed types, as in ``_fourier_bwd`` of the JAX package
+        return _fourier_bwd(q, k, v, g, fourier_chain_reference, ctx.needs_input_grad)
 
 
 def fourier_attention_tiled(q, k, v):
     """out = (Q Kᵀ · s) V through `fourier_chain`; q, k, v: (B, H, n, d).
 
     s = 1/(√d·n), d the last dim of q (pos columns included).
-    Returns (B, H, n, d) in q's dtype.  Differentiable: the backward runs
-    `fourier_chain` once for each of q, k, v that needs a gradient.
+    Returns (B, H, n, d) in q's dtype: the float32 sum is scaled and then
+    cast.  Differentiable: the backward runs `fourier_chain` once for each
+    of q, k, v that needs a gradient (float32 on CUDA; bfloat16 only on the
+    CPU, through the plain version).
     """
     return FourierAttention.apply(q, k, v)

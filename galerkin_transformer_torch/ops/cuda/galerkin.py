@@ -3,11 +3,16 @@
 ``galerkin_scores`` computes S = [pos, LN_K(K)]ᵀ[pos, LN_V(V)], unscaled,
 in float32, and is differentiable (``GalerkinScores``, the counterpart of
 the custom VJP of ``galerkin_scores_fused``).  On CUDA tensors the forward
-launches ``csrc/galerkin_scores.cu`` and the backward
-``csrc/galerkin_scores_bwd.cu``; on CPU tensors they run
-``galerkin_scores_reference`` and ``galerkin_scores_bwd_reference``, the
-plain PyTorch versions of the same functions.  Anything else raises.
-``galerkin_attention_fused`` adds ``out = [pos, Q] @ dropout(S / n)``.
+launches ``csrc/galerkin_scores.cu`` (float32 K, V, pos) or
+``csrc/galerkin_scores_bf16.cu`` (bfloat16 K, V, pos: LN statistics in
+float32, LN output rounded to bfloat16, the product on the tensor cores
+with a float32 sum) and the float32 backward ``csrc/galerkin_scores_bwd.cu``;
+on CPU tensors they run ``galerkin_scores_reference`` and
+``galerkin_scores_bwd_reference``, the plain PyTorch versions of the same
+functions.  The LN parameters are float32 in both forms.  Anything else,
+and K, V, pos of mixed types, raise.
+``galerkin_attention_fused`` adds ``out = [pos, Q] @ dropout(S / n)`` and
+casts pos to the type of K before the kernel.
 """
 from __future__ import annotations
 
@@ -42,7 +47,10 @@ def galerkin_scores_reference(k, v, pos, scale_k, bias_k, scale_v, bias_v,
     """Plain PyTorch S = [pos,LN_K(K)]ᵀ[pos,LN_V(V)] in float32.
 
     k, v: (B, H, n, d_k); pos: (B, n, p) or None; LN params (H, d_k).
-    Returns (B, H, d_k + p, d_k + p) float32.
+    Returns (B, H, d_k + p, d_k + p) float32.  For bfloat16 k, v the LN
+    statistics and affine are float32, the LN output and pos are rounded
+    to bfloat16, and the product sums those in float32: where the
+    bfloat16 kernel rounds.
     """
     kc = _concat_pos(per_head_layer_norm(k, scale_k, bias_k, eps), pos)
     vc = _concat_pos(per_head_layer_norm(v, scale_v, bias_v, eps), pos)
@@ -55,6 +63,17 @@ def _splits(bh: int, n: int, device: torch.device) -> tuple:
     splits = max(1, min(math.ceil(n / ROWS_PER_CHUNK), math.ceil(2 * sms / bh)))
     rows = math.ceil(math.ceil(n / splits) / ROWS_PER_CHUNK) * ROWS_PER_CHUNK
     return rows, math.ceil(n / rows)
+
+
+def _check_types(k, v, pos, params):
+    if k.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the kernels take float32 or bfloat16, got {k.dtype}")
+    others = [v] + ([] if pos is None else [pos])
+    if any(t.dtype != k.dtype for t in others):
+        raise TypeError(f"k, v and pos must be of one type, got "
+                        f"{[str(t.dtype) for t in [k] + others]}")
+    if any(t.dtype != torch.float32 for t in params):
+        raise TypeError("the LN parameters must be float32")
 
 
 def _check(k, v, pos, params):
@@ -77,19 +96,18 @@ def _check(k, v, pos, params):
     for t in tensors:
         if t.device != k.device:
             raise ValueError("all inputs must be on one device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
 
 
 def _scores_forward(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps):
+    params = (scale_k, bias_k, scale_v, bias_v)
+    _check_types(k, v, pos, params)
     if k.device.type == "cpu":
         return galerkin_scores_reference(k, v, pos, scale_k, bias_k,
                                          scale_v, bias_v, eps)
     if k.device.type != "cuda":
         raise ValueError(f"galerkin_scores runs on cpu or cuda, not {k.device}")
-    params = (scale_k, bias_k, scale_v, bias_v)
     _check(k, v, pos, params)
     b, h, n, d_k = k.shape
     p = 0 if pos is None else pos.shape[-1]
@@ -98,7 +116,9 @@ def _scores_forward(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps):
     out = torch.empty((b, h, d_eff, d_eff), dtype=torch.float32, device=k.device)
     partial = torch.empty((splits, b * h, d_eff, d_eff), dtype=torch.float32,
                           device=k.device)
-    fn = _build.function("galerkin_scores", "galerkin_scores_launch", _ARGTYPES)
+    bf16 = k.dtype == torch.bfloat16
+    name = "galerkin_scores_bf16" if bf16 else "galerkin_scores"
+    fn = _build.function(name, f"{name}_launch", _ARGTYPES)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(k.data_ptr(), v.data_ptr(),
@@ -107,8 +127,11 @@ def _scores_forward(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps):
                 partial.data_ptr(), out.data_ptr(),
                 b, h, n, d_k, p, rows, splits, eps, stream)
     if rc != 0:
-        raise RuntimeError(f"galerkin_scores kernel launch failed: CUDA error {rc}")
-    galerkin_scores.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    if bf16:
+        galerkin_scores_bf16.launches += 1
+    else:
+        galerkin_scores.launches += 1
     return out
 
 
@@ -129,6 +152,9 @@ class GalerkinScores(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ds):
         k, v, pos, *params = ctx.saved_tensors
+        if k.dtype != torch.float32 and k.device.type != "cpu":
+            raise NotImplementedError(
+                "the bfloat16 backward of galerkin_scores has no kernel yet")
         need_dpos = pos is not None and ctx.needs_input_grad[2]
         dk, dv, dpos, *dparams = galerkin_scores_bwd(
             k, v, pos, *params, ds.float().contiguous(), ctx.eps,
@@ -140,15 +166,29 @@ def galerkin_scores(k, v, pos, scale_k, bias_k, scale_v, bias_v,
                     eps: float = 1e-5) -> torch.Tensor:
     """S = [pos,LN_K(K)]ᵀ[pos,LN_V(V)] (unscaled), (B, H, d_eff, d_eff) f32.
 
-    Differentiable.  CPU tensors run the plain versions; CUDA tensors
-    launch the kernels, which take contiguous float32 with d_k + p <= 128.
-    Each forward launch adds one to ``galerkin_scores.launches``, each
-    backward launch one to ``galerkin_scores_bwd.launches``.
+    k, v and pos are all float32 or all bfloat16 (mixed types raise); the
+    LN parameters are float32.  Differentiable.  CPU tensors run the plain
+    versions; CUDA tensors launch the kernels, which take contiguous
+    tensors with d_k + p <= 128.  Each float32 forward launch adds one to
+    ``galerkin_scores.launches``, each bfloat16 forward launch one to
+    ``galerkin_scores_bf16.launches``, each backward launch (float32 only
+    on CUDA) one to ``galerkin_scores_bwd.launches``.
     """
     return GalerkinScores.apply(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps)
 
 
 galerkin_scores.launches = 0
+
+
+def galerkin_scores_bf16(k, v, pos, scale_k, bias_k, scale_v, bias_v,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """`galerkin_scores` for bfloat16 k, v, pos (anything else raises)."""
+    if k.dtype != torch.bfloat16:
+        raise TypeError(f"galerkin_scores_bf16 takes bfloat16, got {k.dtype}")
+    return galerkin_scores(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps)
+
+
+galerkin_scores_bf16.launches = 0
 
 
 def _ln_fwd_stats(x, eps):
@@ -186,9 +226,11 @@ def galerkin_scores_bwd_reference(k, v, pos, scale_k, bias_k, scale_v, bias_v,
     kc = _concat_pos(kn, pos)
     vc = _concat_pos(vn, pos)
 
-    ds = ds.to(k.dtype)
-    dvc = torch.matmul(kc, ds)
-    dkc = torch.matmul(vc, ds.transpose(-2, -1))
+    # no-ops in float32; for bfloat16 k, v (CPU only) ds is rounded to
+    # bfloat16 and the products back to it, as ``_scores_bwd`` does
+    ds = ds.to(k.dtype).to(kc.dtype)
+    dvc = torch.matmul(kc, ds).to(k.dtype)
+    dkc = torch.matmul(vc, ds.transpose(-2, -1)).to(k.dtype)
 
     dkn = dkc[..., p:]
     dvn = dvc[..., p:]
@@ -216,6 +258,10 @@ def galerkin_scores_bwd(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds,
     if k.device.type != "cuda":
         raise ValueError(f"galerkin_scores_bwd runs on cpu or cuda, not {k.device}")
     params = (scale_k, bias_k, scale_v, bias_v)
+    _check_types(k, v, pos, params)
+    if k.dtype != torch.float32:
+        raise NotImplementedError(
+            "the bfloat16 backward of galerkin_scores has no kernel yet")
     _check(k, v, pos, params)
     b, h, n, d_k = k.shape
     p = 0 if pos is None else pos.shape[-1]
@@ -258,10 +304,14 @@ def galerkin_attention_fused(q, k, v, pos, scale_k, bias_k, scale_v, bias_v,
     """out = [pos, Q] @ dropout(S / n), S from `galerkin_scores`.
 
     Returns ((B, H, n, d_k + p) in q's dtype, p_attn).  The output product
-    is a plain ``torch.matmul``.
+    is a plain ``torch.matmul``.  pos is cast to the type of k before the
+    kernel, as every path of the JAX package outside its fused kernel does
+    (``_concat_pos``); that kernel itself is handed float32 pos by the
+    model and then promotes the whole product to float32.
     """
     n = q.shape[-2]
-    s = galerkin_scores(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps)
+    s = galerkin_scores(k, v, None if pos is None else pos.to(k.dtype),
+                        scale_k, bias_k, scale_v, bias_v, eps)
     qc = _concat_pos(q, pos)
     p_attn = s.to(qc.dtype) / n
     if score_dropout is not None:

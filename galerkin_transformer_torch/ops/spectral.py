@@ -1,10 +1,13 @@
-"""1D spectral (FNO-style) convolution (counterpart of ``ops/spectral.py``).
+"""Spectral (FNO-style) convolutions (counterpart of ``ops/spectral.py``).
 
 ``rfft → keep the lowest `modes` → complex weight multiply → zero-pad →
-irfft`` with norm='ortho' (reference libs/layers.py:1040-1106), in two
-forms: ``spectral_conv_1d_dft``, a chain of real products with small
-cos/sin matrices (the model's path), and ``spectral_conv_1d`` through
-``torch.fft`` (the cross-check).  The 2D forms are not ported yet.
+irfft`` with norm='ortho' (reference libs/layers.py:1040-1196), in two
+forms each for 1D and 2D: ``spectral_conv_{1,2}d_dft``, a chain of real
+products with small cos/sin matrices (the models' path), and
+``spectral_conv_{1,2}d`` through ``torch.fft`` (the cross-check).  The 2D
+truncation keeps two corner blocks: the lowest `modes` positive and
+negative frequencies along the first spatial axis, positive only along
+the rfft axis.
 """
 from __future__ import annotations
 
@@ -33,6 +36,25 @@ def spectral_conv_1d(x: torch.Tensor, weight: torch.Tensor,
                          dtype=out_modes.dtype, device=x.device)
     out_ft[:, :modes, :] = out_modes
     return torch.fft.irfft(out_ft, n=n, dim=1, norm=norm).to(x.dtype)
+
+
+def spectral_conv_2d(x: torch.Tensor, weight_pos: torch.Tensor,
+                     weight_neg: torch.Tensor, norm: str = "ortho") -> torch.Tensor:
+    """x: (B, H, W, C_in); weights: complex (C_in, C_out, modes, modes).
+
+    `weight_pos` multiplies the [:modes, :modes] block and `weight_neg` the
+    [-modes:, :modes] block of the (H, W//2+1) rfft2 spectrum.
+    """
+    b, h, w, _ = x.shape
+    modes = weight_pos.shape[-1]
+    x_ft = torch.fft.rfft2(x.float(), s=(h, w), dim=(1, 2), norm=norm)
+    out_ft = torch.zeros((b, h, w // 2 + 1, weight_pos.shape[1]),
+                         dtype=x_ft.dtype, device=x.device)
+    out_ft[:, :modes, :modes, :] = complex_einsum(
+        "bxyi,ioxy->bxyo", x_ft[:, :modes, :modes, :], weight_pos)
+    out_ft[:, -modes:, :modes, :] = complex_einsum(
+        "bxyi,ioxy->bxyo", x_ft[:, -modes:, :modes, :], weight_neg)
+    return torch.fft.irfft2(out_ft, s=(h, w), dim=(1, 2), norm=norm).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,6 +87,31 @@ def _dft_mats_1d_on(n: int, modes: int, device: torch.device):
         return tuple(torch.from_numpy(m).to(device) for m in _dft_mats_1d(n, modes))
 
 
+@functools.lru_cache(maxsize=None)
+def _dft_mats_2d_axis0(n: int, modes: int):
+    """Axis-0 matrices of the two-corner truncation: frequencies
+    [0..m-1] ∪ [n-m..n-1], (n, 2m); forward e^{-iθ} and inverse e^{+iθ}
+    (cos, sin each), 1/√n-normalized."""
+    ks = np.concatenate([np.arange(modes), np.arange(n - modes, n)])
+    j = np.arange(n)[:, None].astype(np.float64)
+    ang = 2.0 * np.pi * j * ks[None, :] / n
+    rn = 1.0 / np.sqrt(n)
+    fc = (np.cos(ang) * rn).astype(np.float32)
+    fs = (-np.sin(ang) * rn).astype(np.float32)
+    ic = (np.cos(ang) * rn).astype(np.float32)
+    is_ = (np.sin(ang) * rn).astype(np.float32)
+    return fc, fs, ic, is_
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_mats_2d_axis0_on(n: int, modes: int, device: torch.device):
+    """`_dft_mats_2d_axis0` on `device`, made outside inference_mode (see
+    `_dft_mats_1d_on`)."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(m).to(device)
+                     for m in _dft_mats_2d_axis0(n, modes))
+
+
 def spectral_conv_1d_dft(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Mode-truncated spectral conv as real products (norm='ortho').
 
@@ -86,4 +133,39 @@ def spectral_conv_1d_dft(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
           + torch.einsum("bkc,cok->bko", xi, wr))
     out = (torch.einsum("bko,nk->bno", yr, ci)
            + torch.einsum("bko,nk->bno", yi, si))
+    return out.to(x.dtype)
+
+
+def spectral_conv_2d_dft(x: torch.Tensor, weight_pos: torch.Tensor,
+                         weight_neg: torch.Tensor) -> torch.Tensor:
+    """Two-corner mode-truncated 2D spectral conv as real products
+    (norm='ortho').
+
+    x: (B, H, W, C_in); weights: complex (C_in, C_out, modes, modes), with
+    modes <= min(H, W)//2.
+    """
+    b, h, w, _ = x.shape
+    modes = weight_pos.shape[-1]
+    if modes > min(h, w) // 2:
+        raise ValueError(f"the DFT path needs modes <= min(H, W)//2, got "
+                         f"modes={modes} at (H, W)=({h}, {w})")
+    c2, s2, ci2, si2 = _dft_mats_1d_on(w, modes, x.device)
+    fc1, fs1, ic1, is1 = _dft_mats_2d_axis0_on(h, modes, x.device)
+    wcat = torch.cat([weight_pos, weight_neg], dim=2)   # (Ci, Co, 2m, m)
+    wr, wi = wcat.real.float(), wcat.imag.float()
+    ein = torch.einsum
+    xf = x.float()
+    # partial rfft along W
+    ar = ein("bhwc,wk->bhkc", xf, c2)
+    ai = ein("bhwc,wk->bhkc", xf, s2)
+    # two-corner DFT along H
+    xr = ein("bhkc,hK->bKkc", ar, fc1) - ein("bhkc,hK->bKkc", ai, fs1)
+    xi = ein("bhkc,hK->bKkc", ar, fs1) + ein("bhkc,hK->bKkc", ai, fc1)
+    # complex weight multiply per (K, k)
+    yr = ein("bKkc,coKk->bKko", xr, wr) - ein("bKkc,coKk->bKko", xi, wi)
+    yi = ein("bKkc,coKk->bKko", xr, wi) + ein("bKkc,coKk->bKko", xi, wr)
+    # inverse along H (complex), then real synthesis along W
+    br = ein("bKko,hK->bhko", yr, ic1) - ein("bKko,hK->bhko", yi, is1)
+    bi = ein("bKko,hK->bhko", yr, is1) + ein("bKko,hK->bhko", yi, ic1)
+    out = ein("bhko,wk->bhwo", br, ci2) + ein("bhko,wk->bhwo", bi, si2)
     return out.to(x.dtype)

@@ -1,7 +1,9 @@
 """Inference / serving layer (counterpart of ``serve.py``).
 
 `Predictor` holds a model in eval mode on one device and answers numpy
-batches with numpy predictions.  The operator is discretization-invariant,
+batches (1D: node (B, n, C), pos and grid (B, n, 1); 2D: node
+(B, n_f, n_f, C), pos (B, n_c², 2), grid (B, n_f, n_f, 2)) with numpy
+predictions.  The operator is discretization-invariant,
 so every input resolution is served by the same weights; there is nothing
 to compile per resolution.  The target normalizer is kept as data and
 handed to models whose forward takes it.
@@ -26,7 +28,9 @@ class Predictor:
         ``device="cpu"`` is passed."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.normalizer = normalizer
+        # (mean, std, eps) as numpy arrays or tensors; held on the device
+        self.normalizer = None if normalizer is None else tuple(
+            torch.as_tensor(x, device=self.device) for x in normalizer)
         self._takes_normalizer = (
             "normalizer" in inspect.signature(model.forward).parameters)
 

@@ -64,8 +64,10 @@ def test_fourier_chain_kernel_matches_plain(dev, bh, r, m, d, d_out):
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.zeros(2, 64, 16, device=dev)
+    with pytest.raises(TypeError):   # mixed types
+        FC.fourier_chain(x.bfloat16(), x, x.bfloat16())
     with pytest.raises(TypeError):
-        FC.fourier_chain(x.bfloat16(), x.bfloat16(), x.bfloat16())
+        FC.fourier_chain(x.half(), x.half(), x.half())
     with pytest.raises(ValueError):
         FC.fourier_chain(x.transpose(1, 2), x, x)
     with pytest.raises(ValueError):
@@ -74,6 +76,56 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     p = torch.ones(1, 128, device=dev)
     with pytest.raises(ValueError):   # d_k + p > 128
         GS.galerkin_scores(k, k, torch.zeros(1, 64, 1, device=dev), p, p, p, p)
+    k = torch.zeros(1, 1, 64, 16, device=dev, dtype=torch.bfloat16)
+    p = torch.ones(1, 16, device=dev)
+    with pytest.raises(TypeError):   # bfloat16 k, v with float32 pos
+        GS.galerkin_scores(k, k, torch.zeros(1, 64, 1, device=dev), p, p, p, p)
+    with pytest.raises(TypeError):   # bfloat16 LN parameters
+        GS.galerkin_scores(k, k, None, *[p.bfloat16()] * 4)
+
+
+# the bfloat16 kernels against their plain versions: both round the same
+# float32 values to bfloat16 and sum the same products in float32, in another
+# order; a value that sits on a rounding boundary may round the other way
+TOL_BF16 = 1e-3
+
+
+@pytest.mark.parametrize("b,h,n,d_k,p", GALERKIN_SHAPES + [
+    (2, 4, 1849, 32, 2), (1, 1, 8192, 96, 1), (2, 2, 77, 30, None)])
+def test_galerkin_scores_bf16_kernel_matches_plain(dev, b, h, n, d_k, p):
+    rng = np.random.default_rng(n + 1)
+    k, v = (_t(rng, (b, h, n, d_k), dev).bfloat16() for _ in range(2))
+    pos = None if p is None else _t(rng, (b, n, p), dev).bfloat16()
+    params = [1 + 0.1 * _t(rng, (h, d_k), dev), 0.1 * _t(rng, (h, d_k), dev),
+              1 + 0.1 * _t(rng, (h, d_k), dev), 0.1 * _t(rng, (h, d_k), dev)]
+    before = GS.galerkin_scores_bf16.launches, GS.galerkin_scores.launches
+    got = GS.galerkin_scores(k, v, pos, *params, 1e-7)
+    assert GS.galerkin_scores_bf16.launches == before[0] + 1
+    assert GS.galerkin_scores.launches == before[1]
+    assert got.dtype == torch.float32
+    want = GS.galerkin_scores_reference(k, v, pos, *params, 1e-7)
+    torch.testing.assert_close(got, want, rtol=0, atol=TOL_BF16 * want.abs().max().item())
+    assert torch.equal(got, GS.galerkin_scores_bf16(k, v, pos, *params, 1e-7))
+    with pytest.raises(NotImplementedError):
+        GS.galerkin_scores(k.requires_grad_(), v, pos, *params).sum().backward()
+
+
+@pytest.mark.parametrize("bh,r,m,d,d_out", [
+    (4, 128, 128, 17, 17), (2, 200, 77, 97, 97), (3, 65, 300, 8, 40),
+    (1, 1, 1, 128, 128), (8, 1000, 1000, 97, 97), (2, 130, 64, 33, 16)])
+def test_fourier_chain_bf16_kernel_matches_plain(dev, bh, r, m, d, d_out):
+    rng = np.random.default_rng(r + m + 1)
+    a, b, c = (_t(rng, s, dev).bfloat16() for s in ((bh, r, d), (bh, m, d), (bh, m, d_out)))
+    before = FC.fourier_chain_bf16.launches, FC.fourier_chain.launches
+    got = FC.fourier_chain(a, b, c)
+    assert FC.fourier_chain_bf16.launches == before[0] + 1
+    assert FC.fourier_chain.launches == before[1]
+    assert got.dtype == torch.float32 and got.shape == (bh, r, d_out)
+    want = FC.fourier_chain_reference(a, b, c)
+    torch.testing.assert_close(got, want, rtol=0, atol=TOL_BF16 * want.abs().max().item())
+    q = a[:, None, :, :].requires_grad_()
+    with pytest.raises(NotImplementedError):
+        FC.fourier_attention_tiled(q, q, q).sum().backward()
 
 
 @pytest.mark.parametrize("b,h,n,d_k,p", GALERKIN_SHAPES)
@@ -181,3 +233,37 @@ def test_model_on_cuda_matches_cpu(dev):
         cpu = Predictor(SimpleTransformer.from_config(cfg, device="cpu", seed=3),
                         device="cpu")
         np.testing.assert_allclose(gpu(batch), cpu(batch), rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("attention_type", ["galerkin", "fourier"])
+def test_2d_model_on_cuda_matches_cpu(dev, attention_type, dtype):
+    from galerkin_transformer_torch import FourierTransformer2D, Predictor, load_config
+    from galerkin_transformer_torch.data import darcy_grids, get_scaler_sizes
+    n_f, n_c, bsz = 29, 15, 2
+    cfg = load_config("ex2_darcy")
+    cfg.update(n_hidden=32, num_encoder_layers=2, n_head=2, dim_feedforward=64,
+               freq_dim=8, fourier_modes=4, attention_type=attention_type)
+    cfg["downscaler_size"], cfg["upscaler_size"] = get_scaler_sizes(n_f, n_c)
+    rng = np.random.default_rng(0)
+    pos, grid = darcy_grids(n_f, n_c)
+    batch = dict(node=rng.standard_normal((bsz, n_f, n_f, 1)).astype(np.float32),
+                 pos=pos[None].repeat(bsz, 0), grid=grid[None].repeat(bsz, 0))
+    normalizer = (rng.standard_normal((n_f, n_f, 1)).astype(np.float32),
+                  rng.uniform(0.5, 1.5, (n_f, n_f, 1)).astype(np.float32), np.float32(1e-5))
+    gpu = Predictor(FourierTransformer2D.from_config(cfg, seed=3, dtype=dtype),
+                    normalizer=normalizer)
+    cpu = Predictor(FourierTransformer2D.from_config(cfg, device="cpu", seed=3, dtype=dtype),
+                    normalizer=normalizer, device="cpu")
+    counter = {("galerkin", None): GS.galerkin_scores, ("fourier", None): FC.fourier_chain,
+               ("galerkin", torch.bfloat16): GS.galerkin_scores_bf16,
+               ("fourier", torch.bfloat16): FC.fourier_chain_bf16}[attention_type, dtype]
+    before = counter.launches
+    got, want = gpu(batch), cpu(batch)
+    assert counter.launches == before + 2   # one launch per encoder layer
+    assert got.shape == (bsz, n_f, n_f, 1) and not got[:, 0].any()   # Dirichlet ring
+    # float32: sums in another order.  bfloat16: the encoder's products round
+    # to bfloat16 after sums in another order, so activations differ by single
+    # bfloat16 steps (2^-8) that add up over the layers
+    tol = 1e-3 if dtype is None else 2.0 ** -6
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())

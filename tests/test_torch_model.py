@@ -145,7 +145,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_config_dict_equals_config_yml():
-    assert load_config("ex1_burgers") == dict(jax_load_config("ex1_burgers"))
+    for block in ("ex1_burgers", "ex2_darcy", "ex3_darcy_inv"):
+        assert load_config(block) == dict(jax_load_config(block)), block
+    with pytest.raises(KeyError, match="not ported"):
+        load_config("ex4_navier_stokes")
     cfg = load_config("ex1_burgers")
     cfg["n_hidden"] = 1
     assert load_config("ex1_burgers")["n_hidden"] == 96

@@ -13,10 +13,13 @@
    ``galerkin_scores`` again at the ex2 shape, and the bfloat16 tensor-core
    kernels ``galerkin_scores_bf16`` (ex1 and ex2 shapes) and
    ``fourier_chain_bf16`` (ex1 shape);
-4. backward kernel phases: ``galerkin_scores_bwd`` at the ex1 shape
-   against its plain version (and bit-equal on a second call), and the
-   fourier attention backward (three ``fourier_chain`` launches) at the
-   training shape against ``fourier_attention_bwd_reference``;
+4. backward kernel phases: ``galerkin_scores_bwd`` at the ex1 shape and
+   ``galerkin_scores_bwd_bf16`` at the ex2 training shape and the ex1 shape
+   against their plain versions (and bit-equal on a second call), and the
+   fourier attention backward at the training shape against
+   ``fourier_attention_bwd_reference``: three ``fourier_chain`` launches
+   in float32, three ``fourier_chain_mixed`` launches (one float32 operand
+   each) for bfloat16 q, k, v;
 5. serving phase, the port's first main path: ``Predictor`` answers batches
    of 8 with the full-width ex1 SimpleTransformer (random weights from a
    seed), for fourier and galerkin attention at n = 8192 and n = 2048,
@@ -42,10 +45,22 @@
    gradient must agree; then the median step time over timed steps, the
    grid-points/s and the device's busy share; each step must launch
    exactly 16 ``fourier_chain`` (fourier) or 4 ``galerkin_scores`` + 4
-   ``galerkin_scores_bwd`` (galerkin);
-7. driver phase: ``examples/ex1_burgers.py`` of the port, in-process, for
-   2 epochs; its losses must be finite, and its best checkpoint must load
-   into ``Predictor`` and serve a batch;
+   ``galerkin_scores_bwd`` (galerkin); the same with
+   ``dtype=torch.bfloat16`` (4 ``fourier_chain_bf16`` + 12
+   ``fourier_chain_mixed``, or 4 ``galerkin_scores_bf16`` + 4
+   ``galerkin_scores_bwd_bf16``);
+   2D training phase, the fourth main path: one ``make_darcy_steps`` step of
+   the full-width ex2 FourierTransformer2D on a batch of 4 from
+   ``DarcyDataset`` and ``DataLoader`` (synthetic Darcy pairs at
+   (n_f, n_c) = (211, 43)), on the card and on the CPU from the same seed
+   with dropout off, in float32 and bfloat16: losses and every gradient
+   must agree, with exactly 6 forward and 6 backward launches of the
+   matching galerkin kernels; then timed steps with the config's dropout;
+7. driver phase: ``examples/ex1_burgers.py``, ``examples/ex2_darcy.py`` (2
+   epochs each) and ``examples/ex3_darcy_inv.py`` (1 epoch) of the port,
+   in-process; their losses must be finite, and the ex1 and ex2 best
+   checkpoints must load into ``Predictor`` and serve a batch (ex2 with
+   the normalizer saved in the checkpoint);
 8. prints one {"kernels": [...]} line (launches summed over the main
    paths), then the result line {"ok": true, "device": {...}}.
 
@@ -71,11 +86,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from galerkin_transformer_torch import (FourierTransformer2D, Predictor,  # noqa: E402
                                         SimpleTransformer, load_config)
-from galerkin_transformer_torch.data import (BurgersDataset, DataLoader,  # noqa: E402
-                                             darcy_grids, get_scaler_sizes)
-from galerkin_transformer_torch.examples import ex1_burgers  # noqa: E402
+from galerkin_transformer_torch.data import (BurgersDataset, DarcyDataset,  # noqa: E402
+                                             DataLoader, darcy_grids, get_scaler_sizes)
+from galerkin_transformer_torch.examples import (ex1_burgers, ex2_darcy,  # noqa: E402
+                                                 ex3_darcy_inv)
 from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss,  # noqa: E402
-                                              make_burgers_steps)
+                                              WeightedL2Loss2d, make_burgers_steps,
+                                              make_darcy_steps)
 from galerkin_transformer_torch.ops.cuda import _build  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import fourier as FC  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import galerkin as GS  # noqa: E402
@@ -129,8 +146,34 @@ SUBSAMPLE = 4                  # the ex1 default
 TRAIN_N = 8192 // SUBSAMPLE
 TRAIN_SAMPLES = 64
 TRAIN_STEPS = 12
-LAUNCHES_PER_STEP = {"fourier": {"fourier_chain": 16},
-                     "galerkin": {"galerkin_scores": 4, "galerkin_scores_bwd": 4}}
+LAUNCHES_PER_STEP = {
+    ("fourier", None): {"fourier_chain": 16},
+    ("galerkin", None): {"galerkin_scores": 4, "galerkin_scores_bwd": 4},
+    ("fourier", torch.bfloat16): {"fourier_chain_bf16": 4, "fourier_chain_mixed": 12},
+    ("galerkin", torch.bfloat16): {"galerkin_scores_bf16": 4, "galerkin_scores_bwd_bf16": 4}}
+# the bfloat16 backward of galerkin_scores vs its plain version, which rounds at
+# the same places: the outputs are float32 values rounded to bfloat16, from
+# sums taken in another order, and the rounded products dK', dV' feed every
+# later sum: two bfloat16 steps (2^-8) of each gradient's largest entry
+TOL_BF16_BWD = 2 * 2.0 ** -8
+# fourier_chain_mixed vs the plain version when C is the float32 operand:
+# nothing is rounded to bfloat16, only the float32 sums differ in order
+TOL_MIXED_F32 = 1e-4
+# one bfloat16 train step on the card vs the CPU: the encoder's products round
+# to bfloat16 after sums in another order, forward and backward.  The loss is
+# formed by the float32 decoder and moves little (measured <= 7e-5).  A
+# gradient moves by a few bfloat16 steps (2^-8) of its largest entry per
+# layer; the per-head LN biases, sums over all rows that cancel, move most
+# (measured 3.3e-2 of the largest entry): 16 steps
+TOL_TRAIN_LOSS_BF16 = 1e-3
+TOL_TRAIN_GRAD_BF16 = 2.0 ** -4
+# the 2D train step: (n_f, n_c) of a 211 grid with subsample_attn 5, which the
+# host generator (a sparse direct solve per sample) makes in seconds
+TRAIN_2D = dict(n_grid_fine=211, subsample_nodes=1, subsample_attn=5,
+                n_samples_synthetic=10)
+TRAIN_2D_STEPS = 8
+NO_DROPOUT = dict(dropout=0.0, downscaler_dropout=0.0, upscaler_dropout=0.0,
+                  ffn_dropout=0.0, encoder_dropout=0.0, decoder_dropout=0.0)
 
 
 def peaks_for(name: str) -> dict:
@@ -168,6 +211,23 @@ def _tensor(a, dev, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
+def galerkin_inputs(rng, dev, shape, dtype):
+    """k, v (B, H, n, d_k) and pos (B, n, p) of `dtype`, and the four float32
+    LN parameters (H, d_k)."""
+    b, h, n, d_k, p = shape
+    k, v = (_tensor(rng.standard_normal((b, h, n, d_k)), dev, dtype) for _ in range(2))
+    if p == 1:
+        pos = np.linspace(0, 1, n)[None, :, None].repeat(b, 0)
+    else:   # the nodes of a square grid, as the 2D model passes them
+        side = math.isqrt(n)
+        pos = darcy_grids(side, side)[0][None].repeat(b, 0)
+    params = [_tensor(1 + 0.1 * rng.standard_normal((h, d_k)), dev),
+              _tensor(0.1 * rng.standard_normal((h, d_k)), dev),
+              _tensor(1 + 0.1 * rng.standard_normal((h, d_k)), dev),
+              _tensor(0.1 * rng.standard_normal((h, d_k)), dev)]
+    return k, v, _tensor(pos, dev, dtype), params
+
+
 def galerkin_phase(rng, dev, peak, shape=(BATCH, 1, RESOLUTIONS[0], 96, 1), dtype=None,
                    eps=1e-5):
     """`galerkin_scores` (float32) or `galerkin_scores_bf16` at
@@ -177,17 +237,7 @@ def galerkin_phase(rng, dev, peak, shape=(BATCH, 1, RESOLUTIONS[0], 96, 1), dtyp
     bf16 = dtype == torch.bfloat16
     name = "galerkin_scores_bf16" if bf16 else "galerkin_scores"
     tol = TOL_BF16_KERNEL if bf16 else TOL_GALERKIN
-    k, v = (_tensor(rng.standard_normal((b, h, n, d_k)), dev, dtype) for _ in range(2))
-    if p == 1:
-        pos = np.linspace(0, 1, n)[None, :, None].repeat(b, 0)
-    else:   # the nodes of a square grid, as the 2D model passes them
-        side = math.isqrt(n)
-        pos = darcy_grids(side, side)[0][None].repeat(b, 0)
-    pos = _tensor(pos, dev, dtype)
-    params = [_tensor(1 + 0.1 * rng.standard_normal((h, d_k)), dev),
-              _tensor(0.1 * rng.standard_normal((h, d_k)), dev),
-              _tensor(1 + 0.1 * rng.standard_normal((h, d_k)), dev),
-              _tensor(0.1 * rng.standard_normal((h, d_k)), dev)]
+    k, v, pos, params = galerkin_inputs(rng, dev, shape, dtype)
     args = (k, v, pos, *params, eps)
     counter = COUNTERS[name]
     before = counter.launches
@@ -264,31 +314,39 @@ def fourier_phase(rng, dev, peak, dtype=None):
     return res
 
 
-def galerkin_bwd_phase(rng, dev, peak):
-    b, h, n, d_k, p = BATCH, 1, RESOLUTIONS[0], 96, 1
+def galerkin_bwd_phase(rng, dev, peak, shape=(BATCH, 1, RESOLUTIONS[0], 96, 1), dtype=None,
+                       eps=1e-5):
+    """`galerkin_scores_bwd` (float32) or `galerkin_scores_bwd_bf16` at
+    (B, H, n, d_k, p): against the plain version, bit-equal run to run, timed."""
+    b, h, n, d_k, p = shape
     d_eff = d_k + p
-    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
-    k, v = (t(rng.standard_normal((b, h, n, d_k))) for _ in range(2))
-    pos = t(np.linspace(0, 1, n)[None, :, None].repeat(b, 0))
-    params = [t(1 + 0.1 * rng.standard_normal((h, d_k))), t(0.1 * rng.standard_normal((h, d_k))),
-              t(1 + 0.1 * rng.standard_normal((h, d_k))), t(0.1 * rng.standard_normal((h, d_k)))]
-    ds = t(rng.standard_normal((b, h, d_eff, d_eff)))
-    args = (k, v, pos, *params, ds)
+    bf16 = dtype == torch.bfloat16
+    name = "galerkin_scores_bwd_bf16" if bf16 else "galerkin_scores_bwd"
+    tol = TOL_BF16_BWD if bf16 else TOL_GALERKIN
+    k, v, pos, params = galerkin_inputs(rng, dev, shape, dtype)
+    ds = _tensor(rng.standard_normal((b, h, d_eff, d_eff)), dev)
+    args = (k, v, pos, *params, ds, eps)
+    counter = COUNTERS[name]
+    before = counter.launches
     got = GS.galerkin_scores_bwd(*args)
+    if counter.launches != before + 1:
+        raise AssertionError(f"{name} did not count its launch")
     ref = GS.galerkin_scores_bwd_reference(*args)
     torch.cuda.synchronize()
     errs = []
-    for name, g, r in zip(("dk", "dv", "dpos", "dscale_k", "dbias_k", "dscale_v",
-                           "dbias_v"), got, ref):
-        err, scale = max_err(g, r)
+    for gname, g, r in zip(("dk", "dv", "dpos", "dscale_k", "dbias_k", "dscale_v",
+                            "dbias_v"), got, ref):
+        # the bfloat16 kernel writes its outputs rounded once to bfloat16
+        r = r.bfloat16().float() if bf16 else r
+        err, scale = max_err(g.float(), r)
         errs.append(err)
-        print(f"galerkin_scores_bwd {name}: max_abs_err={err:.3e} max|ref|={scale:.3e} "
-              f"rel={err / scale:.3e} tol={TOL_GALERKIN:.0e}")
-        if not err <= TOL_GALERKIN * scale:
-            raise AssertionError(f"galerkin_scores_bwd {name} disagrees with its plain version")
+        print(f"{name} {gname}: max_abs_err={err:.3e} max|ref|={scale:.3e} "
+              f"rel={err / scale:.3e} tol={tol:.1e}")
+        if not err <= tol * scale:
+            raise AssertionError(f"{name} {gname} disagrees with its plain version")
     again = GS.galerkin_scores_bwd(*args)
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
-        raise AssertionError("galerkin_scores_bwd is not deterministic run to run")
+        raise AssertionError(f"{name} is not deterministic run to run")
 
     # timed as the training path calls it: positions need no gradient
     ms = time_ms(lambda: GS.galerkin_scores_bwd(*args, need_dpos=False), 50)
@@ -296,20 +354,27 @@ def galerkin_bwd_phase(rng, dev, peak):
     ph = pos[:, None].expand(b, h, n, p)
     kc = torch.cat([ph, per_head_layer_norm(k, *params[:2])], -1)
     vc = torch.cat([ph, per_head_layer_norm(v, *params[2:])], -1)
-    library_ms = time_ms(lambda: (torch.matmul(kc, ds),
-                                  torch.matmul(vc, ds.transpose(-2, -1))), 50)
+    dsl = ds.to(k.dtype)
+    library_ms = time_ms(lambda: (torch.matmul(kc, dsl),
+                                  torch.matmul(vc, dsl.transpose(-2, -1))), 50)
     # read k, v, pos, dS and the LN parameters; write dk, dv and their gradients
-    nbytes = 4 * (4 * b * h * n * d_k + b * n * p + b * h * d_eff * d_eff + 8 * h * d_k)
-    # the two row-by-matrix products, and LN forward (7 flops an element) and
-    # backward with the affine sums (11) for k and for v
+    size = 2 if bf16 else 4
+    nbytes = (size * (4 * b * h * n * d_k + b * n * p)
+              + 4 * (b * h * d_eff * d_eff + 8 * h * d_k))
+    # the two row-by-matrix products (on the tensor cores for bfloat16), and LN
+    # forward (7 flops an element) and backward with the affine sums (11) for
+    # k and for v
     flops = 4 * b * h * n * d_eff * d_eff + 2 * 18 * b * h * n * d_k
-    print(f"galerkin_scores_bwd (B,H,n,d_k,p)=({b},{h},{n},{d_k},{p}): {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, library (two matmuls) {library_ms:.4f} ms")
-    return dict(name="galerkin_scores_bwd", route="cuda",
-                source="galerkin_transformer_torch/csrc/galerkin_scores_bwd.cu",
-                replaces="galerkin_transformer_tpu/ops/pallas/galerkin.py:208",
-                shape=[b, h, n, d_k, p], max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bound(nbytes, flops, peak))
+    res = dict(name=name, route="cuda",
+               source=f"galerkin_transformer_torch/csrc/{name}.cu",
+               replaces="galerkin_transformer_tpu/ops/pallas/galerkin.py:208",
+               shape=list(shape), max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               **bound(nbytes, flops, peak, "bf16_flops" if bf16 else "f32_flops"))
+    print(f"{name} (B,H,n,d_k,p)=({b},{h},{n},{d_k},{p}) eps={eps:.0e}: {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library (two matmuls) {library_ms:.4f} ms, "
+          f"bound {res['bound_ms']:.5f} ms ({res['bound_by']})")
+    return res
 
 
 def fourier_bwd_phase(rng, dev, peak):
@@ -339,6 +404,85 @@ def fourier_bwd_phase(rng, dev, peak):
     print(f"fourier backward, three fourier_chain launches (BH,n,d)=({bh},{n},{d}): "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (2 matmuls x 3) "
           f"{library_ms:.4f} ms, bound {b_['bound_ms']:.4f} ms ({b_['bound_by']})")
+
+
+def fourier_bwd_bf16_phase(rng, dev, peak):
+    """The backward of fourier attention with bfloat16 q, k, v and a float32
+    gradient at the training shape: three `fourier_chain_mixed` launches.
+    Each sweep against `fourier_chain_reference` on the same operands, the
+    three gradients against `fourier_attention_bwd_reference`, timed
+    together (they are one backward)."""
+    bh, n, d = BATCH, TRAIN_N, 97
+    bf16 = torch.bfloat16
+    q, k, v = (_tensor(rng.standard_normal((bh, 1, n, d)), dev, bf16) for _ in range(3))
+    g = _tensor(rng.standard_normal((bh, 1, n, d)), dev)
+    qf, kf, vf, gf = (x.reshape(bh, n, d) for x in (q, k, v, g))
+    sweeps = {"dQ": (gf, vf, kf), "dK": (vf, gf, qf), "dV": (kf, qf, gf)}
+    counter = COUNTERS["fourier_chain_mixed"]
+    errs = []
+    for name, ops in sweeps.items():
+        before = counter.launches
+        got = FC.fourier_chain_mixed(*ops)
+        if counter.launches != before + 1:
+            raise AssertionError("fourier_chain_mixed did not count its launch")
+        ref = FC.fourier_chain_reference(*ops)
+        torch.cuda.synchronize()
+        err, scale = max_err(got, ref)
+        # what rounding the float32 operand to bfloat16 would have cost
+        rounded = [x.bfloat16().float() if x.dtype == torch.float32 else x for x in ops]
+        far = (FC.fourier_chain_reference(*rounded) - ref).abs().max().item()
+        tol = TOL_MIXED_F32 if name == "dV" else TOL_BF16_KERNEL
+        types = ",".join("f32" if x.dtype == torch.float32 else "bf16" for x in ops)
+        print(f"fourier_chain_mixed sweep {name} ({types}) (BH,n,d)=({bh},{n},{d}): "
+              f"max_abs_err={err:.3e} max|ref|={scale:.3e} rel={err / scale:.3e} "
+              f"tol={tol:.0e}; a bfloat16-rounded float32 operand would be "
+              f"{far / scale:.3e} off")
+        if not err <= tol * scale:
+            raise AssertionError(f"fourier_chain_mixed sweep {name} disagrees with its "
+                                 f"plain version")
+        errs.append(err)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = counter.launches
+    got = torch.autograd.grad(FC.fourier_attention_tiled(*xs), xs, g.to(bf16))
+    if counter.launches != before + 3:
+        raise AssertionError("the bfloat16 fourier backward did not launch "
+                             "fourier_chain_mixed three times")
+    ref = FC.fourier_attention_bwd_reference(q, k, v, g.to(bf16))
+    for name, a, r in zip(sweeps, got, ref):
+        err, scale = max_err(a.float(), r.float())
+        print(f"fourier bf16 backward {name}: max_abs_err={err:.3e} max|ref|={scale:.3e} "
+              f"(both rounded to bfloat16 at the end; tol one unit in the last place "
+              f"of the largest entry, 2^-7)")
+        if not err <= 2.0 ** -7 * scale:
+            raise AssertionError(f"fourier bf16 backward {name} disagrees")
+
+    ms = time_ms(lambda: [FC.fourier_chain_mixed(*o) for o in sweeps.values()], 5)
+    each = [time_ms(lambda o=o: FC.fourier_chain_mixed(*o), 5) for o in sweeps.values()]
+    plain_ms = time_ms(lambda: [FC.fourier_chain_reference(*o) for o in sweeps.values()], 3)
+    as_f32 = [[x.float() for x in o] for o in sweeps.values()]
+    library_ms = time_ms(lambda: [torch.matmul(torch.matmul(a, b.transpose(1, 2)), c)
+                                  for a, b, c in as_f32], 3)
+    # each sweep reads two bfloat16 operands and one float32 one and writes
+    # float32.  Operations: a product of two bfloat16 operands is one pass on the
+    # tensor cores; a product with one float32 operand is counted as three
+    # bfloat16 passes and one with two float32 operands (the float32 score tile
+    # times the float32 gradient) as six, the cheapest forms the card has at
+    # float32 accuracy (its float32 rate outside the tensor cores would give a
+    # bound that the tensor cores beat)
+    product = 2 * bh * n * n * d
+    flops = (3 + 1) * product + (3 + 1) * product + (1 + 6) * product
+    nbytes = 3 * (2 * 2 * bh * n * d + 4 * bh * n * d + 4 * bh * n * d)
+    res = dict(name="fourier_chain_mixed", route="cuda",
+               source="galerkin_transformer_torch/csrc/fourier_chain_mixed.cu",
+               replaces="galerkin_transformer_tpu/ops/pallas/fourier.py:142",
+               shape=[bh, n, d], max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, **bound(nbytes, flops, peak, "bf16_flops"))
+    print(f"fourier bf16 backward, three fourier_chain_mixed launches (BH,n,d)=({bh},{n},{d}): "
+          f"{ms:.4f} ms (dQ {each[0]:.4f}, dK {each[1]:.4f}, dV {each[2]:.4f}), plain "
+          f"{plain_ms:.4f} ms, library (2 float32 matmuls x 3) {library_ms:.4f} ms, bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}; {flops / 1e9:.1f} GFLOP as bfloat16 "
+          f"passes)")
+    return res
 
 
 def bound(nbytes: int, flops: int, peak: dict, rate: str = "f32_flops") -> dict:
@@ -378,8 +522,10 @@ def breakdown(work, top: int = 5) -> str:
 COUNTERS = {"galerkin_scores": GS.galerkin_scores,
             "galerkin_scores_bwd": GS.galerkin_scores_bwd,
             "galerkin_scores_bf16": GS.galerkin_scores_bf16,
+            "galerkin_scores_bwd_bf16": GS.galerkin_scores_bwd_bf16,
             "fourier_chain": FC.fourier_chain,
-            "fourier_chain_bf16": FC.fourier_chain_bf16}
+            "fourier_chain_bf16": FC.fourier_chain_bf16,
+            "fourier_chain_mixed": FC.fourier_chain_mixed}
 
 
 def launches():
@@ -434,8 +580,10 @@ def serve_and_check(tag, gpu, cpu, batches, kernel, per_request, points, shape, 
 
 
 def same_weights(gpu, cpu):
-    for key, w in gpu.model.state_dict().items():
-        if not torch.equal(w.cpu(), cpu.model.state_dict()[key]):
+    """`gpu` and `cpu`: two Predictors, or two models."""
+    gpu, cpu = (getattr(x, "model", x).state_dict() for x in (gpu, cpu))
+    for key, w in gpu.items():
+        if not torch.equal(w.cpu(), cpu[key]):
             raise AssertionError(f"seeded weights differ at {key}")
 
 
@@ -530,94 +678,192 @@ def serving_2d_phase(rng):
     return launches()
 
 
+def compare_step(tag, steps, models, batch, per_step, tol_loss, tol_grad):
+    """One train step on the card and one on the CPU from the same weights
+    and batch: the launch counts of the card's step are exactly `per_step`
+    (and 0 for every other kernel), the losses agree to `tol_loss`
+    (relative) and every gradient to `tol_grad` of its largest entry."""
+    before = launches()
+    got = [float(x) for x in steps["cuda"](batch)]
+    after = launches()
+    want = [float(x) for x in steps["cpu"](batch)]
+    for name in after:
+        n_want = per_step.get(name, 0)
+        if after[name] - before[name] != n_want:
+            raise AssertionError(f"train {tag}: {name} launched "
+                                 f"{after[name] - before[name]} times in one step, "
+                                 f"expected {n_want}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want) if b != 0)
+    if not (all(math.isfinite(x) for x in got) and loss_err <= tol_loss):
+        raise AssertionError(f"train {tag}: losses {got} vs CPU {want}")
+    cpu_grads = dict(models["cpu"].named_parameters())
+    grad_err, worst = 0.0, ""
+    for key, p in models["cuda"].named_parameters():
+        ref = cpu_grads[key].grad
+        err, scale = max_err(p.grad.cpu(), ref)
+        rel = err / scale if scale > 0 else err
+        if rel > grad_err:
+            grad_err, worst = rel, key
+        if not err <= tol_grad * scale:
+            raise AssertionError(f"train {tag}: gradient of {key} "
+                                 f"max_abs_err={err:.3e} max|ref|={scale:.3e}")
+    print(f"train {tag}: losses {got} vs CPU {want} (max rel err {loss_err:.3e}, tol "
+          f"{tol_loss:.1e}); gradients max err/max|g| {grad_err:.3e} at {worst} (tol "
+          f"{tol_grad:.1e}); launches/step {per_step}")
+
+
+def time_steps(tag, step, batches, n_steps, points):
+    for b in batches[:2]:   # warm-up
+        step(b)
+    torch.cuda.synchronize()
+    ms = []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(ms)
+    print(f"train {tag}: median step {step_ms:.2f} ms over {n_steps} (min {min(ms):.2f}, "
+          f"max {max(ms):.2f}), {points / step_ms * 1e3:.4e} grid-points/s")
+    print(f"  breakdown train {tag}: {breakdown(lambda: step(batches[0]))}")
+
+
 def training_phase():
-    """The second main path: the ex1 train step.  Returns the launch
-    counts of its whole run."""
+    """The second main path: the ex1 train step, in float32 and with the
+    bfloat16 encoder.  Returns the launch counts of its whole run."""
     reset_launches()
     h = 1 / TRAIN_N
     train = BurgersDataset(subsample=SUBSAMPLE, train_data=True, train_portion=0.5,
                            n_samples_synthetic=TRAIN_SAMPLES)
     batches = list(DataLoader(train, BATCH, shuffle=True, drop_last=True, seed=SEED))
-    batch = batches[0]
-    for attention_type in ATTENTION_TYPES:
-        cfg = load_config("ex1_burgers")
-        cfg["attention_type"] = attention_type
-        steps, models = {}, {}
-        for device in ("cuda", "cpu"):
-            model = SimpleTransformer.from_config(cfg, device=device, seed=SEED)
-            opt = AdamOneCycle(model.parameters(), 1e-3, 100 * len(batches))
-            steps[device] = make_burgers_steps(
-                model, WeightedL2Loss(regularizer=True, h=h, gamma=0.1),
-                WeightedL2Loss(h=h), opt)[0]
-            models[device] = model
-        before = launches()
-        got = [float(x) for x in steps["cuda"](batch)]
-        after = launches()
-        want = [float(x) for x in steps["cpu"](batch)]
-        for name in after:
-            n_want = LAUNCHES_PER_STEP[attention_type].get(name, 0)
-            if after[name] - before[name] != n_want:
-                raise AssertionError(f"train {attention_type}: {name} launched "
-                                     f"{after[name] - before[name]} times in one step, "
-                                     f"expected {n_want}")
-        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want) if b != 0)
-        if not (all(math.isfinite(x) for x in got) and loss_err <= TOL_TRAIN_LOSS):
-            raise AssertionError(f"train {attention_type}: losses {got} vs CPU {want}")
-        cpu_grads = dict(models["cpu"].named_parameters())
-        grad_err = 0.0
-        for key, p in models["cuda"].named_parameters():
-            ref = cpu_grads[key].grad
-            err, scale = max_err(p.grad.cpu(), ref)
-            grad_err = max(grad_err, err / scale if scale > 0 else err)
-            if not err <= TOL_TRAIN_GRAD * scale:
-                raise AssertionError(f"train {attention_type}: gradient of {key} "
-                                     f"max_abs_err={err:.3e} max|ref|={scale:.3e}")
-
-        for b in batches[1:3]:   # warm-up
-            steps["cuda"](b)
-        torch.cuda.synchronize()
-        ms = []
-        for i in range(TRAIN_STEPS):
-            t0 = time.perf_counter()
-            steps["cuda"](batches[i % len(batches)])
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        step_ms = statistics.median(ms)
-        print(f"train {attention_type} n={TRAIN_N} batch={BATCH}: losses {got} vs CPU "
-              f"{want} (max rel err {loss_err:.3e}, tol {TOL_TRAIN_LOSS:.0e}); gradients "
-              f"max err/max|g| {grad_err:.3e} (tol {TOL_TRAIN_GRAD:.0e}); "
-              f"launches/step {LAUNCHES_PER_STEP[attention_type]}")
-        print(f"train {attention_type} n={TRAIN_N} batch={BATCH}: median step "
-              f"{step_ms:.2f} ms over {TRAIN_STEPS} (min {min(ms):.2f}, max {max(ms):.2f}), "
-              f"{BATCH * TRAIN_N / step_ms * 1e3:.4e} grid-points/s")
-        print(f"  breakdown train {attention_type}: {breakdown(lambda: steps['cuda'](batch))}")
+    for dtype in DTYPES:
+        for attention_type in ATTENTION_TYPES:
+            cfg = load_config("ex1_burgers")
+            cfg["attention_type"] = attention_type
+            steps, models = {}, {}
+            for device in ("cuda", "cpu"):
+                model = SimpleTransformer.from_config(cfg, device=device, seed=SEED,
+                                                      dtype=dtype)
+                opt = AdamOneCycle(model.parameters(), 1e-3, 100 * len(batches))
+                steps[device] = make_burgers_steps(
+                    model, WeightedL2Loss(regularizer=True, h=h, gamma=0.1),
+                    WeightedL2Loss(h=h), opt)[0]
+                models[device] = model
+            tag = f"ex1 {attention_type} {dtype_name(dtype)} n={TRAIN_N} batch={BATCH}"
+            compare_step(tag, steps, models, batches[0],
+                         LAUNCHES_PER_STEP[attention_type, dtype],
+                         TOL_TRAIN_LOSS if dtype is None else TOL_TRAIN_LOSS_BF16,
+                         TOL_TRAIN_GRAD if dtype is None else TOL_TRAIN_GRAD_BF16)
+            time_steps(tag, steps["cuda"], batches[1:], TRAIN_STEPS, BATCH * TRAIN_N)
     return launches()
 
 
+def training_2d_phase():
+    """The fourth main path: the train step of the full-width ex2 Darcy
+    FourierTransformer2D on batches from `DarcyDataset`, in float32 and with
+    the bfloat16 encoder and scalers.  Returns the launch counts of its run."""
+    reset_launches()
+    t0 = time.perf_counter()
+    train = DarcyDataset(train_data=True, **TRAIN_2D)
+    n_f = (TRAIN_2D["n_grid_fine"] - 1) // TRAIN_2D["subsample_nodes"] + 1
+    n_c = (TRAIN_2D["n_grid_fine"] - 1) // TRAIN_2D["subsample_attn"] + 1
+    print(f"DarcyDataset: {len(train)} training samples at (n_f, n_c) = ({n_f}, {n_c}) "
+          f"in {time.perf_counter() - t0:.1f} s")
+    batches = list(DataLoader(train, BATCH_2D, shuffle=True, drop_last=True, seed=SEED))
+    normalizer = train.normalizer_y.as_tuple()
+    cfg = load_config("ex2_darcy")
+    cfg["downscaler_size"], cfg["upscaler_size"] = get_scaler_sizes(n_f, n_c)
+    cfg["norm_eps"] = 1e-7 if n_f < 211 else 1e-5   # the ex2 example's rule
+    n_layers = cfg["num_encoder_layers"]
+    h = 1 / n_f
+
+    def make_step(device, dtype, config):
+        model = FourierTransformer2D.from_config(config, device=device, seed=SEED,
+                                                 dtype=dtype)
+        opt = AdamOneCycle(model.parameters(), 1e-3, 100 * len(batches), pct_start=0.3,
+                           grad_clip=0.99)
+        step = make_darcy_steps(model, WeightedL2Loss2d(regularizer=True, h=h, gamma=0.5),
+                                WeightedL2Loss2d(h=h), opt, normalizer=normalizer)[0]
+        return model, step
+
+    for dtype in DTYPES:
+        steps, models = {}, {}
+        for device in ("cuda", "cpu"):   # dropout off: two devices draw other masks
+            models[device], steps[device] = make_step(device, dtype, {**cfg, **NO_DROPOUT})
+        same_weights(models["cuda"], models["cpu"])
+        fwd, bwd = (("galerkin_scores", "galerkin_scores_bwd") if dtype is None else
+                    ("galerkin_scores_bf16", "galerkin_scores_bwd_bf16"))
+        tag = (f"ex2 galerkin {dtype_name(dtype)} (n_f,n_c)=({n_f},{n_c}) "
+               f"batch={BATCH_2D}")
+        compare_step(tag, steps, models, batches[0], {fwd: n_layers, bwd: n_layers},
+                     TOL_TRAIN_LOSS if dtype is None else TOL_TRAIN_LOSS_BF16,
+                     TOL_TRAIN_GRAD if dtype is None else TOL_TRAIN_GRAD_BF16)
+        del steps, models
+        _, step = make_step("cuda", dtype, cfg)   # the config's dropout rates
+        time_steps(tag + " config dropout", step, batches, TRAIN_2D_STEPS,
+                   BATCH_2D * n_f * n_f)
+    return launches()
+
+
+def _driver_outputs(tag, tmp, val, epochs):
+    logs = [json.loads(line) for f in glob.glob(os.path.join(tmp, "*.jsonl"))
+            for line in open(f)]
+    ckpts = glob.glob(os.path.join(tmp, "*.ckpt"))
+    if not (math.isfinite(val) and len(logs) == epochs and len(ckpts) == 1
+            and all(math.isfinite(x) for e in logs for x in e["loss"])):
+        raise AssertionError(f"driver {tag}: val={val}, epochs logged {len(logs)}, "
+                             f"checkpoints {ckpts}")
+    return ckpts[0]
+
+
 def driver_phase():
-    """The port's ex1 entry point for 2 epochs, then its best checkpoint
-    served.  Returns the launch counts of its run."""
+    """The port's entry points: ex1 and ex2 for 2 epochs, each best
+    checkpoint served, and ex3 for 1 epoch.  The Darcy drivers run on a
+    small synthetic grid at the configs' widths.  Returns the launch
+    counts of the run."""
     reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         val = ex1_burgers.main(["--n-samples", str(TRAIN_SAMPLES), "--epochs", "2"],
                                model_save_path=tmp)
-        logs = [json.loads(line) for f in glob.glob(os.path.join(tmp, "*.jsonl"))
-                for line in open(f)]
-        ckpts = glob.glob(os.path.join(tmp, "*.ckpt"))
-        if not (math.isfinite(val) and len(logs) == 2 and len(ckpts) == 1
-                and all(math.isfinite(x) for e in logs for x in e["loss"])):
-            raise AssertionError(f"driver: val={val}, epochs logged {len(logs)}, "
-                                 f"checkpoints {ckpts}")
+        ckpt = _driver_outputs("ex1", tmp, val, 2)
         cfg = load_config("ex1_burgers")
-        pred = Predictor.from_checkpoint(SimpleTransformer.from_config(cfg, seed=1), ckpts[0])
+        pred = Predictor.from_checkpoint(SimpleTransformer.from_config(cfg, seed=1), ckpt)
     valid = BurgersDataset(subsample=SUBSAMPLE, train_data=False, valid_portion=100,
                            n_samples_synthetic=TRAIN_SAMPLES)
     batch = next(iter(DataLoader(valid, 4)))
     out = pred(batch)
     if out.shape != (4, TRAIN_N, 1) or not np.isfinite(out).all():
         raise AssertionError(f"driver: served checkpoint gave {out.shape}")
-    print(f"driver: 2 epochs, best validation metric {val:.4e}; the best checkpoint "
+    print(f"driver ex1: 2 epochs, best validation metric {val:.4e}; the best checkpoint "
           f"served a batch of {out.shape}")
+
+    grid = ["--n-grid-fine", "61", "--subsample-nodes", "1", "--subsample-attn", "5",
+            "--n-samples", "16"]
+    n_f, n_c = 61, 13
+    with tempfile.TemporaryDirectory() as tmp:
+        val = ex2_darcy.main(grid + ["--epochs", "2", "--bf16"], model_save_path=tmp)
+        ckpt = _driver_outputs("ex2", tmp, val, 2)
+        cfg = load_config("ex2_darcy")
+        cfg["downscaler_size"], cfg["upscaler_size"] = get_scaler_sizes(n_f, n_c)
+        pred = Predictor.from_checkpoint(
+            FourierTransformer2D.from_config(cfg, seed=1, dtype=torch.bfloat16), ckpt)
+    if pred.normalizer is None or pred.normalizer[0].shape != (n_f, n_f, 1):
+        raise AssertionError("driver ex2: the checkpoint carried no normalizer")
+    pos, fine = darcy_grids(n_f, n_c)
+    node = np.random.default_rng(SEED).standard_normal((4, n_f, n_f, 1)).astype(np.float32)
+    out = pred(dict(node=node, pos=pos[None].repeat(4, 0), grid=fine[None].repeat(4, 0)))
+    if (out.shape != (4, n_f, n_f, 1) or not np.isfinite(out).all() or out[:, 0].any()
+            or out[:, :, -1].any() or not out[:, 1:-1, 1:-1].any()):
+        raise AssertionError(f"driver ex2: served checkpoint gave {out.shape}")
+    print(f"driver ex2 (bf16, (n_f,n_c)=({n_f},{n_c})): 2 epochs, best validation metric "
+          f"{val:.4e}; the best checkpoint served a batch of {out.shape} with its "
+          f"normalizer, zero on the boundary")
+    with tempfile.TemporaryDirectory() as tmp:
+        val = ex3_darcy_inv.main(["--n-grid-fine", "61", "--subsample-nodes", "2",
+                                  "--subsample-attn", "6", "--n-samples", "16",
+                                  "--epochs", "1"], model_save_path=tmp)
+        _driver_outputs("ex3", tmp, val, 1)
+    print(f"driver ex3 (f32, inverse, 61 grid): 1 epoch, validation metric {val:.4e}")
     return launches()
 
 
@@ -648,16 +894,24 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     ex2_shape = (BATCH_2D, 4, GRIDS_2D[1][1] ** 2, 32, 2)   # (4, 4, 5041, 32, 2)
     bf16 = torch.bfloat16
+    n_c_train = (TRAIN_2D["n_grid_fine"] - 1) // TRAIN_2D["subsample_attn"] + 1
+    ex2_train_shape = (BATCH_2D, 4, n_c_train ** 2, 32, 2)   # (4, 4, 1849, 32, 2)
     kernels = [fourier_phase(rng, dev, peak), galerkin_phase(rng, dev, peak),
                galerkin_bwd_phase(rng, dev, peak),
                galerkin_phase(rng, dev, peak, ex2_shape, bf16, eps=1e-7),
-               fourier_phase(rng, dev, peak, bf16)]
-    # the same kernels at the other main path's shape (printed, not in the line)
+               fourier_phase(rng, dev, peak, bf16),
+               galerkin_bwd_phase(rng, dev, peak, ex2_train_shape, bf16, eps=1e-7),
+               fourier_bwd_bf16_phase(rng, dev, peak)]
+    # the same kernels at the other main paths' shapes (printed, not in the line)
     galerkin_phase(rng, dev, peak, ex2_shape, eps=1e-7)
     galerkin_phase(rng, dev, peak, dtype=bf16)
+    galerkin_bwd_phase(rng, dev, peak, dtype=bf16)
+    galerkin_bwd_phase(rng, dev, peak, ex2_train_shape, eps=1e-7)
     fourier_bwd_phase(rng, dev, peak)
-    paths = [serving_phase(rng), serving_2d_phase(rng), training_phase(), driver_phase()]
-    print(f"launches by main path (ex1 serving, ex2 serving, training, driver): {paths}")
+    paths = [serving_phase(rng), serving_2d_phase(rng), training_phase(),
+             training_2d_phase(), driver_phase()]
+    print(f"launches by main path (ex1 serving, ex2 serving, ex1 training, ex2 training, "
+          f"drivers): {paths}")
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths)
         if k["launches"] == 0:

@@ -1,7 +1,7 @@
 from .burgers import BurgersDataset
-from .darcy import darcy_grids, get_scaler_sizes
+from .darcy import DarcyDataset, darcy_grids, get_scaler_sizes
 from .loader import DataLoader
 from .normalizer import UnitGaussianNormalizer
 
-__all__ = ["BurgersDataset", "DataLoader", "UnitGaussianNormalizer",
+__all__ = ["BurgersDataset", "DarcyDataset", "DataLoader", "UnitGaussianNormalizer",
            "darcy_grids", "get_scaler_sizes"]

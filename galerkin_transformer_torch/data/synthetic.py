@@ -1,14 +1,16 @@
-"""Synthetic 1D Burgers data (counterpart of ``data/synthetic.py``, the 1D
-generators only).
+"""Synthetic Burgers and Darcy data (counterpart of ``data/synthetic.py``,
+its host generators for ex1 to ex3).
 
 The reference trains on Li et al's FNO benchmark .mat files, which are not
 redistributable; these generators produce the same kind of problem from a
-seed.  They use numpy only, exactly as the JAX package's do, so the same
-seed gives the same arrays in both packages.
+seed.  They use numpy and scipy's sparse direct solve only, exactly as the
+JAX package's do, so the same seed gives the same arrays in both packages.
 """
 from __future__ import annotations
 
 import numpy as np
+from scipy import sparse
+from scipy.sparse.linalg import spsolve
 
 
 def grf_1d(n_samples: int, n_grid: int, rng: np.random.Generator,
@@ -64,3 +66,67 @@ def burgers_cole_hopf(n_samples: int = 256, n_grid: int = 8192,
     phix_T = np.fft.irfft(phi_T_hat * (1j * k[None, :]), n=n_grid, axis=-1)
     u = -2 * viscosity * phix_T / phi_T
     return a, u
+
+
+def grf_2d(n_samples: int, n_grid: int, rng: np.random.Generator,
+           tau: float = 3.0, alpha: float = 2.0):
+    """GRF on the unit square (periodic spectral synthesis, then sampled).
+
+    Defaults match the covariance used for the reference's piececonst
+    Darcy fields, (-grad^2 + tau^2 I)^(-alpha) with tau=3, alpha=2 (the
+    Li et al generator the reference's piececonst_r421 files come from;
+    note tau enters squared — 9 is tau^2, not tau)."""
+    kx = np.fft.fftfreq(n_grid, d=1.0 / n_grid)
+    ky = np.fft.rfftfreq(n_grid, d=1.0 / n_grid)
+    k2 = (kx[:, None] ** 2 + ky[None, :] ** 2) * (4 * np.pi ** 2)
+    sqrt_eig = (k2 + tau ** 2) ** (-alpha / 2.0) * tau ** (alpha - 1)
+    sqrt_eig[0, 0] = 0.0
+    re = rng.standard_normal((n_samples, n_grid, len(ky)))
+    im = rng.standard_normal((n_samples, n_grid, len(ky)))
+    coeffs = (re + 1j * im) * sqrt_eig[None] * n_grid ** 2
+    return np.fft.irfft2(coeffs, s=(n_grid, n_grid), axes=(1, 2))
+
+
+def darcy_fd(n_samples: int = 64, n_grid: int = 85, seed: int = 1127802,
+             hi: float = 12.0, lo: float = 3.0):
+    """Darcy flow: a = thresholded GRF ∈ {hi, lo}; -∇·(a∇u) = 1, u|∂ = 0.
+
+    5-point finite differences with harmonic-mean face coefficients;
+    sparse direct solve per sample.  Returns (coeff, sol): (N, n, n) each.
+    """
+    rng = np.random.default_rng(seed)
+    g = grf_2d(n_samples, n_grid, rng)
+    coeff = np.where(g >= 0, hi, lo)
+
+    n_in = n_grid - 2
+    h = 1.0 / (n_grid - 1)
+    sols = np.zeros((n_samples, n_grid, n_grid))
+    idx = np.arange(n_in * n_in).reshape(n_in, n_in)
+
+    def face(a1, a2):   # harmonic mean on a face of the interior grid
+        return 2.0 * a1 * a2 / (a1 + a2)
+
+    for s in range(n_samples):
+        a = coeff[s]
+        aw = face(a[1:-1, 1:-1], a[1:-1, :-2])
+        ae = face(a[1:-1, 1:-1], a[1:-1, 2:])
+        an = face(a[1:-1, 1:-1], a[:-2, 1:-1])
+        as_ = face(a[1:-1, 1:-1], a[2:, 1:-1])
+        diag = (aw + ae + an + as_) / h ** 2
+        rows, cols, vals = [idx.ravel()], [idx.ravel()], [diag.ravel()]
+
+        def link(coef, r_idx, c_idx):
+            rows.append(r_idx.ravel())
+            cols.append(c_idx.ravel())
+            vals.append((-coef / h ** 2).ravel())
+        link(ae[:, :-1], idx[:, :-1], idx[:, 1:])
+        link(aw[:, 1:], idx[:, 1:], idx[:, :-1])
+        link(as_[:-1, :], idx[:-1, :], idx[1:, :])
+        link(an[1:, :], idx[1:, :], idx[:-1, :])
+        A = sparse.csr_matrix(
+            (np.concatenate(vals),
+             (np.concatenate(rows), np.concatenate(cols))),
+            shape=(n_in * n_in, n_in * n_in))
+        u = spsolve(A, np.ones(n_in * n_in))
+        sols[s, 1:-1, 1:-1] = u.reshape(n_in, n_in)
+    return coeff, sols

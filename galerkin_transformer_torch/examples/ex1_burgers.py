@@ -7,7 +7,7 @@ reference recipe: H¹-regularized relative L2, Adam with the 1cycle lr and
 cycled β1, global-norm clip 0.999.  Runs on the GPU unless ``--device cpu``
 is given; without a GPU that default raises.
 
-    python -m galerkin_transformer_torch.examples.ex1_burgers --attention-type galerkin
+    python -m galerkin_transformer_torch.examples.ex1_burgers --attention-type galerkin --bf16
     python -m galerkin_transformer_torch.examples.ex1_burgers --device cpu \\
         --subsample 32 --n-samples 32 --epochs 2 --batch-size 4
 """
@@ -57,6 +57,8 @@ def get_args(argv=None) -> argparse.Namespace:
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient accumulation: split each batch into this many "
                         "microbatches (the full-batch gradient)")
+    p.add_argument("--bf16", action="store_true", default=False,
+                   help="bfloat16 encoder activations (params/decoder stay f32)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     return p.parse_args(argv)
@@ -90,7 +92,9 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
     # the JAX driver's flag defaults, which override config.yml's xavier_init
     config.update(attention_type=args.attention_type, xavier_init=1e-2,
                   diagonal_weight=1e-2)
-    model = SimpleTransformer.from_config(config, device=device, seed=args.seed)
+    model = SimpleTransformer.from_config(
+        config, device=device, seed=args.seed,
+        dtype=torch.bfloat16 if args.bf16 else None)
 
     sample = next(iter(train_loader))
     print("=" * 20, "Data loader batch", "=" * 20)

@@ -7,7 +7,10 @@ without storing the score matrix.  On CUDA tensors it launches
 ``csrc/fourier_chain_bf16.cu`` (bfloat16 inputs, tensor cores; the score
 tile is rounded to bfloat16 before the second product); on CPU tensors it
 runs ``fourier_chain_reference``, the plain PyTorch version of both.
-Anything else, and inputs of mixed types, raise.  ``fourier_attention_tiled`` is the attention on top of it:
+Anything else, and inputs of mixed types, raise.  ``fourier_chain_mixed``
+is the same chain with exactly one float32 operand beside two bfloat16
+ones (``csrc/fourier_chain_mixed.cu``): the sweeps of the bfloat16
+backward.  ``fourier_attention_tiled`` is the attention on top of them:
 (Q Kᵀ · s) V with s = 1/(√d·n), d counting the pos columns, differentiable
 through ``FourierAttention`` (the counterpart of the custom VJP
 ``_fourier_fwd``/``_fourier_bwd``): its backward is three more chain
@@ -26,6 +29,7 @@ from . import _build
 MAX_D = 128   # d and d_out that the kernels take
 MMA_TILE = 16  # the bf16 kernel's mma depth and tile width
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_MIXED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def fourier_chain_reference(a, b, c, row_block: int = 2048) -> torch.Tensor:
@@ -139,6 +143,55 @@ def fourier_chain_bf16(a, b, c) -> torch.Tensor:
 fourier_chain_bf16.launches = 0
 
 
+def fourier_chain_mixed(a, b, c) -> torch.Tensor:
+    """`fourier_chain` with exactly one float32 operand and two bfloat16
+    ones, (BH, R, d_out) float32: the three sweeps of the bfloat16 backward
+    of fourier attention, whose gradient operand is float32.  Any other
+    combination of types raises.
+
+    As in ``_matmul_chain_kernel`` the score tile is cast to c's type:
+    rounded to bfloat16 when c is bfloat16, left in float32 when c is the
+    float32 operand.  The float32 operand is not rounded.  CPU tensors run
+    `fourier_chain_reference`; CUDA tensors launch
+    ``csrc/fourier_chain_mixed.cu``, which splits the float32 operand into
+    three bfloat16 parts whose sum is exact and runs every product on the
+    tensor cores with float32 sums.  The bfloat16 operands are padded here
+    with zero columns to a multiple of 16.  Each launch adds one to
+    ``fourier_chain_mixed.launches``.
+    """
+    types = [t.dtype for t in (a, b, c)]
+    if sorted(types, key=str) != [torch.bfloat16, torch.bfloat16, torch.float32]:
+        raise TypeError(f"fourier_chain_mixed takes one float32 and two bfloat16 "
+                        f"operands, got {types}")
+    if a.device.type == "cpu":
+        return fourier_chain_reference(a, b, c)
+    if a.device.type != "cuda":
+        raise ValueError(f"fourier_chain runs on cpu or cuda, not {a.device}")
+    _check(a, b, c)
+    bh, r, d = a.shape
+    m, d_out = c.shape[1], c.shape[2]
+    width = math.ceil(max(d, d_out) / MMA_TILE) * MMA_TILE
+    f32_operand = types.index(torch.float32)
+    ops = [t if i == f32_operand else F.pad(t, (0, width - t.shape[2]))
+           for i, t in enumerate((a, b, c))]
+    parts = torch.empty((3, bh, ops[f32_operand].shape[1], width),
+                        dtype=torch.bfloat16, device=a.device)
+    out = torch.empty((bh, r, d_out), dtype=torch.float32, device=a.device)
+    fn = _build.function("fourier_chain_mixed", "fourier_chain_mixed_launch",
+                         _MIXED_ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*(t.data_ptr() for t in ops), out.data_ptr(), parts.data_ptr(),
+                bh, r, m, d, width, d_out, f32_operand, stream)
+    if rc != 0:
+        raise RuntimeError(f"fourier_chain_mixed kernel launch failed: CUDA error {rc}")
+    fourier_chain_mixed.launches += 1
+    return out
+
+
+fourier_chain_mixed.launches = 0
+
+
 def fourier_attention_bwd_reference(q, k, v, g):
     """Plain PyTorch (dQ, dK, dV) of `fourier_attention_tiled` given g, the
     gradient of its output, through `fourier_chain_reference`
@@ -176,14 +229,10 @@ class FourierAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        if q.dtype == torch.float32:
-            return _fourier_bwd(q, k, v, g, fourier_chain, ctx.needs_input_grad)
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "the bfloat16 backward of fourier attention (float32 gradient, "
-                "bfloat16 q, k, v) has no kernel yet")
-        # the operands are of mixed types, as in ``_fourier_bwd`` of the JAX package
-        return _fourier_bwd(q, k, v, g, fourier_chain_reference, ctx.needs_input_grad)
+        # with bfloat16 q, k, v the operands are of mixed types, as in
+        # ``_fourier_bwd`` of the JAX package: the gradient is float32
+        chain = fourier_chain if q.dtype == torch.float32 else fourier_chain_mixed
+        return _fourier_bwd(q, k, v, g, chain, ctx.needs_input_grad)
 
 
 def fourier_attention_tiled(q, k, v):
@@ -191,8 +240,8 @@ def fourier_attention_tiled(q, k, v):
 
     s = 1/(√d·n), d the last dim of q (pos columns included).
     Returns (B, H, n, d) in q's dtype: the float32 sum is scaled and then
-    cast.  Differentiable: the backward runs `fourier_chain` once for each
-    of q, k, v that needs a gradient (float32 on CUDA; bfloat16 only on the
-    CPU, through the plain version).
+    cast.  Differentiable: the backward runs `fourier_chain` (float32) or
+    `fourier_chain_mixed` (bfloat16 q, k, v with the float32 gradient) once
+    for each of q, k, v that needs a gradient.
     """
     return FourierAttention.apply(q, k, v)

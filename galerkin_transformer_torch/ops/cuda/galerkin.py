@@ -6,7 +6,9 @@ the custom VJP of ``galerkin_scores_fused``).  On CUDA tensors the forward
 launches ``csrc/galerkin_scores.cu`` (float32 K, V, pos) or
 ``csrc/galerkin_scores_bf16.cu`` (bfloat16 K, V, pos: LN statistics in
 float32, LN output rounded to bfloat16, the product on the tensor cores
-with a float32 sum) and the float32 backward ``csrc/galerkin_scores_bwd.cu``;
+with a float32 sum), and the backward launches
+``csrc/galerkin_scores_bwd.cu`` (float32) or
+``csrc/galerkin_scores_bwd_bf16.cu`` (bfloat16 K, V, pos);
 on CPU tensors they run ``galerkin_scores_reference`` and
 ``galerkin_scores_bwd_reference``, the plain PyTorch versions of the same
 functions.  The LN parameters are float32 in both forms.  Anything else,
@@ -152,9 +154,6 @@ class GalerkinScores(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ds):
         k, v, pos, *params = ctx.saved_tensors
-        if k.dtype != torch.float32 and k.device.type != "cpu":
-            raise NotImplementedError(
-                "the bfloat16 backward of galerkin_scores has no kernel yet")
         need_dpos = pos is not None and ctx.needs_input_grad[2]
         dk, dv, dpos, *dparams = galerkin_scores_bwd(
             k, v, pos, *params, ds.float().contiguous(), ctx.eps,
@@ -171,8 +170,9 @@ def galerkin_scores(k, v, pos, scale_k, bias_k, scale_v, bias_v,
     versions; CUDA tensors launch the kernels, which take contiguous
     tensors with d_k + p <= 128.  Each float32 forward launch adds one to
     ``galerkin_scores.launches``, each bfloat16 forward launch one to
-    ``galerkin_scores_bf16.launches``, each backward launch (float32 only
-    on CUDA) one to ``galerkin_scores_bwd.launches``.
+    ``galerkin_scores_bf16.launches``, each float32 backward launch one to
+    ``galerkin_scores_bwd.launches`` and each bfloat16 backward launch one
+    to ``galerkin_scores_bwd_bf16.launches``.
     """
     return GalerkinScores.apply(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps)
 
@@ -215,7 +215,24 @@ def galerkin_scores_bwd_reference(k, v, pos, scale_k, bias_k, scale_v, bias_v,
 
     ds: (B, H, d_eff, d_eff), the gradient of the unscaled S.  Returns
     (dk, dv, dpos or None, dscale_k, dbias_k, dscale_v, dbias_v).
+
+    For bfloat16 k, v (and pos) this is the statement of what
+    ``csrc/galerkin_scores_bwd_bf16.cu`` computes: all LayerNorm arithmetic
+    in float32, and a rounding to bfloat16 exactly where ``_scores_bwd``
+    holds a bfloat16 array: the LN output (as the forward kernel rounds
+    it), dS, the two products ``K' dS`` and ``V' dSᵀ`` (float32 sums of
+    bfloat16 products), the sum of their pos columns per head, and at the
+    end dpos and the four LN-parameter gradients (float32 sums over batch
+    and sequence, rounded once; returned as bfloat16).  dk and dv are
+    float32, as in JAX, where the float32 LN scale promotes them; the
+    caller casts them to bfloat16.  JAX on the CPU also rounds after every
+    elementwise LN operation, which a compiler is free not to do inside a
+    fusion; the two agree to a few bfloat16 steps of each gradient's
+    largest entry (``tests/test_torch_bf16_bwd.py``).
     """
+    if k.dtype == torch.bfloat16:
+        return _scores_bwd_bf16_reference(k, v, pos, scale_k, bias_k, scale_v,
+                                          bias_v, ds, eps)
     p = 0 if pos is None else pos.shape[-1]
 
     # recompute normalized K', V' (nothing but raw inputs saved)
@@ -226,17 +243,46 @@ def galerkin_scores_bwd_reference(k, v, pos, scale_k, bias_k, scale_v, bias_v,
     kc = _concat_pos(kn, pos)
     vc = _concat_pos(vn, pos)
 
-    # no-ops in float32; for bfloat16 k, v (CPU only) ds is rounded to
-    # bfloat16 and the products back to it, as ``_scores_bwd`` does
-    ds = ds.to(k.dtype).to(kc.dtype)
-    dvc = torch.matmul(kc, ds).to(k.dtype)
-    dkc = torch.matmul(vc, ds.transpose(-2, -1)).to(k.dtype)
+    dvc = torch.matmul(kc, ds)
+    dkc = torch.matmul(vc, ds.transpose(-2, -1))
 
     dkn = dkc[..., p:]
     dvn = dvc[..., p:]
     dk, dscale_k, dbias_k = _ln_bwd(k, scale_k[None, :, None, :], dkn, eps)
     dv, dscale_v, dbias_v = _ln_bwd(v, scale_v[None, :, None, :], dvn, eps)
 
+    dpos = None if pos is None else (dkc[..., :p] + dvc[..., :p]).sum(dim=1)
+    return dk, dv, dpos, dscale_k, dbias_k, dscale_v, dbias_v
+
+
+def _scores_bwd_bf16_reference(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds, eps):
+    bf16 = torch.bfloat16
+    p = 0 if pos is None else pos.shape[-1]
+
+    def ln(x, scale, bias):
+        xhat, rstd = _ln_fwd_stats(x.float(), eps)
+        y = xhat * scale[None, :, None, :] + bias[None, :, None, :]
+        return xhat, rstd, y.to(bf16)
+
+    khat, krstd, kn = ln(k, scale_k, bias_k)
+    vhat, vrstd, vn = ln(v, scale_v, bias_v)
+    kc = _concat_pos(kn, pos).float()
+    vc = _concat_pos(vn, pos).float()
+    dsb = ds.to(bf16).float()
+    dvc = torch.matmul(kc, dsb).to(bf16)
+    dkc = torch.matmul(vc, dsb.transpose(-2, -1)).to(bf16)
+
+    def ln_bwd(xhat, rstd, scale, g):
+        g = g.float()
+        gy = g * scale[None, :, None, :]
+        dx = rstd * (gy - gy.mean(dim=-1, keepdim=True)
+                     - xhat * (gy * xhat).mean(dim=-1, keepdim=True))
+        return dx, (g * xhat).sum(dim=(0, 2)).to(bf16), g.sum(dim=(0, 2)).to(bf16)
+
+    dk, dscale_k, dbias_k = ln_bwd(khat, krstd, scale_k, dkc[..., p:])
+    dv, dscale_v, dbias_v = ln_bwd(vhat, vrstd, scale_v, dvc[..., p:])
+    # bfloat16 + bfloat16 rounds per head; the sum over heads is a float32
+    # sum rounded once
     dpos = None if pos is None else (dkc[..., :p] + dvc[..., :p]).sum(dim=1)
     return dk, dv, dpos, dscale_k, dbias_k, dscale_v, dbias_v
 
@@ -248,20 +294,49 @@ def galerkin_scores_bwd(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds,
 
     dpos is None without pos or when `need_dpos` is false.  CPU tensors run
     `galerkin_scores_bwd_reference`; CUDA tensors launch
-    ``csrc/galerkin_scores_bwd.cu`` (contiguous float32, d_k + p <= 128),
-    and each launch adds one to ``galerkin_scores_bwd.launches``.
+    ``csrc/galerkin_scores_bwd.cu`` (contiguous float32, d_k + p <= 128;
+    each launch adds one to ``galerkin_scores_bwd.launches``) or, for
+    bfloat16 k, v, pos, `galerkin_scores_bwd_bf16`.
     """
+    if k.dtype == torch.bfloat16:
+        return galerkin_scores_bwd_bf16(k, v, pos, scale_k, bias_k, scale_v,
+                                        bias_v, ds, eps, need_dpos)
+    return _scores_backward(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds,
+                            eps, need_dpos)
+
+
+galerkin_scores_bwd.launches = 0
+
+
+def galerkin_scores_bwd_bf16(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds,
+                             eps: float = 1e-5, need_dpos: bool = True):
+    """`galerkin_scores_bwd` for bfloat16 k, v, pos (anything else raises).
+
+    CUDA tensors launch ``csrc/galerkin_scores_bwd_bf16.cu``, which rounds
+    where `galerkin_scores_bwd_reference` does and writes dk and dv as
+    bfloat16 (one rounding of the plain version's float32 values), dpos as
+    bfloat16 and the LN-parameter gradients as float32 tensors that hold
+    bfloat16-rounded values.  Each launch adds one to
+    ``galerkin_scores_bwd_bf16.launches``.
+    """
+    if k.dtype != torch.bfloat16:
+        raise TypeError(f"galerkin_scores_bwd_bf16 takes bfloat16, got {k.dtype}")
+    return _scores_backward(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds,
+                            eps, need_dpos)
+
+
+galerkin_scores_bwd_bf16.launches = 0
+
+
+def _scores_backward(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds, eps, need_dpos):
+    params = (scale_k, bias_k, scale_v, bias_v)
+    _check_types(k, v, pos, params)
     if k.device.type == "cpu":
         grads = galerkin_scores_bwd_reference(k, v, pos, scale_k, bias_k,
                                               scale_v, bias_v, ds, eps)
         return grads[:2] + ((grads[2] if need_dpos else None),) + grads[3:]
     if k.device.type != "cuda":
         raise ValueError(f"galerkin_scores_bwd runs on cpu or cuda, not {k.device}")
-    params = (scale_k, bias_k, scale_v, bias_v)
-    _check_types(k, v, pos, params)
-    if k.dtype != torch.float32:
-        raise NotImplementedError(
-            "the bfloat16 backward of galerkin_scores has no kernel yet")
     _check(k, v, pos, params)
     b, h, n, d_k = k.shape
     p = 0 if pos is None else pos.shape[-1]
@@ -272,16 +347,17 @@ def galerkin_scores_bwd(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds,
     if ds.device != k.device or ds.dtype != torch.float32 or not ds.is_contiguous():
         raise ValueError("ds must be contiguous float32 on the device of k")
     need_dpos = need_dpos and pos is not None
+    bf16 = k.dtype == torch.bfloat16
+    name = "galerkin_scores_bwd_bf16" if bf16 else "galerkin_scores_bwd"
     rows, splits = _splits(b * h, n, k.device)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=k.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dparams = empty(4, h, d_k)
     partial = empty(splits, b * h, 4, d_k)
     dpos_h = empty(b * h, n, p) if need_dpos else None
-    dpos = empty(b, n, p) if need_dpos else None
+    dpos = torch.empty_like(pos) if need_dpos else None
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = _build.function("galerkin_scores_bwd", "galerkin_scores_bwd_launch",
-                         _BWD_ARGTYPES)
+    fn = _build.function(name, f"{name}_launch", _BWD_ARGTYPES)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(k.data_ptr(), v.data_ptr(), ptr(pos),
@@ -290,12 +366,12 @@ def galerkin_scores_bwd(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds,
                 partial.data_ptr(), dparams.data_ptr(),
                 b, h, n, d_k, p, rows, splits, eps, stream)
     if rc != 0:
-        raise RuntimeError(f"galerkin_scores_bwd kernel launch failed: CUDA error {rc}")
-    galerkin_scores_bwd.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    if bf16:
+        galerkin_scores_bwd_bf16.launches += 1
+    else:
+        galerkin_scores_bwd.launches += 1
     return (dk, dv, dpos, *dparams.unbind(0))
-
-
-galerkin_scores_bwd.launches = 0
 
 
 def galerkin_attention_fused(q, k, v, pos, scale_k, bias_k, scale_v, bias_v,

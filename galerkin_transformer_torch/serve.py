@@ -39,8 +39,12 @@ class Predictor:
                         normalizer: Optional[Tuple] = None,
                         device: Optional[Union[str, torch.device]] = None):
         """Load the weights of a training checkpoint
-        (``train.checkpoint.save_checkpoint``) into `model`."""
-        model.load_state_dict(load_checkpoint(checkpoint_path)["params"])
+        (``train.checkpoint.save_checkpoint``) into `model`, and the target
+        normalizer saved with them unless one is passed."""
+        ckpt = load_checkpoint(checkpoint_path)
+        model.load_state_dict(ckpt["params"])
+        if normalizer is None:
+            normalizer = ckpt.get("normalizer")
         return cls(model, normalizer=normalizer, device=device)
 
     def __call__(self, batch: dict) -> np.ndarray:

@@ -7,7 +7,9 @@ back with ``torch.load(weights_only=True)`` (no pickled code):
   {"params": model state_dict (the deployable weights, the EMA average
              when EMA is on),
    "optimizer": optimizer state_dict, "epoch": int,
-   "train_params": the raw training weights when EMA is on}
+   "train_params": the raw training weights when EMA is on,
+   "normalizer": the target normalizer (mean, std, eps) as tensors, for a
+                 model whose forward undoes it (the 2D models)}
 
 Optimizer state is included so that a resumed run could restore the
 moments; resuming itself is not ported yet.
@@ -15,7 +17,7 @@ moments; resuming itself is not ported yet.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,12 +25,15 @@ import torch
 def save_checkpoint(path: str, params: Dict[str, torch.Tensor],
                     optimizer_state: Optional[dict] = None,
                     epoch: Optional[int] = None,
-                    train_params: Optional[Dict[str, torch.Tensor]] = None):
+                    train_params: Optional[Dict[str, torch.Tensor]] = None,
+                    normalizer: Optional[Tuple] = None):
     """Write the checkpoint atomically (a temporary file, then a rename)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {"params": params}
+    if normalizer is not None:
+        normalizer = tuple(torch.as_tensor(x).cpu() for x in normalizer)
     for key, value in (("optimizer", optimizer_state), ("epoch", epoch),
-                       ("train_params", train_params)):
+                       ("train_params", train_params), ("normalizer", normalizer)):
         if value is not None:
             payload[key] = value
     tmp = f"{path}.{os.getpid()}.tmp"

@@ -1,22 +1,29 @@
-"""Train and eval steps for ex1 Burgers (counterpart of ``train/steps.py``;
-reference libs/utils_ft.py:593-711).
+"""Train and eval steps for ex1 Burgers and ex2/ex3 Darcy (counterpart of
+``train/steps.py``; reference libs/utils_ft.py:593-711).
 
-``make_burgers_steps`` closes over (model, loss, metric, optimizer) and
-returns
+Each factory closes over (model, loss, metric, optimizer) and returns
 
-  train_step(batch) -> (total, reg, ortho)   0-d tensors, total = loss + reg + ortho
-  eval_step(batch)  -> metric                 0-d tensor, under torch.no_grad()
+  train_step(batch) -> losses     0-d tensors: Burgers (total, reg, ortho)
+                                  with total = loss + reg + ortho, Darcy
+                                  (total, reg) with total = loss + reg
+  eval_step(batch)  -> metric     0-d tensor, under torch.no_grad()
 
 A batch is a dict of numpy arrays or tensors (``node``, ``pos``, ``grid``,
-``target`` and possibly ``None`` leaves); each step moves it to the
-model's device.  Nothing here synchronizes with the device: the caller
-reads the returned tensors when it needs the numbers.
+``target``, for Darcy also ``coeff`` and ``target_grad``, and possibly
+``None`` leaves); each step moves it to the model's device.  Nothing here
+synchronizes with the device: the caller reads the returned tensors when it
+needs the numbers.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+
+class _DarcyLosses(NamedTuple):
+    loss: torch.Tensor
+    reg: torch.Tensor
 
 
 def to_device(batch: Dict, device: torch.device) -> Dict:
@@ -108,3 +115,64 @@ def make_burgers_steps(model: torch.nn.Module, loss_fn, metric_fn,
         return metric_fn(out["preds"][..., 0], batch["target"][..., 0]).metric
 
     return train_step, eval_step
+
+
+def make_darcy_steps(model: torch.nn.Module, loss_fn, metric_fn,
+                     optimizer: torch.optim.Optimizer,
+                     normalizer: Optional[Tuple] = None,
+                     online_noise: float = 0.0, accum_steps: int = 1,
+                     noise_generator: Optional[torch.Generator] = None
+                     ) -> Tuple[Callable, Callable]:
+    """Steps of the 2D Darcy models.  `normalizer` is the target normalizer
+    ``(mean, std, eps)`` that the model undoes on its output.
+
+    ``online_noise`` > 0 draws fresh Gaussian measurement noise on the
+    (normalized) train inputs every step, from `noise_generator` (a
+    ``torch.Generator`` on the model's device; required then): the
+    reference bakes one fixed realization into the dataset, and resampling
+    is data augmentation of the same distribution.  Validation inputs are
+    untouched.
+    """
+    device = next(model.parameters()).device
+    params = [p for p in model.parameters() if p.requires_grad]
+    if normalizer is not None:
+        normalizer = tuple(torch.as_tensor(x, device=device) for x in normalizer)
+    if online_noise > 0 and noise_generator is None:
+        raise ValueError("online_noise > 0 needs a noise_generator")
+
+    def forward(batch, node=None):
+        return model(batch["node"] if node is None else node, batch.get("edge"),
+                     batch["pos"], batch["grid"], normalizer=normalizer)
+
+    def forward_loss(batch):
+        node = None
+        if online_noise > 0:
+            x = batch["node"]
+            node = x + online_noise * torch.randn(
+                x.shape, generator=noise_generator, device=x.device, dtype=x.dtype)
+        preds = forward(batch, node)["preds"]   # (B, n, n, n_targets)
+        res = loss_fn(preds[..., 0], batch["target"][..., 0], preds[..., 1:],
+                      batch["target_grad"], K=batch["coeff"])
+        # accumulation averages the aux leaves over microbatches, so the aux
+        # keeps only the scalars the step reports (``norms`` is batch-shaped)
+        return res.loss + res.reg, _DarcyLosses(res.loss, res.reg)
+
+    value_and_grad = microbatched_value_and_grad(forward_loss, accum_steps)
+
+    def train_step(batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        model.train()
+        (_, (loss, reg)), grads = value_and_grad(params, to_device(batch, device))
+        for p, g in zip(params, grads):
+            p.grad = g
+        optimizer.step()
+        return loss + reg, reg
+
+    @torch.no_grad()
+    def eval_step(batch: Dict) -> torch.Tensor:
+        model.eval()
+        batch = to_device(batch, device)
+        preds = forward(batch)["preds"]
+        return metric_fn(preds[..., 0], batch["target"][..., 0]).metric
+
+    return train_step, eval_step
+

@@ -77,6 +77,7 @@ def run_train(model: torch.nn.Module,
               model_name: str = "model.ckpt",
               result_name: str = "result.pkl",
               ema_decay: Optional[float] = None,
+              normalizer: Optional[tuple] = None,
               plateau=None,
               resume: bool = False,
               async_checkpoint: bool = False,
@@ -88,7 +89,9 @@ def run_train(model: torch.nn.Module,
     With ``ema_decay`` set (e.g. 0.999), an exponential moving average of
     the parameters is updated after each step and used for validation and
     the best checkpoint (the raw parameters keep training, and are saved
-    beside it as ``train_params``).  An epoch log is appended to
+    beside it as ``train_params``).  A target `normalizer` ``(mean, std,
+    eps)`` is saved with every checkpoint, so that a `Predictor` made from
+    it undoes the normalization as training did.  An epoch log is appended to
     ``<result_name without suffix>.jsonl`` in `model_save_path`.
     """
     unported = {"plateau": plateau is not None, "resume": resume,
@@ -144,7 +147,7 @@ def run_train(model: torch.nn.Module,
         if improved:
             raw = _snapshot(model) if ema is not None else None
             save_checkpoint(ckpt_path, best_params, optimizer.state_dict(),
-                            epoch=epoch, train_params=raw)
+                            epoch=epoch, train_params=raw, normalizer=normalizer)
         else:
             stop_counter += 1
 

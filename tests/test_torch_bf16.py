@@ -179,6 +179,14 @@ def test_wrappers_raise_on_mixed_types():
         TF.fourier_chain(x.half(), x.half(), x.half())
     with pytest.raises(TypeError, match="takes bfloat16"):
         TF.fourier_chain_bf16(x, x, x)
+    # the mixed chain takes exactly one float32 operand beside two bfloat16 ones
+    for f32_at in range(3):
+        ops = [x if i == f32_at else x.bfloat16() for i in range(3)]
+        assert TF.fourier_chain_mixed(*ops).dtype == torch.float32
+    for ops in ((x, x, x), (x.bfloat16(),) * 3, (x, x, x.bfloat16()),
+                (x.half(), x.bfloat16(), x.bfloat16()), (x.double(), x.bfloat16(), x.bfloat16())):
+        with pytest.raises(TypeError, match="one float32 and two bfloat16"):
+            TF.fourier_chain_mixed(*ops)
     k = torch.zeros(1, 2, 16, 8)
     p = torch.ones(2, 8)
     pos = torch.zeros(1, 16, 1)
@@ -192,10 +200,20 @@ def test_wrappers_raise_on_mixed_types():
         TG.galerkin_scores(k.double(), k.double(), None, p, p, p, p)
     with pytest.raises(TypeError, match="takes bfloat16"):
         TG.galerkin_scores_bf16(k, k, None, p, p, p, p)
+    ds = torch.zeros(1, 2, 8, 8)
+    with pytest.raises(TypeError, match="takes bfloat16"):
+        TG.galerkin_scores_bwd_bf16(k, k, None, p, p, p, p, ds)
+    with pytest.raises(TypeError, match="one type"):
+        TG.galerkin_scores_bwd(k.bfloat16(), k, None, p, p, p, p, ds)
+    with pytest.raises(TypeError, match="LN parameters"):
+        TG.galerkin_scores_bwd(k.bfloat16(), k.bfloat16(), None, p.bfloat16(), p, p, p, ds)
 
 
 def test_bf16_cpu_tensors_count_no_launch_and_have_a_plain_backward():
-    TG.galerkin_scores_bf16.launches = TF.fourier_chain_bf16.launches = 0
+    counters = (TG.galerkin_scores_bf16, TG.galerkin_scores_bwd_bf16, TG.galerkin_scores_bwd,
+                TF.fourier_chain_bf16, TF.fourier_chain_mixed)
+    for fn in counters:
+        fn.launches = 0
     k, v, pos, params = _galerkin_inputs(1, 2, 40, 8, 2, seed=9)
     tk, tv, tpos = (torch.from_numpy(a).bfloat16() for a in (k, v, pos))
     tk.requires_grad_()
@@ -206,7 +224,17 @@ def test_bf16_cpu_tensors_count_no_launch_and_have_a_plain_backward():
     q = torch.from_numpy(k).bfloat16().requires_grad_()
     TF.fourier_attention_tiled(q, q, q).float().sum().backward()
     assert q.grad.dtype == torch.bfloat16 and torch.isfinite(q.grad.float()).all()
-    assert TG.galerkin_scores_bf16.launches == TF.fourier_chain_bf16.launches == 0
+    # the wrappers called directly take the plain versions too
+    ds = torch.from_numpy(np.random.default_rng(1).standard_normal((1, 2, 10, 10))
+                          .astype(np.float32))
+    plain = [p.detach() for p in tparams]
+    direct = TG.galerkin_scores_bwd_bf16(tk.detach(), tv, tpos, *plain, ds)
+    assert direct[0].dtype == torch.float32 and direct[3].dtype == torch.bfloat16
+    assert torch.equal(direct[3], TG.galerkin_scores_bwd(tk.detach(), tv, tpos, *plain, ds)[3])
+    assert TG.galerkin_scores_bwd(tk.detach(), tv, tpos, *plain, ds, need_dpos=False)[2] is None
+    g = torch.from_numpy(k[0])
+    assert TF.fourier_chain_mixed(g, tv[0], tk.detach()[0]).dtype == torch.float32
+    assert all(fn.launches == 0 for fn in counters)
 
 
 # ------------------------------------------------------------ the layers

@@ -7,7 +7,8 @@ with an sm_90a card:
 
 (``--noconftest``: tests/conftest.py sets up jax, which the GPU machine
 need not have.)  The backward kernels are held against their plain
-versions here too, and a small train step on the card against the CPU.
+versions here too, and small 1D and 2D train steps on the card against the
+CPU.
 """
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False   # the 2D model's convolutions
     return torch.device("cuda")
 
 
@@ -106,8 +108,6 @@ def test_galerkin_scores_bf16_kernel_matches_plain(dev, b, h, n, d_k, p):
     want = GS.galerkin_scores_reference(k, v, pos, *params, 1e-7)
     torch.testing.assert_close(got, want, rtol=0, atol=TOL_BF16 * want.abs().max().item())
     assert torch.equal(got, GS.galerkin_scores_bf16(k, v, pos, *params, 1e-7))
-    with pytest.raises(NotImplementedError):
-        GS.galerkin_scores(k.requires_grad_(), v, pos, *params).sum().backward()
 
 
 @pytest.mark.parametrize("bh,r,m,d,d_out", [
@@ -123,9 +123,98 @@ def test_fourier_chain_bf16_kernel_matches_plain(dev, bh, r, m, d, d_out):
     assert got.dtype == torch.float32 and got.shape == (bh, r, d_out)
     want = FC.fourier_chain_reference(a, b, c)
     torch.testing.assert_close(got, want, rtol=0, atol=TOL_BF16 * want.abs().max().item())
-    q = a[:, None, :, :].requires_grad_()
-    with pytest.raises(NotImplementedError):
-        FC.fourier_attention_tiled(q, q, q).sum().backward()
+
+
+# the bfloat16 backward of galerkin_scores against its plain version, which
+# rounds at the same places: dk, dv, dpos and the LN-parameter gradients are
+# float32 values rounded to bfloat16, and those values come from sums taken in
+# another order, so an entry may land one bfloat16 step (2^-8 of itself) away;
+# the rounded products dK', dV' feed every later sum, so allow two steps of
+# the largest entry
+TOL_BF16_BWD = 2 * 2.0 ** -8
+
+
+@pytest.mark.parametrize("b,h,n,d_k,p", GALERKIN_SHAPES + [
+    (2, 4, 1849, 32, 2), (1, 1, 2048, 96, 1), (2, 2, 77, 30, None), (1, 4, 100, 48, 2)])
+def test_galerkin_scores_bwd_bf16_kernel_matches_plain(dev, b, h, n, d_k, p):
+    rng = np.random.default_rng(n + 11)
+    k, v = (_t(rng, (b, h, n, d_k), dev).bfloat16() for _ in range(2))
+    pos = None if p is None else _t(rng, (b, n, p), dev).bfloat16()
+    params = [1 + 0.1 * _t(rng, (h, d_k), dev), 0.1 * _t(rng, (h, d_k), dev),
+              1 + 0.1 * _t(rng, (h, d_k), dev), 0.1 * _t(rng, (h, d_k), dev)]
+    d_eff = d_k + (p or 0)
+    ds = _t(rng, (b, h, d_eff, d_eff), dev)
+    before = GS.galerkin_scores_bwd_bf16.launches, GS.galerkin_scores_bwd.launches
+    got = GS.galerkin_scores_bwd(k, v, pos, *params, ds, 1e-7)
+    assert GS.galerkin_scores_bwd_bf16.launches == before[0] + 1
+    assert GS.galerkin_scores_bwd.launches == before[1]
+    assert got[0].dtype == got[1].dtype == torch.bfloat16
+    assert all(g.dtype == torch.float32 for g in got[3:])
+    want = GS.galerkin_scores_bwd_reference(k, v, pos, *params, ds, 1e-7)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        torch.testing.assert_close(g.float(), w.bfloat16().float(), rtol=0,
+                                   atol=TOL_BF16_BWD * w.float().abs().max().item())
+    again = GS.galerkin_scores_bwd_bf16(k, v, pos, *params, ds, 1e-7)
+    for g, a in zip(got, again):
+        assert (g is None and a is None) or torch.equal(g, a)
+    # through autograd, without a gradient for pos
+    xs = [k.clone().requires_grad_(), v.clone().requires_grad_()]
+    ps = [t.clone().requires_grad_() for t in params]
+    before = GS.galerkin_scores_bwd_bf16.launches
+    GS.galerkin_scores(xs[0], xs[1], pos, *ps, 1e-7).backward(ds)
+    assert GS.galerkin_scores_bwd_bf16.launches == before + 1
+    assert torch.equal(xs[0].grad, got[0]) and torch.equal(ps[0].grad, got[3])
+
+
+MIXED = {"a": (torch.float32, torch.bfloat16, torch.bfloat16),
+         "b": (torch.bfloat16, torch.float32, torch.bfloat16),
+         "c": (torch.bfloat16, torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.parametrize("f32_operand", list(MIXED))
+@pytest.mark.parametrize("bh,r,m,d,d_out", [
+    (4, 128, 128, 17, 17), (2, 200, 77, 97, 97), (3, 65, 300, 8, 40),
+    (1, 1, 1, 128, 128), (8, 1000, 1000, 97, 97), (2, 130, 64, 33, 16)])
+def test_fourier_chain_mixed_kernel_matches_plain(dev, f32_operand, bh, r, m, d, d_out):
+    rng = np.random.default_rng(r + m + 2)
+    a, b, c = (_t(rng, s, dev).to(t) for s, t in
+               zip(((bh, r, d), (bh, m, d), (bh, m, d_out)), MIXED[f32_operand]))
+    before = FC.fourier_chain_mixed.launches, FC.fourier_chain_bf16.launches
+    got = FC.fourier_chain_mixed(a, b, c)
+    assert FC.fourier_chain_mixed.launches == before[0] + 1
+    assert FC.fourier_chain_bf16.launches == before[1]
+    assert got.dtype == torch.float32 and got.shape == (bh, r, d_out)
+    want = FC.fourier_chain_reference(a, b, c)
+    # a bfloat16 score tile may round the other way (as TOL_BF16); with a
+    # float32 c nothing is rounded and only the order of the float32 sums differs
+    tol = 1e-4 if f32_operand == "c" else TOL_BF16
+    torch.testing.assert_close(got, want, rtol=0, atol=tol * want.abs().max().item())
+    # the float32 operand is not rounded to bfloat16
+    rounded = [t.bfloat16().float() if t.dtype == torch.float32 else t for t in (a, b, c)]
+    far = (FC.fourier_chain_reference(*[t.float() for t in rounded]) - want).abs().max()
+    if r * m > 1:
+        assert (got - want).abs().max() < far
+
+
+@pytest.mark.parametrize("bh,n,d", [(4, 128, 17), (2, 200, 97), (8, 1000, 97)])
+def test_fourier_attention_bf16_bwd_kernels_match_plain(dev, bh, n, d):
+    rng = np.random.default_rng(n + d + 1)
+    q, k, v = (_t(rng, (bh, 1, n, d), dev).bfloat16() for _ in range(3))
+    g = _t(rng, (bh, 1, n, d), dev).bfloat16()
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = FC.fourier_chain_mixed.launches, FC.fourier_chain_bf16.launches
+    FC.fourier_attention_tiled(*xs).backward(g)
+    assert FC.fourier_chain_mixed.launches == before[0] + 3
+    assert FC.fourier_chain_bf16.launches == before[1] + 1
+    for x, w in zip(xs, FC.fourier_attention_bwd_reference(q, k, v, g)):
+        assert x.grad.dtype == torch.bfloat16
+        # both round to bfloat16 at the end: one unit in the last place of the
+        # largest entry
+        torch.testing.assert_close(x.grad.float(), w.float(), rtol=0,
+                                   atol=2.0 ** -7 * w.float().abs().max().item())
 
 
 @pytest.mark.parametrize("b,h,n,d_k,p", GALERKIN_SHAPES)
@@ -217,6 +306,52 @@ def test_train_step_on_cuda_matches_cpu(dev):
             scale = g_cpu[key].abs().max().item()
             torch.testing.assert_close(g_gpu[key], g_cpu[key], rtol=1e-3, atol=1e-3 * scale)
             torch.testing.assert_close(p_gpu[key], p_cpu[key], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_2d_train_step_on_cuda_matches_cpu(dev, dtype):
+    from galerkin_transformer_torch import FourierTransformer2D, load_config
+    from galerkin_transformer_torch.data import darcy_grids, get_scaler_sizes
+    from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss2d,
+                                                  make_darcy_steps)
+    n_f, n_c, bsz = 29, 15, 4
+    cfg = load_config("ex2_darcy")
+    cfg.update(n_hidden=32, num_encoder_layers=2, n_head=2, dim_feedforward=64,
+               freq_dim=8, fourier_modes=4, dropout=0.0, downscaler_dropout=0.0,
+               upscaler_dropout=0.0, ffn_dropout=0.0, encoder_dropout=0.0,
+               decoder_dropout=0.0)
+    cfg["downscaler_size"], cfg["upscaler_size"] = get_scaler_sizes(n_f, n_c)
+    rng = np.random.default_rng(2)
+    pos, grid = darcy_grids(n_f, n_c)
+    batch = dict(node=rng.standard_normal((bsz, n_f, n_f, 1)).astype(np.float32),
+                 coeff=rng.uniform(3, 12, (bsz, n_f, n_f, 1)).astype(np.float32),
+                 pos=pos[None].repeat(bsz, 0), grid=grid[None].repeat(bsz, 0), edge=None,
+                 target=rng.standard_normal((bsz, n_f, n_f, 1)).astype(np.float32),
+                 target_grad=rng.standard_normal((bsz, n_f, n_f, 2)).astype(np.float32))
+    normalizer = (rng.standard_normal((n_f, n_f, 1)).astype(np.float32),
+                  rng.uniform(0.5, 1.5, (n_f, n_f, 1)).astype(np.float32), np.float32(1e-5))
+    fwd, bwd = ((GS.galerkin_scores, GS.galerkin_scores_bwd) if dtype is None else
+                (GS.galerkin_scores_bf16, GS.galerkin_scores_bwd_bf16))
+    results = []
+    for device in (dev, "cpu"):
+        model = FourierTransformer2D.from_config(cfg, device=device, seed=3, dtype=dtype)
+        opt = AdamOneCycle(model.parameters(), 1e-3, total_steps=10)
+        train_step, eval_step = make_darcy_steps(
+            model, WeightedL2Loss2d(regularizer=True, h=1 / n_f, gamma=0.5),
+            WeightedL2Loss2d(h=1 / n_f), opt, normalizer=normalizer, accum_steps=2)
+        before = fwd.launches, bwd.launches
+        losses = [float(x) for x in train_step(batch)]
+        if device == dev:   # 2 layers x 2 microbatches, forward and backward
+            assert (fwd.launches, bwd.launches) == (before[0] + 4, before[1] + 4)
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        results.append((losses + [float(eval_step(batch))], grads))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = results
+    # bfloat16: the encoder's products round after sums in another order
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4 if dtype is None else 1e-2)
+    for key in g_cpu:
+        scale = g_cpu[key].abs().max().item()
+        tol = 1e-3 if dtype is None else 2.0 ** -4
+        torch.testing.assert_close(g_gpu[key], g_cpu[key], rtol=0, atol=tol * scale)
 
 
 def test_model_on_cuda_matches_cpu(dev):

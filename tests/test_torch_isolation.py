@@ -24,7 +24,9 @@ def _modules():
 def test_port_modules_and_chip_smoke_import_no_jax():
     modules = _modules()
     for name in ("ops.cuda.galerkin", "ops.interp", "models.conv", "models.scaler",
-                 "models.transformer", "data.darcy", "data.normalizer"):
+                 "models.transformer", "data.darcy", "data.normalizer", "ops.fem",
+                 "data.synthetic", "train.steps", "train.losses", "examples._darcy",
+                 "examples.ex2_darcy", "examples.ex3_darcy_inv"):
         assert f"galerkin_transformer_torch.{name}" in modules
     code = "\n".join(
         [f"import {m}" for m in modules]
@@ -47,7 +49,9 @@ def test_port_sources_name_no_jax():
                          re.M)
     files = [f for f in PACKAGE.rglob("*") if f.suffix in (".py", ".cu")]
     assert len(files) > 40
-    assert {f.name for f in files} >= {"galerkin_scores_bf16.cu", "fourier_chain_bf16.cu"}
+    assert {f.name for f in files} >= {"galerkin_scores_bf16.cu", "fourier_chain_bf16.cu",
+                                       "galerkin_scores_bwd_bf16.cu",
+                                       "fourier_chain_mixed.cu", "ex2_darcy.py", "fem.py"}
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files + [ROOT / "chip_smoke.py"]
             for m in imports.finditer(f.read_text())]

@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against ROOT [ROOT ...]   # A/B of the float32 galerkin
+                                                      # backward only (against_phase)
 
 1. prints the card (nvidia-smi) and turns TF32 off;
 2. builds every CUDA kernel of the port from galerkin_transformer_torch/csrc
@@ -13,13 +15,18 @@
    ``galerkin_scores`` again at the ex2 shape, and the bfloat16 tensor-core
    kernels ``galerkin_scores_bf16`` (ex1 and ex2 shapes) and
    ``fourier_chain_bf16`` (ex1 shape);
-4. backward kernel phases: ``galerkin_scores_bwd`` at the ex1 shape and
+4. backward kernel phases: ``galerkin_scores_bwd`` and
    ``galerkin_scores_bwd_bf16`` at the ex2 training shape and the ex1 shape
-   against their plain versions (and bit-equal on a second call), and the
-   fourier attention backward at the training shape against
-   ``fourier_attention_bwd_reference``: three ``fourier_chain`` launches
-   in float32, three ``fourier_chain_mixed`` launches (one float32 operand
-   each) for bfloat16 q, k, v;
+   against their plain versions (and bit-equal on a second call; the
+   float32 one runs exactly one device kernel per call without dpos, as
+   ``torch.profiler`` counts them), and the fourier attention backward at
+   the training shape against ``fourier_attention_bwd_reference``: three
+   ``fourier_chain`` launches in float32, three ``fourier_chain_mixed``
+   launches (one float32 operand each) for bfloat16 q, k, v;
+   wide phase: a galerkin and a fourier ``SimpleAttention`` with heads of
+   d_k + pos_dim = 130 columns, wider than the kernels take, forward and
+   backward on the card against the CPU, with no kernel launched (the JAX
+   package's XLA route for such heads);
 5. serving phase, the port's first main path: ``Predictor`` answers batches
    of 8 with the full-width ex1 SimpleTransformer (random weights from a
    seed), for fourier and galerkin attention at n = 8192 and n = 2048,
@@ -55,7 +62,9 @@
    (n_f, n_c) = (211, 43)), on the card and on the CPU from the same seed
    with dropout off, in float32 and bfloat16: losses and every gradient
    must agree, with exactly 6 forward and 6 backward launches of the
-   matching galerkin kernels; then timed steps with the config's dropout;
+   matching galerkin kernels; then timed steps with the config's dropout,
+   and how far the bf16 gradients are from the f32 ones on the card and on
+   the CPU;
 7. driver phase: ``examples/ex1_burgers.py``, ``examples/ex2_darcy.py`` (2
    epochs each) and ``examples/ex3_darcy_inv.py`` (1 epoch) of the port,
    in-process; their losses must be finite, and the ex1 and ex2 best
@@ -69,7 +78,10 @@ prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import glob
+import importlib
+import importlib.util
 import json
 import math
 import os
@@ -78,6 +90,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -97,6 +110,7 @@ from galerkin_transformer_torch.ops.cuda import _build  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import fourier as FC  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import galerkin as GS  # noqa: E402
 from galerkin_transformer_torch.ops.attention import per_head_layer_norm  # noqa: E402
+from galerkin_transformer_torch.models.layers import SimpleAttention  # noqa: E402
 
 SEED = 0
 BATCH = 8
@@ -200,6 +214,19 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels that one fn() call runs (torch.profiler),
+    after a warm-up call; copies and fills are not counted."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "emcpy" not in e.name and "emset" not in e.name]
 
 
 def max_err(got, ref):
@@ -348,6 +375,14 @@ def galerkin_bwd_phase(rng, dev, peak, shape=(BATCH, 1, RESOLUTIONS[0], 96, 1), 
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
         raise AssertionError(f"{name} is not deterministic run to run")
 
+    if not bf16:   # one device kernel per call; a second one sums dpos over heads
+        for need_dpos, want in ((False, 1), (True, 2)):
+            names = device_kernels(lambda: GS.galerkin_scores_bwd(*args, need_dpos=need_dpos))
+            print(f"{name} need_dpos={need_dpos}: {len(names)} device kernel(s) per call "
+                  f"(torch.profiler): {[n_[:40] for n_ in names]}")
+            if len(names) != want:
+                raise AssertionError(f"{name} ran {len(names)} device kernels per call with "
+                                     f"need_dpos={need_dpos}, expected {want}")
     # timed as the training path calls it: positions need no gradient
     ms = time_ms(lambda: GS.galerkin_scores_bwd(*args, need_dpos=False), 50)
     plain_ms = time_ms(lambda: GS.galerkin_scores_bwd_reference(*args), 20)
@@ -483,6 +518,104 @@ def fourier_bwd_bf16_phase(rng, dev, peak):
           f"{res['bound_ms']:.4f} ms ({res['bound_by']}; {flops / 1e9:.1f} GFLOP as bfloat16 "
           f"passes)")
     return res
+
+
+def wide_phase(rng, dev):
+    """Heads wider than the kernels take (d_k + pos_dim = 130): one galerkin
+    (per-head LN) and one fourier `SimpleAttention`, forward and backward in
+    train mode, on the card and on the CPU from the same weights.  They take
+    the JAX package's XLA route, so no kernel may launch; outputs and every
+    gradient agree to 1e-4 of their largest entry (float32 sums in another
+    order)."""
+    b, n, d_model, pos_dim = 4, TRAIN_N, 128, 2
+    arrays = [rng.standard_normal((b, n, d_model)).astype(np.float32) for _ in range(4)]
+    pos = rng.uniform(0, 1, (b, n, pos_dim)).astype(np.float32)
+    for attention_type in ATTENTION_TYPES:
+        results = []
+        for device in (dev, "cpu"):
+            layer = SimpleAttention(n_head=1, d_model=d_model, pos_dim=pos_dim,
+                                    attention_type=attention_type, dropout=0.0, norm=True,
+                                    generator=torch.Generator().manual_seed(SEED))
+            layer = layer.train().to(device)
+            xs = [torch.from_numpy(a).to(device).requires_grad_() for a in arrays[:3]]
+            before = launches()
+            out, _ = layer(*xs, torch.from_numpy(pos).to(device))
+            out.backward(torch.from_numpy(arrays[3]).to(device))
+            if launches() != before:
+                raise AssertionError(f"wide {attention_type}: a kernel launched")
+            results.append([out.detach().cpu()] + [x.grad.cpu() for x in xs]
+                           + [p.grad.cpu() for p in layer.parameters()])
+        worst = max(max_err(g, w)[0] / max_err(g, w)[1] for g, w in zip(*results))
+        print(f"wide {attention_type} (B,n,d_k,p)=({b},{n},{d_model},{pos_dim}), train mode: "
+              f"card vs CPU, output and {len(results[0]) - 1} gradients, max err/max|ref| "
+              f"{worst:.3e} (tol {TOL_GALERKIN:.0e}); 0 kernel launches")
+        if not worst <= TOL_GALERKIN:
+            raise AssertionError(f"wide {attention_type}: card and CPU disagree")
+
+
+def load_port(root: str, alias: str):
+    """The port package of another checkout at `root`, imported as `alias`
+    (its modules import each other relatively): its wrappers build that
+    checkout's sources into `root`/build and keep their own launch counts."""
+    init = os.path.join(os.path.abspath(root), "galerkin_transformer_torch", "__init__.py")
+    spec = importlib.util.spec_from_file_location(
+        alias, init, submodule_search_locations=[os.path.dirname(init)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def against_phase(roots) -> dict:
+    """`galerkin_scores_bwd` (float32) of this checkout against the same
+    wrapper of other checkouts of the port (``--against``), at the ex1 shape
+    and the ex2 training shape, as the training path calls it (no dpos).
+    Each build is held against this checkout's plain version and must be
+    bit-equal on a second call; the builds are timed in turns, this one
+    first and last (A, B, ..., B, A)."""
+    ports, builders = {"this": GS}, [_build]
+    for i, root in enumerate(roots):
+        alias = load_port(root, f"other_port_{i}").__name__
+        ports[root] = importlib.import_module(f"{alias}.ops.cuda.galerkin")
+        builders.append(importlib.import_module(f"{alias}.ops.cuda._build"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builders)) as pool:
+        logs = list(pool.map(lambda b: b.build(["galerkin_scores_bwd"]), builders))
+    print(f"built galerkin_scores_bwd of {list(ports)} in {time.perf_counter() - t0:.1f} s")
+    for tag, log in zip(ports, logs):
+        for line in log.get("galerkin_scores_bwd", "").splitlines():
+            if "spill" in line:
+                print(f"  {tag}: {line.strip()}")
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    rows = []
+    for shape, eps in (((BATCH, 1, RESOLUTIONS[0], 96, 1), 1e-5),
+                       ((BATCH_2D, 4, 1849, 32, 2), 1e-7)):
+        b, h, n, d_k, p = shape
+        k, v, pos, params = galerkin_inputs(rng, dev, shape, None)
+        ds = _tensor(rng.standard_normal((b, h, d_k + p, d_k + p)), dev)
+        args = (k, v, pos, *params, ds, eps)
+        ref = GS.galerkin_scores_bwd_reference(*args)
+        calls, errs = {}, {}
+        for tag, port in ports.items():
+            calls[tag] = lambda port=port: port.galerkin_scores_bwd(*args, need_dpos=False)
+            got, again = calls[tag](), calls[tag]()
+            torch.cuda.synchronize()
+            errs[tag] = max(err / scale for err, scale in
+                            (max_err(g, r) for g, r in zip(got, ref) if g is not None))
+            if not errs[tag] <= TOL_GALERKIN:
+                raise AssertionError(f"{tag}: galerkin_scores_bwd disagrees with the plain "
+                                     f"version, {errs[tag]:.3e} of max|ref|")
+            if not all(g is None or torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"{tag}: galerkin_scores_bwd is not bit-equal run to run")
+        times = {tag: [] for tag in ports}
+        for tag in list(ports) + list(ports)[::-1]:
+            times[tag].append(time_ms(calls[tag], 50))
+        rows.append(dict(shape=list(shape), eps=eps, ms=times, rel_err=errs))
+        print(f"galerkin_scores_bwd (B,H,n,d_k,p)={tuple(shape)} eps={eps:.0e}: "
+              + "; ".join(f"{tag} {min(t):.4f} ms {t} (err {errs[tag]:.2e})"
+                          for tag, t in times.items()))
+    return {"against": rows}
 
 
 def bound(nbytes: int, flops: int, peak: dict, rate: str = "f32_flops") -> dict:
@@ -786,6 +919,7 @@ def training_2d_phase():
                                 WeightedL2Loss2d(h=h), opt, normalizer=normalizer)[0]
         return model, step
 
+    grads = {}   # (dtype, device) -> the gradients of the compared step
     for dtype in DTYPES:
         steps, models = {}, {}
         for device in ("cuda", "cpu"):   # dropout off: two devices draw other masks
@@ -798,10 +932,20 @@ def training_2d_phase():
         compare_step(tag, steps, models, batches[0], {fwd: n_layers, bwd: n_layers},
                      TOL_TRAIN_LOSS if dtype is None else TOL_TRAIN_LOSS_BF16,
                      TOL_TRAIN_GRAD if dtype is None else TOL_TRAIN_GRAD_BF16)
+        for device, model in models.items():
+            grads[dtype, device] = {k: p.grad.cpu() for k, p in model.named_parameters()}
         del steps, models
         _, step = make_step("cuda", dtype, cfg)   # the config's dropout rates
         time_steps(tag + " config dropout", step, batches, TRAIN_2D_STEPS,
                    BATCH_2D * n_f * n_f)
+    # how far bf16 moves each gradient from f32, on the card and on the CPU: a
+    # card farther from f32 than the CPU would point at a card kernel
+    for device in ("cuda", "cpu"):
+        gaps = {k: max_err(g, grads[None, device][k]) for k, g in
+                grads[torch.bfloat16, device].items()}
+        key = max(gaps, key=lambda k: gaps[k][0] / gaps[k][1])
+        print(f"ex2 step, bf16 vs f32 gradients on the {device}: largest gap "
+              f"{gaps[key][0] / gaps[key][1]:.3e} of max|g_f32| at {key}")
     return launches()
 
 
@@ -867,7 +1011,13 @@ def driver_phase():
     return launches()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Build, check and drive the port on one GPU.")
+    parser.add_argument("--against", nargs="+", metavar="ROOT",
+                        help="only time galerkin_scores_bwd (float32) of this checkout "
+                             "against that of other checkouts of the port (e.g. an "
+                             "earlier commit unpacked with git archive)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -882,6 +1032,9 @@ def main() -> int:
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     peak = peaks_for(name)
+    if args.against:
+        print(json.dumps({"card": smi, **against_phase(args.against)}))
+        return 0
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -908,6 +1061,7 @@ def main() -> int:
     galerkin_bwd_phase(rng, dev, peak, dtype=bf16)
     galerkin_bwd_phase(rng, dev, peak, ex2_train_shape, eps=1e-7)
     fourier_bwd_phase(rng, dev, peak)
+    wide_phase(rng, dev)
     paths = [serving_phase(rng), serving_2d_phase(rng), training_phase(),
              training_2d_phase(), driver_phase()]
     print(f"launches by main path (ex1 serving, ex2 serving, ex1 training, ex2 training, "

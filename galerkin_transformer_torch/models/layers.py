@@ -18,7 +18,9 @@ from torch.nn.utils import skip_init
 
 from ..ops import attention as A
 from ..ops import spectral as S
+from ..ops.cuda.fourier import MAX_D as FOURIER_MAX_D
 from ..ops.cuda.fourier import fourier_attention_tiled
+from ..ops.cuda.galerkin import MAX_D as GALERKIN_MAX_D
 from ..ops.cuda.galerkin import galerkin_attention_fused
 from ..ops.init import diagonal_dominant_init
 from ..utils.misc import default
@@ -136,7 +138,10 @@ class SimpleAttention(nn.Module):
     * score dropout acts on the reduced score matrix.
 
     Kernels: galerkin with layer norm runs ``galerkin_scores``; fourier runs
-    ``fourier_chain``.  On CUDA tensors those launch the hand-written
+    ``fourier_chain``, each where the head fits the kernel (d_k + pos_dim
+    <= 128 columns; a wider head takes the JAX package's XLA route: per-head
+    LN and the block form, or the dense fourier scores).  On CUDA tensors
+    those launch the hand-written
     kernels (the float32 ones, or with ``dtype=torch.bfloat16`` the
     bfloat16 tensor-core ones), on CPU tensors their plain versions.  With
     a compute `dtype` the projections and ``fc`` run as `dense` does; the
@@ -228,7 +233,13 @@ class SimpleAttention(nn.Module):
                                  f"was built for pos_dim={self.pos_dim}")
             pos_in = pos.contiguous()
 
-        if self.is_galerkin and self.norm and self.norm_type == "layer":
+        # the kernels take d_k + p <= 128 columns; a wider head takes the JAX
+        # package's own route for it (XLA there): per-head LN and the block
+        # form for galerkin, the dense scores for fourier.  Decided from the
+        # shapes, before any launch.
+        p = 0 if pos_in is None else self.pos_dim
+        if self.is_galerkin and self.norm and self.norm_type == "layer" \
+                and d_k + p <= GALERKIN_MAX_D:
             sk, bk = self._affine("K")
             sv, bv = self._affine("V")
             x, p_attn = galerkin_attention_fused(
@@ -252,9 +263,12 @@ class SimpleAttention(nn.Module):
             if self.training and self.score_rate > 0.0:
                 raise NotImplementedError("fourier score dropout in training "
                                           "is not ported")
-            x = fourier_attention_tiled(q.contiguous(), k.contiguous(),
-                                        v.contiguous())
-            p_attn = None
+            if d_k + p <= FOURIER_MAX_D:
+                x = fourier_attention_tiled(q.contiguous(), k.contiguous(),
+                                            v.contiguous())
+                p_attn = None
+            else:
+                x, p_attn = A.fourier_attention(q, k, v)
 
         out = x.transpose(1, 2).reshape(bsz, n, -1)
         if pos_in is not None:

@@ -28,12 +28,16 @@ from ..attention import per_head_layer_norm
 from . import _build
 
 ROWS_PER_CHUNK = 32   # kRowsPerChunk in csrc/galerkin_scores.cu
+BWD_ROWS_PER_CHUNK = 64   # kRows in csrc/galerkin_scores_bwd.cu
 MAX_D = 128           # d_k and d_k + p that the kernel takes
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                  + [ctypes.c_float, ctypes.c_void_p])
+_BWD_F32_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_void_p])
+_CTAS_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _concat_pos(x: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
@@ -59,12 +63,46 @@ def galerkin_scores_reference(k, v, pos, scale_k, bias_k, scale_v, bias_v,
     return torch.matmul(kc.float().transpose(-2, -1), vc.float())
 
 
-def _splits(bh: int, n: int, device: torch.device) -> tuple:
-    """(rows_per_split, splits): about two CTAs per SM over the sequence."""
+def _splits(bh: int, n: int, device: torch.device, chunk: int = ROWS_PER_CHUNK,
+            ctas_per_sm: int = 2) -> tuple:
+    """(rows_per_split, splits): `ctas_per_sm` CTAs per SM over the sequence,
+    each a whole number of `chunk`-row chunks."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(math.ceil(n / ROWS_PER_CHUNK), math.ceil(2 * sms / bh)))
-    rows = math.ceil(math.ceil(n / splits) / ROWS_PER_CHUNK) * ROWS_PER_CHUNK
+    splits = max(1, min(math.ceil(n / chunk), math.ceil(ctas_per_sm * sms / bh)))
+    rows = math.ceil(math.ceil(n / splits) / chunk) * chunk
     return rows, math.ceil(n / rows)
+
+
+def _bwd_splits(bh: int, n: int, d_k: int, p: int, device: torch.device) -> tuple:
+    """`_splits` of ``csrc/galerkin_scores_bwd.cu``: 64-row chunks, and as
+    many CTAs as fit on the card at once (the kernel's occupancy at this
+    (d_k, p), asked once)."""
+    key = (device.index, d_k, p)
+    if key not in _BWD_CTAS_PER_SM:
+        fn = _build.function("galerkin_scores_bwd", "galerkin_scores_bwd_ctas_per_sm",
+                             _CTAS_ARGTYPES)
+        ctas = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = fn(d_k, p, ctypes.byref(ctas))
+        if rc != 0 or ctas.value < 1:
+            raise RuntimeError(f"galerkin_scores_bwd occupancy query failed: CUDA error "
+                               f"{rc}, {ctas.value} CTAs per SM")
+        _BWD_CTAS_PER_SM[key] = ctas.value
+    return _splits(bh, n, device, BWD_ROWS_PER_CHUNK, _BWD_CTAS_PER_SM[key])
+
+
+_BWD_CTAS_PER_SM: dict = {}
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, stream: int, count: int) -> torch.Tensor:
+    """`count` int counters the float32 backward's CTAs take tickets from, per
+    (device, stream): zero between launches (the kernel's last CTAs reset
+    them), so launches ordered on one stream can share them."""
+    key = (device.index, stream)
+    if key not in _TICKETS or _TICKETS[key].numel() < count:
+        _TICKETS[key] = torch.zeros(count, dtype=torch.int32, device=device)
+    return _TICKETS[key]
 
 
 def _check_types(k, v, pos, params):
@@ -295,7 +333,8 @@ def galerkin_scores_bwd(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds,
     dpos is None without pos or when `need_dpos` is false.  CPU tensors run
     `galerkin_scores_bwd_reference`; CUDA tensors launch
     ``csrc/galerkin_scores_bwd.cu`` (contiguous float32, d_k + p <= 128;
-    each launch adds one to ``galerkin_scores_bwd.launches``) or, for
+    one device kernel, a second one only for dpos; each call adds one to
+    ``galerkin_scores_bwd.launches``) or, for
     bfloat16 k, v, pos, `galerkin_scores_bwd_bf16`.
     """
     if k.dtype == torch.bfloat16:
@@ -349,7 +388,8 @@ def _scores_backward(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds, eps, need_
     need_dpos = need_dpos and pos is not None
     bf16 = k.dtype == torch.bfloat16
     name = "galerkin_scores_bwd_bf16" if bf16 else "galerkin_scores_bwd"
-    rows, splits = _splits(b * h, n, k.device)
+    rows, splits = (_splits(b * h, n, k.device) if bf16
+                    else _bwd_splits(b * h, n, d_k, p, k.device))
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=k.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dparams = empty(4, h, d_k)
@@ -357,13 +397,16 @@ def _scores_backward(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds, eps, need_
     dpos_h = empty(b * h, n, p) if need_dpos else None
     dpos = torch.empty_like(pos) if need_dpos else None
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = _build.function(name, f"{name}_launch", _BWD_ARGTYPES)
+    fn = _build.function(name, f"{name}_launch",
+                         _BWD_ARGTYPES if bf16 else _BWD_F32_ARGTYPES)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
+        # the float32 kernel sums the partials in its last CTAs (one launch)
+        tickets = [] if bf16 else [_tickets(k.device, stream, b * h + 1).data_ptr()]
         rc = fn(k.data_ptr(), v.data_ptr(), ptr(pos),
                 *(t.data_ptr() for t in params), ds.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), ptr(dpos_h), ptr(dpos),
-                partial.data_ptr(), dparams.data_ptr(),
+                partial.data_ptr(), dparams.data_ptr(), *tickets,
                 b, h, n, d_k, p, rows, splits, eps, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

@@ -217,8 +217,12 @@ def test_fourier_attention_bf16_bwd_kernels_match_plain(dev, bh, n, d):
                                    atol=2.0 ** -7 * w.float().abs().max().item())
 
 
-@pytest.mark.parametrize("b,h,n,d_k,p", GALERKIN_SHAPES)
-def test_galerkin_scores_bwd_kernel_matches_plain(dev, b, h, n, d_k, p):
+# the ex2 training shape, one shape per LN width class (d_k/32 rounded up: 1,
+# 2, 3, 4), the widest d_eff, and rows that are no multiple of the 64-row chunk
+@pytest.mark.parametrize("b,h,n,d_k,p,eps", [s + (1e-5,) for s in GALERKIN_SHAPES] + [
+    (4, 4, 1849, 32, 2, 1e-7), (2, 1, 300, 64, None, 1e-5), (1, 2, 257, 128, None, 1e-5),
+    (2, 1, 2100, 96, 1, 1e-5), (1, 3, 150, 126, 2, 1e-5), (3, 2, 65, 40, 2, 1e-7)])
+def test_galerkin_scores_bwd_kernel_matches_plain(dev, b, h, n, d_k, p, eps):
     rng = np.random.default_rng(n + 7)
     k, v = _t(rng, (b, h, n, d_k), dev), _t(rng, (b, h, n, d_k), dev)
     pos = None if p is None else _t(rng, (b, n, p), dev)
@@ -227,17 +231,71 @@ def test_galerkin_scores_bwd_kernel_matches_plain(dev, b, h, n, d_k, p):
     d_eff = d_k + (p or 0)
     ds = _t(rng, (b, h, d_eff, d_eff), dev)
     before = GS.galerkin_scores_bwd.launches
-    got = GS.galerkin_scores_bwd(k, v, pos, *params, ds)
+    got = GS.galerkin_scores_bwd(k, v, pos, *params, ds, eps)
     assert GS.galerkin_scores_bwd.launches == before + 1
-    want = GS.galerkin_scores_bwd_reference(k, v, pos, *params, ds)
+    want = GS.galerkin_scores_bwd_reference(k, v, pos, *params, ds, eps)
     for g, w in zip(got, want):
         if w is None:
             assert g is None
             continue
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * w.abs().max().item())
-    again = GS.galerkin_scores_bwd(k, v, pos, *params, ds)
+    again = GS.galerkin_scores_bwd(k, v, pos, *params, ds, eps)
     for g, a in zip(got, again):
         assert (g is None and a is None) or torch.equal(g, a)
+
+
+def _device_kernels(fn):
+    """Names of the device kernels that one fn() call runs (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "emcpy" not in e.name
+            and "emset" not in e.name]
+
+
+@pytest.mark.parametrize("b,h,n,d_k,p", [(4, 4, 1849, 32, 2), (8, 1, 1024, 96, 1)])
+def test_galerkin_scores_bwd_is_one_kernel_without_dpos(dev, b, h, n, d_k, p):
+    rng = np.random.default_rng(5)
+    k, v = _t(rng, (b, h, n, d_k), dev), _t(rng, (b, h, n, d_k), dev)
+    pos = _t(rng, (b, n, p), dev)
+    params = [1 + 0.1 * _t(rng, (h, d_k), dev) for _ in range(4)]
+    ds = _t(rng, (b, h, d_k + p, d_k + p), dev)
+    args = (k, v, pos, *params, ds)
+    names = _device_kernels(lambda: GS.galerkin_scores_bwd(*args, need_dpos=False))
+    assert len(names) == 1 and "scores_bwd_kernel" in names[0], names
+    names = _device_kernels(lambda: GS.galerkin_scores_bwd(*args))
+    assert len(names) == 2 and "dpos_reduce_kernel" in names[1], names
+
+
+@pytest.mark.parametrize("attention_type", ["galerkin", "fourier"])
+@pytest.mark.parametrize("d_model,n_head,pos_dim", [(128, 1, 2), (256, 2, 1)])
+def test_wide_heads_run_without_kernels_and_match_cpu(dev, attention_type, d_model, n_head,
+                                                      pos_dim):
+    """d_k + pos_dim > 128: the JAX package's XLA route, on the card too."""
+    from galerkin_transformer_torch.models.layers import SimpleAttention
+    from galerkin_transformer_torch.ops.cuda import fourier as FC_
+    rng = np.random.default_rng(d_model)
+    n = 1000
+    arrays = [rng.standard_normal((2, n, d_model)).astype(np.float32) for _ in range(4)]
+    pos = rng.uniform(0, 1, (2, n, pos_dim)).astype(np.float32)
+    counters = [GS.galerkin_scores, GS.galerkin_scores_bwd, FC_.fourier_chain]
+    results = []
+    for device in (dev, "cpu"):
+        layer = SimpleAttention(n_head=n_head, d_model=d_model, pos_dim=pos_dim,
+                                attention_type=attention_type, dropout=0.0,
+                                norm=True).train().to(device)
+        xs = [torch.from_numpy(a).to(device).requires_grad_() for a in arrays[:3]]
+        before = [c.launches for c in counters]
+        out, _ = layer(*xs, torch.from_numpy(pos).to(device))
+        out.backward(torch.from_numpy(arrays[3]).to(device))
+        assert [c.launches for c in counters] == before
+        results.append([out.detach().cpu()] + [x.grad.cpu() for x in xs]
+                       + [p.grad.cpu() for p in layer.parameters()])
+    for g, w in zip(*results):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * w.abs().max().item())
 
 
 @pytest.mark.parametrize("b,h,n,d_k,p", GALERKIN_SHAPES[:3])

@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --against ROOT [ROOT ...]   # A/B of the float32 galerkin
-                                                      # backward only (against_phase)
+    python3 chip_smoke.py --against ROOT [ROOT ...] [--kernel NAME]
+        # A/B of the galerkin backward kernels only (against_phase): both, or
+        # galerkin_scores_bwd (float32) or galerkin_scores_bwd_bf16 by name
 
 1. prints the card (nvidia-smi) and turns TF32 off;
 2. builds every CUDA kernel of the port from galerkin_transformer_torch/csrc
@@ -17,8 +18,8 @@
    ``fourier_chain_bf16`` (ex1 shape);
 4. backward kernel phases: ``galerkin_scores_bwd`` and
    ``galerkin_scores_bwd_bf16`` at the ex2 training shape and the ex1 shape
-   against their plain versions (and bit-equal on a second call; the
-   float32 one runs exactly one device kernel per call without dpos, as
+   against their plain versions (and bit-equal on a second call; each
+   runs exactly one device kernel per call without dpos and two with, as
    ``torch.profiler`` counts them), and the fourier attention backward at
    the training shape against ``fourier_attention_bwd_reference``: three
    ``fourier_chain`` launches in float32, three ``fourier_chain_mixed``
@@ -64,7 +65,10 @@
    must agree, with exactly 6 forward and 6 backward launches of the
    matching galerkin kernels; then timed steps with the config's dropout,
    and how far the bf16 gradients are from the f32 ones on the card and on
-   the CPU;
+   the CPU; a diagnostic (outside the main path's counts) runs the card's
+   bf16 step once more with ``galerkin_scores_bwd_bf16`` replaced by its
+   plain version on the same CUDA inputs, then with the bf16 forward kernel
+   replaced too, and prints those gaps;
 7. driver phase: ``examples/ex1_burgers.py``, ``examples/ex2_darcy.py`` (2
    epochs each) and ``examples/ex3_darcy_inv.py`` (1 epoch) of the port,
    in-process; their losses must be finite, and the ex1 and ex2 best
@@ -375,14 +379,14 @@ def galerkin_bwd_phase(rng, dev, peak, shape=(BATCH, 1, RESOLUTIONS[0], 96, 1), 
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
         raise AssertionError(f"{name} is not deterministic run to run")
 
-    if not bf16:   # one device kernel per call; a second one sums dpos over heads
-        for need_dpos, want in ((False, 1), (True, 2)):
-            names = device_kernels(lambda: GS.galerkin_scores_bwd(*args, need_dpos=need_dpos))
-            print(f"{name} need_dpos={need_dpos}: {len(names)} device kernel(s) per call "
-                  f"(torch.profiler): {[n_[:40] for n_ in names]}")
-            if len(names) != want:
-                raise AssertionError(f"{name} ran {len(names)} device kernels per call with "
-                                     f"need_dpos={need_dpos}, expected {want}")
+    # one device kernel per call; a second one sums dpos over heads
+    for need_dpos, want in ((False, 1), (True, 2)):
+        names = device_kernels(lambda: GS.galerkin_scores_bwd(*args, need_dpos=need_dpos))
+        print(f"{name} need_dpos={need_dpos}: {len(names)} device kernel(s) per call "
+              f"(torch.profiler): {[n_[:40] for n_ in names]}")
+        if len(names) != want:
+            raise AssertionError(f"{name} ran {len(names)} device kernels per call with "
+                                 f"need_dpos={need_dpos}, expected {want}")
     # timed as the training path calls it: positions need no gradient
     ms = time_ms(lambda: GS.galerkin_scores_bwd(*args, need_dpos=False), 50)
     plain_ms = time_ms(lambda: GS.galerkin_scores_bwd_reference(*args), 20)
@@ -566,11 +570,16 @@ def load_port(root: str, alias: str):
     return module
 
 
-def against_phase(roots) -> dict:
-    """`galerkin_scores_bwd` (float32) of this checkout against the same
-    wrapper of other checkouts of the port (``--against``), at the ex1 shape
-    and the ex2 training shape, as the training path calls it (no dpos).
-    Each build is held against this checkout's plain version and must be
+BWD_KERNELS = ("galerkin_scores_bwd", "galerkin_scores_bwd_bf16")
+
+
+def against_phase(roots, names=BWD_KERNELS) -> dict:
+    """The galerkin backward kernels `names` of this checkout against the
+    same wrappers of other checkouts of the port (``--against``), at the ex1
+    shape and the ex2 training shape, as the training path calls them (no
+    dpos): float32 inputs for ``galerkin_scores_bwd``, bfloat16 ones for
+    ``galerkin_scores_bwd_bf16``.  Each build is held against this
+    checkout's plain version (TOL_GALERKIN, TOL_BF16_BWD) and must be
     bit-equal on a second call; the builds are timed in turns, this one
     first and last (A, B, ..., B, A)."""
     ports, builders = {"this": GS}, [_build]
@@ -580,41 +589,49 @@ def against_phase(roots) -> dict:
         builders.append(importlib.import_module(f"{alias}.ops.cuda._build"))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:
-        logs = list(pool.map(lambda b: b.build(["galerkin_scores_bwd"]), builders))
-    print(f"built galerkin_scores_bwd of {list(ports)} in {time.perf_counter() - t0:.1f} s")
+        logs = list(pool.map(lambda b: b.build(list(names)), builders))
+    print(f"built {list(names)} of {list(ports)} in {time.perf_counter() - t0:.1f} s")
     for tag, log in zip(ports, logs):
-        for line in log.get("galerkin_scores_bwd", "").splitlines():
-            if "spill" in line:
-                print(f"  {tag}: {line.strip()}")
+        for name in names:
+            for line in log.get(name, "").splitlines():
+                if "spill" in line or "registers" in line:
+                    print(f"  {tag} {name}: {line.strip()}")
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
     rows = []
-    for shape, eps in (((BATCH, 1, RESOLUTIONS[0], 96, 1), 1e-5),
-                       ((BATCH_2D, 4, 1849, 32, 2), 1e-7)):
-        b, h, n, d_k, p = shape
-        k, v, pos, params = galerkin_inputs(rng, dev, shape, None)
-        ds = _tensor(rng.standard_normal((b, h, d_k + p, d_k + p)), dev)
-        args = (k, v, pos, *params, ds, eps)
-        ref = GS.galerkin_scores_bwd_reference(*args)
-        calls, errs = {}, {}
-        for tag, port in ports.items():
-            calls[tag] = lambda port=port: port.galerkin_scores_bwd(*args, need_dpos=False)
-            got, again = calls[tag](), calls[tag]()
-            torch.cuda.synchronize()
-            errs[tag] = max(err / scale for err, scale in
-                            (max_err(g, r) for g, r in zip(got, ref) if g is not None))
-            if not errs[tag] <= TOL_GALERKIN:
-                raise AssertionError(f"{tag}: galerkin_scores_bwd disagrees with the plain "
-                                     f"version, {errs[tag]:.3e} of max|ref|")
-            if not all(g is None or torch.equal(g, a) for g, a in zip(got, again)):
-                raise AssertionError(f"{tag}: galerkin_scores_bwd is not bit-equal run to run")
-        times = {tag: [] for tag in ports}
-        for tag in list(ports) + list(ports)[::-1]:
-            times[tag].append(time_ms(calls[tag], 50))
-        rows.append(dict(shape=list(shape), eps=eps, ms=times, rel_err=errs))
-        print(f"galerkin_scores_bwd (B,H,n,d_k,p)={tuple(shape)} eps={eps:.0e}: "
-              + "; ".join(f"{tag} {min(t):.4f} ms {t} (err {errs[tag]:.2e})"
-                          for tag, t in times.items()))
+    for name in names:
+        bf16 = name.endswith("_bf16")
+        tol = TOL_BF16_BWD if bf16 else TOL_GALERKIN
+        for shape, eps in (((BATCH, 1, RESOLUTIONS[0], 96, 1), 1e-5),
+                           ((BATCH_2D, 4, 1849, 32, 2), 1e-7)):
+            b, h, n, d_k, p = shape
+            k, v, pos, params = galerkin_inputs(rng, dev, shape,
+                                                torch.bfloat16 if bf16 else None)
+            ds = _tensor(rng.standard_normal((b, h, d_k + p, d_k + p)), dev)
+            args = (k, v, pos, *params, ds, eps)
+            # the bfloat16 kernel writes its outputs rounded once to bfloat16
+            ref = [r.bfloat16().float() if bf16 else r
+                   for r in GS.galerkin_scores_bwd_reference(*args)]
+            calls, errs = {}, {}
+            for tag, port in ports.items():
+                calls[tag] = lambda port=port: port.galerkin_scores_bwd(*args, need_dpos=False)
+                got, again = calls[tag](), calls[tag]()
+                torch.cuda.synchronize()
+                errs[tag] = max(err / scale for err, scale in
+                                (max_err(g.float(), r) for g, r in zip(got, ref)
+                                 if g is not None))
+                if not errs[tag] <= tol:
+                    raise AssertionError(f"{tag}: {name} disagrees with the plain version, "
+                                         f"{errs[tag]:.3e} of max|ref|")
+                if not all(g is None or torch.equal(g, a) for g, a in zip(got, again)):
+                    raise AssertionError(f"{tag}: {name} is not bit-equal run to run")
+            times = {tag: [] for tag in ports}
+            for tag in list(ports) + list(ports)[::-1]:
+                times[tag].append(time_ms(calls[tag], 50))
+            rows.append(dict(name=name, shape=list(shape), eps=eps, ms=times, rel_err=errs))
+            print(f"{name} (B,H,n,d_k,p)={tuple(shape)} eps={eps:.0e}: "
+                  + "; ".join(f"{tag} {min(t):.4f} ms {t} (err {errs[tag]:.2e})"
+                              for tag, t in times.items()))
     return {"against": rows}
 
 
@@ -938,15 +955,57 @@ def training_2d_phase():
         _, step = make_step("cuda", dtype, cfg)   # the config's dropout rates
         time_steps(tag + " config dropout", step, batches, TRAIN_2D_STEPS,
                    BATCH_2D * n_f * n_f)
+    counts = launches()
+
     # how far bf16 moves each gradient from f32, on the card and on the CPU: a
     # card farther from f32 than the CPU would point at a card kernel
-    for device in ("cuda", "cpu"):
-        gaps = {k: max_err(g, grads[None, device][k]) for k, g in
-                grads[torch.bfloat16, device].items()}
+    def largest_gap(label, got, ref):
+        gaps = {k: max_err(g, ref[k]) for k, g in got.items()}
         key = max(gaps, key=lambda k: gaps[k][0] / gaps[k][1])
-        print(f"ex2 step, bf16 vs f32 gradients on the {device}: largest gap "
-              f"{gaps[key][0] / gaps[key][1]:.3e} of max|g_f32| at {key}")
-    return launches()
+        print(f"ex2 step, {label}: largest gap {gaps[key][0] / gaps[key][1]:.3e} of "
+              f"max|g_ref| at {key}")
+
+    for device in ("cuda", "cpu"):
+        largest_gap(f"bf16 vs f32 (ref) gradients on the {device}",
+                    grads[torch.bfloat16, device], grads[None, device])
+    # diagnostic, outside the main path's counts: the card's bf16 step once
+    # more with galerkin_scores_bwd_bf16 replaced by its plain version on the
+    # same CUDA inputs (outputs in the kernel's types), then with the forward
+    # kernel replaced too: what is left of the gap then comes from no galerkin
+    # kernel
+    def plain_bwd_bf16(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds, eps=1e-5,
+                       need_dpos=True):
+        dk, dv, dpos, *dparams = GS._scores_bwd_bf16_reference(
+            k, v, pos, scale_k, bias_k, scale_v, bias_v, ds, eps)
+        return (dk.bfloat16(), dv.bfloat16(), dpos if need_dpos else None,
+                *(d.float() for d in dparams))
+
+    # (the function replaced, its plain version, the counter of its kernel)
+    swaps = {"galerkin_scores_bwd_bf16": (GS.galerkin_scores_bwd_bf16, plain_bwd_bf16,
+                                          "galerkin_scores_bwd_bf16"),
+             "_scores_forward": (GS._scores_forward, GS.galerkin_scores_reference,
+                                 "galerkin_scores_bf16")}
+    for swapped in (["galerkin_scores_bwd_bf16"], list(swaps)):
+        model, step = make_step("cuda", torch.bfloat16, {**cfg, **NO_DROPOUT})
+        try:
+            for name in swapped:
+                setattr(GS, name, swaps[name][1])
+            before = launches()
+            step(batches[0])
+            after = launches()
+            if any(after[swaps[name][2]] != before[swaps[name][2]] for name in swapped):
+                raise AssertionError(f"diagnostic: a replaced kernel launched ({swapped})")
+        finally:
+            for name, (fn, _, _) in swaps.items():
+                setattr(GS, name, fn)
+        got = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        what = ("the plain galerkin backward in place of its kernel" if len(swapped) == 1
+                else "the plain galerkin forward and backward in place of their kernels")
+        largest_gap(f"diagnostic, bf16 with {what} vs f32 (ref) gradients on the cuda", got,
+                    grads[None, "cuda"])
+        largest_gap(f"diagnostic, bf16 with {what} vs bf16 with the kernels (ref) on the "
+                    f"cuda", got, grads[torch.bfloat16, "cuda"])
+    return counts
 
 
 def _driver_outputs(tag, tmp, val, epochs):
@@ -1014,9 +1073,11 @@ def driver_phase():
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Build, check and drive the port on one GPU.")
     parser.add_argument("--against", nargs="+", metavar="ROOT",
-                        help="only time galerkin_scores_bwd (float32) of this checkout "
-                             "against that of other checkouts of the port (e.g. an "
+                        help="only time the galerkin backward kernels of this checkout "
+                             "against those of other checkouts of the port (e.g. an "
                              "earlier commit unpacked with git archive)")
+    parser.add_argument("--kernel", choices=BWD_KERNELS,
+                        help="with --against: time this backward kernel only")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1033,7 +1094,8 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     peak = peaks_for(name)
     if args.against:
-        print(json.dumps({"card": smi, **against_phase(args.against)}))
+        names = BWD_KERNELS if args.kernel is None else (args.kernel,)
+        print(json.dumps({"card": smi, **against_phase(args.against, names)}))
         return 0
 
     t0 = time.perf_counter()

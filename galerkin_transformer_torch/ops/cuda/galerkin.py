@@ -28,15 +28,13 @@ from ..attention import per_head_layer_norm
 from . import _build
 
 ROWS_PER_CHUNK = 32   # kRowsPerChunk in csrc/galerkin_scores.cu
-BWD_ROWS_PER_CHUNK = 64   # kRows in csrc/galerkin_scores_bwd.cu
+BWD_ROWS_PER_CHUNK = 64   # kRows in csrc/galerkin_scores_bwd{,_bf16}.cu
 MAX_D = 128           # d_k and d_k + p that the kernel takes
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
                  + [ctypes.c_float, ctypes.c_void_p])
-_BWD_F32_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
-                     + [ctypes.c_float, ctypes.c_void_p])
 _CTAS_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -73,19 +71,19 @@ def _splits(bh: int, n: int, device: torch.device, chunk: int = ROWS_PER_CHUNK,
     return rows, math.ceil(n / rows)
 
 
-def _bwd_splits(bh: int, n: int, d_k: int, p: int, device: torch.device) -> tuple:
-    """`_splits` of ``csrc/galerkin_scores_bwd.cu``: 64-row chunks, and as
-    many CTAs as fit on the card at once (the kernel's occupancy at this
-    (d_k, p), asked once)."""
-    key = (device.index, d_k, p)
+def _bwd_splits(name: str, bh: int, n: int, d_k: int, p: int,
+                device: torch.device) -> tuple:
+    """`_splits` of the backward kernel `name` (``csrc/<name>.cu``): 64-row
+    chunks, and as many CTAs as fit on the card at once (the kernel's
+    occupancy at this (d_k, p), asked once)."""
+    key = (name, device.index, d_k, p)
     if key not in _BWD_CTAS_PER_SM:
-        fn = _build.function("galerkin_scores_bwd", "galerkin_scores_bwd_ctas_per_sm",
-                             _CTAS_ARGTYPES)
+        fn = _build.function(name, f"{name}_ctas_per_sm", _CTAS_ARGTYPES)
         ctas = ctypes.c_int(0)
         with torch.cuda.device(device):
             rc = fn(d_k, p, ctypes.byref(ctas))
         if rc != 0 or ctas.value < 1:
-            raise RuntimeError(f"galerkin_scores_bwd occupancy query failed: CUDA error "
+            raise RuntimeError(f"{name} occupancy query failed: CUDA error "
                                f"{rc}, {ctas.value} CTAs per SM")
         _BWD_CTAS_PER_SM[key] = ctas.value
     return _splits(bh, n, device, BWD_ROWS_PER_CHUNK, _BWD_CTAS_PER_SM[key])
@@ -96,9 +94,10 @@ _TICKETS: dict = {}
 
 
 def _tickets(device: torch.device, stream: int, count: int) -> torch.Tensor:
-    """`count` int counters the float32 backward's CTAs take tickets from, per
-    (device, stream): zero between launches (the kernel's last CTAs reset
-    them), so launches ordered on one stream can share them."""
+    """`count` int counters the backward kernels' CTAs take tickets from, per
+    (device, stream): zero between launches (each kernel's last CTAs reset
+    them), so launches of either kernel ordered on one stream can share
+    them."""
     key = (device.index, stream)
     if key not in _TICKETS or _TICKETS[key].numel() < count:
         _TICKETS[key] = torch.zeros(count, dtype=torch.int32, device=device)
@@ -355,8 +354,8 @@ def galerkin_scores_bwd_bf16(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds,
     where `galerkin_scores_bwd_reference` does and writes dk and dv as
     bfloat16 (one rounding of the plain version's float32 values), dpos as
     bfloat16 and the LN-parameter gradients as float32 tensors that hold
-    bfloat16-rounded values.  Each launch adds one to
-    ``galerkin_scores_bwd_bf16.launches``.
+    bfloat16-rounded values: one device kernel, a second one only for dpos.
+    Each call adds one to ``galerkin_scores_bwd_bf16.launches``.
     """
     if k.dtype != torch.bfloat16:
         raise TypeError(f"galerkin_scores_bwd_bf16 takes bfloat16, got {k.dtype}")
@@ -388,8 +387,7 @@ def _scores_backward(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds, eps, need_
     need_dpos = need_dpos and pos is not None
     bf16 = k.dtype == torch.bfloat16
     name = "galerkin_scores_bwd_bf16" if bf16 else "galerkin_scores_bwd"
-    rows, splits = (_splits(b * h, n, k.device) if bf16
-                    else _bwd_splits(b * h, n, d_k, p, k.device))
+    rows, splits = _bwd_splits(name, b * h, n, d_k, p, k.device)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=k.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dparams = empty(4, h, d_k)
@@ -397,16 +395,15 @@ def _scores_backward(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds, eps, need_
     dpos_h = empty(b * h, n, p) if need_dpos else None
     dpos = torch.empty_like(pos) if need_dpos else None
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = _build.function(name, f"{name}_launch",
-                         _BWD_ARGTYPES if bf16 else _BWD_F32_ARGTYPES)
+    fn = _build.function(name, f"{name}_launch", _BWD_ARGTYPES)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
-        # the float32 kernel sums the partials in its last CTAs (one launch)
-        tickets = [] if bf16 else [_tickets(k.device, stream, b * h + 1).data_ptr()]
+        # the kernel sums the partials in its last CTAs (one launch)
+        tickets = _tickets(k.device, stream, b * h + 1)
         rc = fn(k.data_ptr(), v.data_ptr(), ptr(pos),
                 *(t.data_ptr() for t in params), ds.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), ptr(dpos_h), ptr(dpos),
-                partial.data_ptr(), dparams.data_ptr(), *tickets,
+                partial.data_ptr(), dparams.data_ptr(), tickets.data_ptr(),
                 b, h, n, d_k, p, rows, splits, eps, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

@@ -12,12 +12,14 @@ back with ``torch.load(weights_only=True)`` (no pickled code):
                  model whose forward undoes it (the 2D models)}
 
 Optimizer state is included so that a resumed run could restore the
-moments; resuming itself is not ported yet.
+moments; resuming itself is not ported yet.  `save_pickle` writes the
+trainer's per-epoch result dict, as the JAX package's does.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+import pickle
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -44,3 +46,10 @@ def save_checkpoint(path: str, params: Dict[str, torch.Tensor],
 def load_checkpoint(path: str, map_location="cpu") -> dict:
     """The checkpoint's dict; ``["params"]`` is the model state_dict."""
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def save_pickle(obj: Any, path: str):
+    """Pickle `obj` to `path`, making its directory first."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.config import MODEL_PATH
-from .checkpoint import save_checkpoint
+from .checkpoint import save_checkpoint, save_pickle
 
 
 @dataclasses.dataclass
@@ -32,6 +32,17 @@ class TrainResult:
     loss_train: np.ndarray
     loss_val: np.ndarray
     lr_history: np.ndarray
+
+    def asdict(self) -> dict:
+        """The dict that `run_train` pickles every epoch (the JAX package's
+        keys)."""
+        return dataclasses.asdict(self)
+
+
+def _result(best_epoch, best_val, loss_train, loss_val, lr_history) -> TrainResult:
+    return TrainResult(best_val_epoch=best_epoch, best_val_metric=best_val,
+                       loss_train=np.asarray(loss_train), loss_val=np.asarray(loss_val),
+                       lr_history=np.asarray(lr_history))
 
 
 def validate_epoch(eval_step: Callable, valid_loader) -> float:
@@ -91,8 +102,12 @@ def run_train(model: torch.nn.Module,
     the best checkpoint (the raw parameters keep training, and are saved
     beside it as ``train_params``).  A target `normalizer` ``(mean, std,
     eps)`` is saved with every checkpoint, so that a `Predictor` made from
-    it undoes the normalization as training did.  An epoch log is appended to
-    ``<result_name without suffix>.jsonl`` in `model_save_path`.
+    it undoes the normalization as training did.  At the end of every
+    epoch the `TrainResult` so far is pickled to `result_name` in
+    `model_save_path` (``TrainResult.asdict()``: best_val_epoch, 0-based,
+    best_val_metric, and loss_train, loss_val, lr_history as numpy arrays),
+    and an epoch log line is appended to ``<result_name without
+    suffix>.jsonl`` beside it.
     """
     unported = {"plateau": plateau is not None, "resume": resume,
                 "async_checkpoint": async_checkpoint, "device_loop": device_loop,
@@ -106,7 +121,8 @@ def run_train(model: torch.nn.Module,
     best_epoch, stop_counter, it = 0, 0, 0
     loss_train, loss_val, lr_history = [], [], []
     ckpt_path = os.path.join(model_save_path, model_name)
-    log_path = os.path.join(model_save_path, result_name.rsplit(".", 1)[0] + ".jsonl")
+    result_path = os.path.join(model_save_path, result_name)
+    log_path = result_path.rsplit(".", 1)[0] + ".jsonl"
     best_params = _snapshot(model)
 
     params = list(model.parameters())
@@ -158,8 +174,9 @@ def run_train(model: torch.nn.Module,
               f"| val: {val_metric:.3e} "
               f"| best: {best_val:.3e} @ {best_epoch + 1} "
               f"| early stop: {stop_counter} | {dt:.1f}s", flush=True)
+        save_pickle(_result(best_epoch, best_val, loss_train, loss_val,
+                            lr_history).asdict(), result_path)
         try:
-            os.makedirs(model_save_path, exist_ok=True)
             with open(log_path, "a") as f:
                 f.write(json.dumps(dict(
                     epoch=epoch, loss=[float(v) for v in loss_mean],
@@ -173,8 +190,4 @@ def run_train(model: torch.nn.Module,
             print(f"Early stop at epoch {epoch + 1}")
             break
 
-    result = TrainResult(best_val_epoch=best_epoch, best_val_metric=best_val,
-                         loss_train=np.asarray(loss_train),
-                         loss_val=np.asarray(loss_val),
-                         lr_history=np.asarray(lr_history))
-    return best_params, result
+    return best_params, _result(best_epoch, best_val, loss_train, loss_val, lr_history)

@@ -134,9 +134,15 @@ def test_fourier_chain_bf16_kernel_matches_plain(dev, bh, r, m, d, d_out):
 TOL_BF16_BWD = 2 * 2.0 ** -8
 
 
-@pytest.mark.parametrize("b,h,n,d_k,p", GALERKIN_SHAPES + [
-    (2, 4, 1849, 32, 2), (1, 1, 2048, 96, 1), (2, 2, 77, 30, None), (1, 4, 100, 48, 2)])
-def test_galerkin_scores_bwd_bf16_kernel_matches_plain(dev, b, h, n, d_k, p):
+# the ex2 training and ex1 shapes, one shape per LN width class (d_k/32
+# rounded up: 1, 2, 3, 4), the widest d_eff, rows that are no multiple of the
+# 64-row chunk, and both LN eps of the models
+@pytest.mark.parametrize("b,h,n,d_k,p,eps", [s + (1e-7,) for s in GALERKIN_SHAPES + [
+    (2, 4, 1849, 32, 2), (1, 1, 2048, 96, 1), (2, 2, 77, 30, None), (1, 4, 100, 48, 2)]] + [
+    (4, 4, 1849, 32, 2, 1e-5), (8, 1, 8192, 96, 1, 1e-5), (2, 1, 300, 64, None, 1e-5),
+    (1, 2, 257, 128, None, 1e-7), (1, 3, 150, 126, 2, 1e-5), (3, 2, 65, 40, 2, 1e-5),
+    (2, 1, 2100, 96, 1, 1e-7)])
+def test_galerkin_scores_bwd_bf16_kernel_matches_plain(dev, b, h, n, d_k, p, eps):
     rng = np.random.default_rng(n + 11)
     k, v = (_t(rng, (b, h, n, d_k), dev).bfloat16() for _ in range(2))
     pos = None if p is None else _t(rng, (b, n, p), dev).bfloat16()
@@ -145,26 +151,26 @@ def test_galerkin_scores_bwd_bf16_kernel_matches_plain(dev, b, h, n, d_k, p):
     d_eff = d_k + (p or 0)
     ds = _t(rng, (b, h, d_eff, d_eff), dev)
     before = GS.galerkin_scores_bwd_bf16.launches, GS.galerkin_scores_bwd.launches
-    got = GS.galerkin_scores_bwd(k, v, pos, *params, ds, 1e-7)
+    got = GS.galerkin_scores_bwd(k, v, pos, *params, ds, eps)
     assert GS.galerkin_scores_bwd_bf16.launches == before[0] + 1
     assert GS.galerkin_scores_bwd.launches == before[1]
     assert got[0].dtype == got[1].dtype == torch.bfloat16
     assert all(g.dtype == torch.float32 for g in got[3:])
-    want = GS.galerkin_scores_bwd_reference(k, v, pos, *params, ds, 1e-7)
+    want = GS.galerkin_scores_bwd_reference(k, v, pos, *params, ds, eps)
     for g, w in zip(got, want):
         if w is None:
             assert g is None
             continue
         torch.testing.assert_close(g.float(), w.bfloat16().float(), rtol=0,
                                    atol=TOL_BF16_BWD * w.float().abs().max().item())
-    again = GS.galerkin_scores_bwd_bf16(k, v, pos, *params, ds, 1e-7)
+    again = GS.galerkin_scores_bwd_bf16(k, v, pos, *params, ds, eps)
     for g, a in zip(got, again):
         assert (g is None and a is None) or torch.equal(g, a)
     # through autograd, without a gradient for pos
     xs = [k.clone().requires_grad_(), v.clone().requires_grad_()]
     ps = [t.clone().requires_grad_() for t in params]
     before = GS.galerkin_scores_bwd_bf16.launches
-    GS.galerkin_scores(xs[0], xs[1], pos, *ps, 1e-7).backward(ds)
+    GS.galerkin_scores(xs[0], xs[1], pos, *ps, eps).backward(ds)
     assert GS.galerkin_scores_bwd_bf16.launches == before + 1
     assert torch.equal(xs[0].grad, got[0]) and torch.equal(ps[0].grad, got[3])
 
@@ -268,6 +274,50 @@ def test_galerkin_scores_bwd_is_one_kernel_without_dpos(dev, b, h, n, d_k, p):
     assert len(names) == 1 and "scores_bwd_kernel" in names[0], names
     names = _device_kernels(lambda: GS.galerkin_scores_bwd(*args))
     assert len(names) == 2 and "dpos_reduce_kernel" in names[1], names
+
+
+@pytest.mark.parametrize("b,h,n,d_k,p", [(4, 4, 1849, 32, 2), (8, 1, 1024, 96, 1)])
+def test_galerkin_scores_bwd_bf16_is_one_kernel_without_dpos(dev, b, h, n, d_k, p):
+    rng = np.random.default_rng(6)
+    k, v = (_t(rng, (b, h, n, d_k), dev).bfloat16() for _ in range(2))
+    pos = _t(rng, (b, n, p), dev).bfloat16()
+    params = [1 + 0.1 * _t(rng, (h, d_k), dev) for _ in range(4)]
+    ds = _t(rng, (b, h, d_k + p, d_k + p), dev)
+    args = (k, v, pos, *params, ds, 1e-7)
+    names = _device_kernels(lambda: GS.galerkin_scores_bwd_bf16(*args, need_dpos=False))
+    assert len(names) == 1 and "scores_bwd_bf16_kernel" in names[0], names
+    names = _device_kernels(lambda: GS.galerkin_scores_bwd_bf16(*args))
+    assert len(names) == 2 and "dpos_reduce_kernel" in names[1], names
+
+
+def test_backward_kernels_share_their_tickets(dev):
+    """The float32 and bfloat16 backward kernels take tickets from one pool
+    per stream, at other B*H each: calls that alternate, twice over, each
+    match the plain version and give what they gave the first time."""
+    rng = np.random.default_rng(9)
+    cases = []
+    for b, h, n, d_k, p, dtype in ((2, 4, 300, 32, 2, torch.bfloat16),
+                                   (3, 1, 500, 96, 1, torch.float32),
+                                   (1, 2, 200, 48, 2, torch.bfloat16)):
+        k, v = (_t(rng, (b, h, n, d_k), dev).to(dtype) for _ in range(2))
+        pos = _t(rng, (b, n, p), dev).to(dtype)
+        params = [1 + 0.1 * _t(rng, (h, d_k), dev) for _ in range(4)]
+        args = (k, v, pos, *params, _t(rng, (b, h, d_k + p, d_k + p), dev))
+        want = GS.galerkin_scores_bwd_reference(*args)
+        cases.append((args, dtype, [w.to(dtype).float() for w in want[:2] + want[3:]]))
+    first = []
+    for round_ in range(2):
+        for i, (args, dtype, want) in enumerate(cases):
+            got = GS.galerkin_scores_bwd(*args, need_dpos=False)
+            assert got[2] is None
+            got = [g.float() for g in got[:2] + got[3:]]
+            tol = TOL_BF16_BWD if dtype == torch.bfloat16 else 1e-4
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=0, atol=tol * w.abs().max().item())
+            if round_ == 0:
+                first.append(got)
+            else:
+                assert all(torch.equal(g, f) for g, f in zip(got, first[i]))
 
 
 @pytest.mark.parametrize("attention_type", ["galerkin", "fourier"])

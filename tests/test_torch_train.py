@@ -6,6 +6,8 @@ Dropout is off in every comparison (the ex1 rates are 0): the two
 frameworks draw different masks.
 """
 import copy
+import json
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ from galerkin_transformer_tpu.models import SimpleTransformer as JaxModel
 from galerkin_transformer_tpu.train import losses as j_losses
 from galerkin_transformer_tpu.train import schedule as j_schedule
 from galerkin_transformer_tpu.train.steps import make_burgers_steps as j_make_steps
+from galerkin_transformer_tpu.train.trainer import TrainResult as JaxTrainResult
 from galerkin_transformer_torch import Predictor, SimpleTransformer, load_config
 from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss,
                                               load_checkpoint, make_burgers_steps,
@@ -255,6 +258,38 @@ def test_run_train_checkpoints_the_best_epoch_and_serves_it(tmp_path, ema_decay)
         want = model(*(torch.from_numpy(valid[0][k]) if k != "edge" else None
                        for k in ("node", "edge", "pos", "grid")))["preds"]
     np.testing.assert_allclose(pred(valid[0]), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("epochs", [1, 3])
+def test_run_train_pickles_the_jax_result_dict_every_epoch(tmp_path, epochs):
+    model, opt, (train_step, eval_step) = _port_steps(_cfg("galerkin"), total=2 * epochs)
+    path = tmp_path / "out" / "r.pkl"
+    seen = []   # the pickle as the first step of each epoch finds it
+
+    def step(batch):
+        if len(seen) == opt.count // 2:
+            seen.append(pickle.loads(path.read_bytes()) if path.exists() else None)
+        return train_step(batch)
+
+    _, result = run_train(model, step, eval_step, opt, _loader(0, 2), _loader(10, 1),
+                          epochs=epochs, lr_schedule=opt.lr_schedule,
+                          model_save_path=str(tmp_path / "out"), result_name="r.pkl")
+    saved = pickle.loads(path.read_bytes())
+    jax_keys = JaxTrainResult(0, 0.0, np.zeros(1), np.zeros(1), np.zeros(1)).asdict().keys()
+    assert saved.keys() == jax_keys
+    assert isinstance(saved["best_val_epoch"], int)
+    for key, value in saved.items():
+        np.testing.assert_array_equal(value, getattr(result, key))
+    assert saved["loss_train"].shape == (epochs, 3) and saved["lr_history"].shape == (2 * epochs,)
+    log = [json.loads(line) for line in (tmp_path / "out" / "r.jsonl").read_text().splitlines()]
+    np.testing.assert_allclose(saved["loss_train"], [e["loss"] for e in log], rtol=1e-6)
+    np.testing.assert_array_equal(saved["loss_val"], [e["val"] for e in log])
+    assert saved["best_val_metric"] == log[-1]["best"]
+    # rewritten at the end of each epoch: epoch e finds the first e epochs
+    assert seen[0] is None and len(seen) == epochs
+    for e, earlier in enumerate(seen[1:], 1):
+        assert earlier.keys() == jax_keys and len(earlier["loss_val"]) == e
+        np.testing.assert_array_equal(earlier["loss_train"], saved["loss_train"][:e])
 
 
 def test_run_train_stops_on_a_non_finite_loss(tmp_path, capsys):

@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against ROOT [ROOT ...] [--kernel NAME]
-        # A/B of the galerkin backward kernels only (against_phase): both, or
-        # galerkin_scores_bwd (float32) or galerkin_scores_bwd_bf16 by name
+        # A/B of the redesigned galerkin kernels only (against_phase): all
+        # three, or galerkin_scores_bwd (float32), galerkin_scores_bwd_bf16
+        # or galerkin_scores_bf16 (the bfloat16 forward) by name; with the
+        # bfloat16 forward, also the device time of the ex2 bf16 requests
+        # and train step with each checkout's forward (forward_path_phase)
 
 1. prints the card (nvidia-smi) and turns TF32 off;
 2. builds every CUDA kernel of the port from galerkin_transformer_torch/csrc
@@ -14,8 +17,9 @@
    one PyTorch library call's as a yardstick, and the card's bound: the
    float32 ``fourier_chain`` and ``galerkin_scores`` at the ex1 shapes,
    ``galerkin_scores`` again at the ex2 shape, and the bfloat16 tensor-core
-   kernels ``galerkin_scores_bf16`` (ex1 and ex2 shapes) and
-   ``fourier_chain_bf16`` (ex1 shape);
+   kernels ``galerkin_scores_bf16`` (ex1, ex2 serving and ex2 training
+   shapes; exactly one device kernel per call, as ``torch.profiler`` counts
+   them) and ``fourier_chain_bf16`` (ex1 shape);
 4. backward kernel phases: ``galerkin_scores_bwd`` and
    ``galerkin_scores_bwd_bf16`` at the ex2 training shape and the ex1 shape
    against their plain versions (and bit-equal on a second call; each
@@ -89,6 +93,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -190,6 +195,12 @@ TOL_TRAIN_GRAD_BF16 = 2.0 ** -4
 TRAIN_2D = dict(n_grid_fine=211, subsample_nodes=1, subsample_attn=5,
                 n_samples_synthetic=10)
 TRAIN_2D_STEPS = 8
+# (B, H, n, d_k, p) of the galerkin kernels on the main paths: ex1, ex2 serving
+# at (n_f, n_c) = (211, 71), ex2 training
+EX1_SHAPE = (BATCH, 1, RESOLUTIONS[0], 96, 1)
+EX2_SHAPE = (BATCH_2D, 4, GRIDS_2D[1][1] ** 2, 32, 2)   # (4, 4, 5041, 32, 2)
+EX2_TRAIN_SHAPE = (BATCH_2D, 4, ((TRAIN_2D["n_grid_fine"] - 1) // TRAIN_2D["subsample_attn"]
+                                 + 1) ** 2, 32, 2)   # (4, 4, 1849, 32, 2)
 NO_DROPOUT = dict(dropout=0.0, downscaler_dropout=0.0, upscaler_dropout=0.0,
                   ffn_dropout=0.0, encoder_dropout=0.0, decoder_dropout=0.0)
 
@@ -233,6 +244,29 @@ def device_kernels(fn) -> list:
             and "emcpy" not in e.name and "emset" not in e.name]
 
 
+def ptxas_summary(log: str) -> list:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name with its
+    template arguments (demangled by the toolkit's ``cu++filt``), its
+    registers, and its spill stores and loads."""
+    entries, name, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            entries.append((name, regs.group(1) if regs else "?", spill))
+    if not entries:
+        return []
+    filt = os.path.join(os.path.dirname(os.path.realpath(_build._nvcc())), "cu++filt")
+    names = subprocess.run([filt, "-p", *(e[0] for e in entries)], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    return [f"{shown}: {regs} registers, {spill}"
+            for shown, (_, regs, spill) in zip(names, entries)]
+
+
 def max_err(got, ref):
     return (got - ref).abs().max().item(), ref.abs().max().item()
 
@@ -259,8 +293,7 @@ def galerkin_inputs(rng, dev, shape, dtype):
     return k, v, _tensor(pos, dev, dtype), params
 
 
-def galerkin_phase(rng, dev, peak, shape=(BATCH, 1, RESOLUTIONS[0], 96, 1), dtype=None,
-                   eps=1e-5):
+def galerkin_phase(rng, dev, peak, shape=EX1_SHAPE, dtype=None, eps=1e-5):
     """`galerkin_scores` (float32) or `galerkin_scores_bf16` at
     (B, H, n, d_k, p): against the plain version, bit-equal run to run, timed."""
     b, h, n, d_k, p = shape
@@ -285,6 +318,13 @@ def galerkin_phase(rng, dev, peak, shape=(BATCH, 1, RESOLUTIONS[0], 96, 1), dtyp
     again = GS.galerkin_scores(*args)
     if not torch.equal(got, again):
         raise AssertionError(f"{name} is not deterministic run to run")
+    if bf16:   # one launch: its CTAs sum the partials themselves
+        names = device_kernels(lambda: GS.galerkin_scores(*args))
+        print(f"  {len(names)} device kernel(s) per call (torch.profiler): "
+              f"{[n_[:40] for n_ in names]}")
+        if len(names) != 1:
+            raise AssertionError(f"{name} ran {len(names)} device kernels per call, "
+                                 f"expected 1")
 
     ms = time_ms(lambda: GS.galerkin_scores(*args), 50)
     plain_ms = time_ms(lambda: GS.galerkin_scores_reference(*args), 20)
@@ -345,8 +385,7 @@ def fourier_phase(rng, dev, peak, dtype=None):
     return res
 
 
-def galerkin_bwd_phase(rng, dev, peak, shape=(BATCH, 1, RESOLUTIONS[0], 96, 1), dtype=None,
-                       eps=1e-5):
+def galerkin_bwd_phase(rng, dev, peak, shape=EX1_SHAPE, dtype=None, eps=1e-5):
     """`galerkin_scores_bwd` (float32) or `galerkin_scores_bwd_bf16` at
     (B, H, n, d_k, p): against the plain version, bit-equal run to run, timed."""
     b, h, n, d_k, p = shape
@@ -570,16 +609,21 @@ def load_port(root: str, alias: str):
     return module
 
 
-BWD_KERNELS = ("galerkin_scores_bwd", "galerkin_scores_bwd_bf16")
+# the kernels `--against` times, each at its (shape, eps) pairs
+AB_SHAPES = {"galerkin_scores_bwd": ((EX1_SHAPE, 1e-5), (EX2_TRAIN_SHAPE, 1e-7)),
+             "galerkin_scores_bwd_bf16": ((EX1_SHAPE, 1e-5), (EX2_TRAIN_SHAPE, 1e-7)),
+             "galerkin_scores_bf16": ((EX1_SHAPE, 1e-5), (EX2_SHAPE, 1e-7),
+                                      (EX2_TRAIN_SHAPE, 1e-7))}
 
 
-def against_phase(roots, names=BWD_KERNELS) -> dict:
-    """The galerkin backward kernels `names` of this checkout against the
-    same wrappers of other checkouts of the port (``--against``), at the ex1
-    shape and the ex2 training shape, as the training path calls them (no
-    dpos): float32 inputs for ``galerkin_scores_bwd``, bfloat16 ones for
-    ``galerkin_scores_bwd_bf16``.  Each build is held against this
-    checkout's plain version (TOL_GALERKIN, TOL_BF16_BWD) and must be
+def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
+    """The galerkin kernels `names` of this checkout against the same
+    wrappers of other checkouts of the port (``--against``), at the shapes
+    of `AB_SHAPES`: the backward kernels as the training path calls them (no
+    dpos; float32 inputs for ``galerkin_scores_bwd``, bfloat16 ones for
+    ``galerkin_scores_bwd_bf16``), the bfloat16 forward through
+    ``galerkin_scores``.  Each build is held against this checkout's plain
+    version (TOL_GALERKIN, TOL_BF16_BWD, TOL_BF16_KERNEL) and must be
     bit-equal on a second call; the builds are timed in turns, this one
     first and last (A, B, ..., B, A)."""
     ports, builders = {"this": GS}, [_build]
@@ -588,33 +632,42 @@ def against_phase(roots, names=BWD_KERNELS) -> dict:
         ports[root] = importlib.import_module(f"{alias}.ops.cuda.galerkin")
         builders.append(importlib.import_module(f"{alias}.ops.cuda._build"))
     t0 = time.perf_counter()
+    # the forward's path phase runs this checkout's bfloat16 backward too
+    path = "galerkin_scores_bf16" in names and len(ports) > 1
+    extra = ["galerkin_scores_bwd_bf16"] if path and "galerkin_scores_bwd_bf16" not in names else []
     with ThreadPoolExecutor(len(builders)) as pool:
-        logs = list(pool.map(lambda b: b.build(list(names)), builders))
+        logs = list(pool.map(lambda b: b.build(list(names) + (extra if b is _build else [])),
+                             builders))
     print(f"built {list(names)} of {list(ports)} in {time.perf_counter() - t0:.1f} s")
     for tag, log in zip(ports, logs):
         for name in names:
-            for line in log.get(name, "").splitlines():
-                if "spill" in line or "registers" in line:
-                    print(f"  {tag} {name}: {line.strip()}")
+            for line in ptxas_summary(log.get(name, "")):
+                print(f"  {tag} {name}: {line}")
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
     rows = []
     for name in names:
         bf16 = name.endswith("_bf16")
-        tol = TOL_BF16_BWD if bf16 else TOL_GALERKIN
-        for shape, eps in (((BATCH, 1, RESOLUTIONS[0], 96, 1), 1e-5),
-                           ((BATCH_2D, 4, 1849, 32, 2), 1e-7)):
+        backward = "_bwd" in name
+        tol = (TOL_BF16_BWD if bf16 else TOL_GALERKIN) if backward else TOL_BF16_KERNEL
+        for shape, eps in AB_SHAPES[name]:
             b, h, n, d_k, p = shape
             k, v, pos, params = galerkin_inputs(rng, dev, shape,
                                                 torch.bfloat16 if bf16 else None)
-            ds = _tensor(rng.standard_normal((b, h, d_k + p, d_k + p)), dev)
-            args = (k, v, pos, *params, ds, eps)
-            # the bfloat16 kernel writes its outputs rounded once to bfloat16
-            ref = [r.bfloat16().float() if bf16 else r
-                   for r in GS.galerkin_scores_bwd_reference(*args)]
+            if backward:
+                ds = _tensor(rng.standard_normal((b, h, d_k + p, d_k + p)), dev)
+                args = (k, v, pos, *params, ds, eps)
+                # the bfloat16 kernel writes its outputs rounded once to bfloat16
+                ref = [r.bfloat16().float() if bf16 else r
+                       for r in GS.galerkin_scores_bwd_reference(*args)]
+                call = lambda port, args=args: port.galerkin_scores_bwd(*args, need_dpos=False)
+            else:
+                args = (k, v, pos, *params, eps)
+                ref = [GS.galerkin_scores_reference(*args)]
+                call = lambda port, args=args: (port.galerkin_scores(*args),)
             calls, errs = {}, {}
             for tag, port in ports.items():
-                calls[tag] = lambda port=port: port.galerkin_scores_bwd(*args, need_dpos=False)
+                calls[tag] = lambda port=port, call=call: call(port)
                 got, again = calls[tag](), calls[tag]()
                 torch.cuda.synchronize()
                 errs[tag] = max(err / scale for err, scale in
@@ -632,7 +685,70 @@ def against_phase(roots, names=BWD_KERNELS) -> dict:
             print(f"{name} (B,H,n,d_k,p)={tuple(shape)} eps={eps:.0e}: "
                   + "; ".join(f"{tag} {min(t):.4f} ms {t} (err {errs[tag]:.2e})"
                               for tag, t in times.items()))
-    return {"against": rows}
+    return {"against": rows, **({"path": forward_path_phase(ports)} if path else {})}
+
+
+def forward_path_phase(ports, repeats: int = 5) -> list:
+    """The ex2 bf16 requests at both grids and the ex2 bf16 train step with
+    the bfloat16 forward of each checkout of `ports` in turn (this
+    checkout's ``_scores_forward`` replaced by theirs; all else is this
+    checkout's), profiled in the order A, B, ..., B, A: the device time of
+    one request or step (torch.profiler, the mean of `repeats` after two
+    warm-up calls), and the part of it, and the launches, of the device
+    kernels that one call of that checkout's forward runs."""
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    k, v, pos, params = galerkin_inputs(rng, dev, EX2_TRAIN_SHAPE, torch.bfloat16)
+    forward_kernels = {tag: set(device_kernels(
+        lambda port=port: port.galerkin_scores(k, v, pos, *params, 1e-7)))
+        for tag, port in ports.items()}
+    works = {}
+    for n_f, n_c in GRIDS_2D:
+        gpu = Predictor(FourierTransformer2D.from_config(ex2_config(n_f, n_c), seed=SEED,
+                                                         dtype=torch.bfloat16))
+        grid_pos, grid = darcy_grids(n_f, n_c)
+        batch = dict(node=rng.standard_normal((BATCH_2D, n_f, n_f, 1)).astype(np.float32),
+                     pos=grid_pos[None].repeat(BATCH_2D, 0), grid=grid[None].repeat(BATCH_2D, 0))
+        works[f"request ({n_f},{n_c})"] = lambda gpu=gpu, batch=batch: gpu(batch)
+    batches, normalizer, (n_f, n_c) = ex2_train_data()
+    _, step = ex2_step("cuda", torch.bfloat16, ex2_config(n_f, n_c), batches, normalizer, n_f)
+    works[f"train step ({n_f},{n_c})"] = lambda: step(batches[0])
+
+    cuda = torch.autograd.DeviceType.CUDA
+    # each forward taken before any is swapped in: "this" is GS itself
+    forwards = {tag: port._scores_forward for tag, port in ports.items()}
+    rows = {work: {tag: [] for tag in ports} for work in works}
+    try:
+        for tag in list(ports) + list(ports)[::-1]:
+            GS._scores_forward = forwards[tag]
+            for work, fn in works.items():
+                for _ in range(2):
+                    fn()
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]
+                                            ) as prof:
+                    for _ in range(repeats):
+                        fn()
+                    torch.cuda.synchronize()
+                busy = fwd = count = 0
+                for e in prof.key_averages():
+                    if e.device_type == cuda and e.device_time_total > 0:
+                        busy += e.device_time_total
+                        if e.key in forward_kernels[tag]:
+                            fwd += e.device_time_total
+                            count += e.count
+                rows[work][tag].append(dict(device_ms=busy / repeats / 1e3,
+                                            forward_ms=fwd / repeats / 1e3,
+                                            forward_launches=count / repeats))
+    finally:
+        GS._scores_forward = forwards["this"]
+    for work, by_tag in rows.items():
+        print(f"ex2 bf16 {work}, bf16 forward of each checkout: " + "; ".join(
+            f"{tag} device " + ", ".join(f"{r['device_ms']:.3f}" for r in runs)
+            + " ms, forward " + ", ".join(f"{r['forward_ms']:.4f}" for r in runs)
+            + " ms in " + ", ".join(f"{r['forward_launches']:g}" for r in runs) + " kernels"
+            for tag, runs in by_tag.items()))
+    return [dict(work=work, runs=by_tag) for work, by_tag in rows.items()]
 
 
 def bound(nbytes: int, flops: int, peak: dict, rate: str = "f32_flops") -> dict:
@@ -778,10 +894,7 @@ def serving_2d_phase(rng):
             raise AssertionError("the Dirichlet ring is not zero, or the interior is")
 
     for n_f, n_c in GRIDS_2D:
-        cfg = load_config("ex2_darcy")
-        cfg["downscaler_size"], cfg["upscaler_size"] = get_scaler_sizes(n_f, n_c)
-        # the ex2 example's rule for the galerkin LayerNorm's eps
-        cfg["norm_eps"] = 1e-7 if n_f < 211 else 1e-5
+        cfg = ex2_config(n_f, n_c)
         n_layers = cfg["num_encoder_layers"]
         normalizer = ((0.1 * rng.standard_normal((n_f, n_f, 1))).astype(np.float32),
                       rng.uniform(0.5, 1.5, (n_f, n_f, 1)).astype(np.float32),
@@ -908,11 +1021,18 @@ def training_phase():
     return launches()
 
 
-def training_2d_phase():
-    """The fourth main path: the train step of the full-width ex2 Darcy
-    FourierTransformer2D on batches from `DarcyDataset`, in float32 and with
-    the bfloat16 encoder and scalers.  Returns the launch counts of its run."""
-    reset_launches()
+def ex2_config(n_f, n_c):
+    """The ex2 config with the scalers of (n_f, n_c) and the ex2 example's
+    rule for the galerkin LayerNorm's eps."""
+    cfg = load_config("ex2_darcy")
+    cfg["downscaler_size"], cfg["upscaler_size"] = get_scaler_sizes(n_f, n_c)
+    cfg["norm_eps"] = 1e-7 if n_f < 211 else 1e-5
+    return cfg
+
+
+def ex2_train_data():
+    """Batches of BATCH_2D from `DarcyDataset` at TRAIN_2D, the target
+    normalizer and (n_f, n_c)."""
     t0 = time.perf_counter()
     train = DarcyDataset(train_data=True, **TRAIN_2D)
     n_f = (TRAIN_2D["n_grid_fine"] - 1) // TRAIN_2D["subsample_nodes"] + 1
@@ -920,21 +1040,31 @@ def training_2d_phase():
     print(f"DarcyDataset: {len(train)} training samples at (n_f, n_c) = ({n_f}, {n_c}) "
           f"in {time.perf_counter() - t0:.1f} s")
     batches = list(DataLoader(train, BATCH_2D, shuffle=True, drop_last=True, seed=SEED))
-    normalizer = train.normalizer_y.as_tuple()
-    cfg = load_config("ex2_darcy")
-    cfg["downscaler_size"], cfg["upscaler_size"] = get_scaler_sizes(n_f, n_c)
-    cfg["norm_eps"] = 1e-7 if n_f < 211 else 1e-5   # the ex2 example's rule
-    n_layers = cfg["num_encoder_layers"]
+    return batches, train.normalizer_y.as_tuple(), (n_f, n_c)
+
+
+def ex2_step(device, dtype, config, batches, normalizer, n_f):
+    """A full-width ex2 FourierTransformer2D and its `make_darcy_steps` train step."""
+    model = FourierTransformer2D.from_config(config, device=device, seed=SEED, dtype=dtype)
+    opt = AdamOneCycle(model.parameters(), 1e-3, 100 * len(batches), pct_start=0.3,
+                       grad_clip=0.99)
     h = 1 / n_f
+    step = make_darcy_steps(model, WeightedL2Loss2d(regularizer=True, h=h, gamma=0.5),
+                            WeightedL2Loss2d(h=h), opt, normalizer=normalizer)[0]
+    return model, step
+
+
+def training_2d_phase():
+    """The fourth main path: the train step of the full-width ex2 Darcy
+    FourierTransformer2D on batches from `DarcyDataset`, in float32 and with
+    the bfloat16 encoder and scalers.  Returns the launch counts of its run."""
+    reset_launches()
+    batches, normalizer, (n_f, n_c) = ex2_train_data()
+    cfg = ex2_config(n_f, n_c)
+    n_layers = cfg["num_encoder_layers"]
 
     def make_step(device, dtype, config):
-        model = FourierTransformer2D.from_config(config, device=device, seed=SEED,
-                                                 dtype=dtype)
-        opt = AdamOneCycle(model.parameters(), 1e-3, 100 * len(batches), pct_start=0.3,
-                           grad_clip=0.99)
-        step = make_darcy_steps(model, WeightedL2Loss2d(regularizer=True, h=h, gamma=0.5),
-                                WeightedL2Loss2d(h=h), opt, normalizer=normalizer)[0]
-        return model, step
+        return ex2_step(device, dtype, config, batches, normalizer, n_f)
 
     grads = {}   # (dtype, device) -> the gradients of the compared step
     for dtype in DTYPES:
@@ -1073,11 +1203,11 @@ def driver_phase():
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Build, check and drive the port on one GPU.")
     parser.add_argument("--against", nargs="+", metavar="ROOT",
-                        help="only time the galerkin backward kernels of this checkout "
+                        help="only time the redesigned galerkin kernels of this checkout "
                              "against those of other checkouts of the port (e.g. an "
                              "earlier commit unpacked with git archive)")
-    parser.add_argument("--kernel", choices=BWD_KERNELS,
-                        help="with --against: time this backward kernel only")
+    parser.add_argument("--kernel", choices=tuple(AB_SHAPES),
+                        help="with --against: time this kernel only")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1094,7 +1224,7 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     peak = peaks_for(name)
     if args.against:
-        names = BWD_KERNELS if args.kernel is None else (args.kernel,)
+        names = tuple(AB_SHAPES) if args.kernel is None else (args.kernel,)
         print(json.dumps({"card": smi, **against_phase(args.against, names)}))
         return 0
 
@@ -1102,26 +1232,23 @@ def main(argv=None) -> int:
     logs = _build.build()
     print(f"built {_build.sources()} in {time.perf_counter() - t0:.1f} s")
     for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"  {src}: {line}")
 
     rng = np.random.default_rng(SEED)
-    ex2_shape = (BATCH_2D, 4, GRIDS_2D[1][1] ** 2, 32, 2)   # (4, 4, 5041, 32, 2)
     bf16 = torch.bfloat16
-    n_c_train = (TRAIN_2D["n_grid_fine"] - 1) // TRAIN_2D["subsample_attn"] + 1
-    ex2_train_shape = (BATCH_2D, 4, n_c_train ** 2, 32, 2)   # (4, 4, 1849, 32, 2)
     kernels = [fourier_phase(rng, dev, peak), galerkin_phase(rng, dev, peak),
                galerkin_bwd_phase(rng, dev, peak),
-               galerkin_phase(rng, dev, peak, ex2_shape, bf16, eps=1e-7),
+               galerkin_phase(rng, dev, peak, EX2_SHAPE, bf16, eps=1e-7),
                fourier_phase(rng, dev, peak, bf16),
-               galerkin_bwd_phase(rng, dev, peak, ex2_train_shape, bf16, eps=1e-7),
+               galerkin_bwd_phase(rng, dev, peak, EX2_TRAIN_SHAPE, bf16, eps=1e-7),
                fourier_bwd_bf16_phase(rng, dev, peak)]
     # the same kernels at the other main paths' shapes (printed, not in the line)
-    galerkin_phase(rng, dev, peak, ex2_shape, eps=1e-7)
+    galerkin_phase(rng, dev, peak, EX2_SHAPE, eps=1e-7)
     galerkin_phase(rng, dev, peak, dtype=bf16)
+    galerkin_phase(rng, dev, peak, EX2_TRAIN_SHAPE, bf16, eps=1e-7)
     galerkin_bwd_phase(rng, dev, peak, dtype=bf16)
-    galerkin_bwd_phase(rng, dev, peak, ex2_train_shape, eps=1e-7)
+    galerkin_bwd_phase(rng, dev, peak, EX2_TRAIN_SHAPE, eps=1e-7)
     fourier_bwd_phase(rng, dev, peak)
     wide_phase(rng, dev)
     paths = [serving_phase(rng), serving_2d_phase(rng), training_phase(),

@@ -6,7 +6,7 @@ the custom VJP of ``galerkin_scores_fused``).  On CUDA tensors the forward
 launches ``csrc/galerkin_scores.cu`` (float32 K, V, pos) or
 ``csrc/galerkin_scores_bf16.cu`` (bfloat16 K, V, pos: LN statistics in
 float32, LN output rounded to bfloat16, the product on the tensor cores
-with a float32 sum), and the backward launches
+with a float32 sum; one device kernel), and the backward launches
 ``csrc/galerkin_scores_bwd.cu`` (float32) or
 ``csrc/galerkin_scores_bwd_bf16.cu`` (bfloat16 K, V, pos);
 on CPU tensors they run ``galerkin_scores_reference`` and
@@ -27,12 +27,17 @@ import torch
 from ..attention import per_head_layer_norm
 from . import _build
 
-ROWS_PER_CHUNK = 32   # kRowsPerChunk in csrc/galerkin_scores.cu
-BWD_ROWS_PER_CHUNK = 64   # kRows in csrc/galerkin_scores_bwd{,_bf16}.cu
+# sequence rows per chunk of each kernel (kRowsPerChunk in
+# csrc/galerkin_scores.cu, kRows in the other three sources): a CTA owns a
+# whole number of chunks
+CHUNK_ROWS = {"galerkin_scores": 32, "galerkin_scores_bf16": 64,
+              "galerkin_scores_bwd": 64, "galerkin_scores_bwd_bf16": 64}
 MAX_D = 128           # d_k and d_k + p that the kernel takes
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
+_BF16_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                  + [ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
                  + [ctypes.c_float, ctypes.c_void_p])
 _CTAS_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -61,23 +66,40 @@ def galerkin_scores_reference(k, v, pos, scale_k, bias_k, scale_v, bias_v,
     return torch.matmul(kc.float().transpose(-2, -1), vc.float())
 
 
-def _splits(bh: int, n: int, device: torch.device, chunk: int = ROWS_PER_CHUNK,
-            ctas_per_sm: int = 2) -> tuple:
-    """(rows_per_split, splits): `ctas_per_sm` CTAs per SM over the sequence,
-    each a whole number of `chunk`-row chunks."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(math.ceil(n / chunk), math.ceil(ctas_per_sm * sms / bh)))
+def split_grid(bh: int, n: int, sms: int, chunk: int, ctas_per_sm: int,
+               fit: bool = False) -> tuple:
+    """(rows_per_split, splits) of a grid (bh, splits) with about
+    `ctas_per_sm` CTAs per SM on `sms` SMs: each CTA owns rows_per_split
+    rows, a whole number of `chunk`-row chunks, and every CTA has rows:
+    (splits - 1) * rows_per_split < n <= splits * rows_per_split.  With
+    `fit`, a grid of more than one split has at most `ctas_per_sm` CTAs per
+    SM (a cooperative launch needs them all on the card at once); else the
+    splits per bh are rounded up."""
+    per_bh = ctas_per_sm * sms // bh if fit else math.ceil(ctas_per_sm * sms / bh)
+    splits = max(1, min(math.ceil(n / chunk), per_bh))
     rows = math.ceil(math.ceil(n / splits) / chunk) * chunk
     return rows, math.ceil(n / rows)
 
 
-def _bwd_splits(name: str, bh: int, n: int, d_k: int, p: int,
-                device: torch.device) -> tuple:
-    """`_splits` of the backward kernel `name` (``csrc/<name>.cu``): 64-row
-    chunks, and as many CTAs as fit on the card at once (the kernel's
-    occupancy at this (d_k, p), asked once)."""
+# the kernels whose CTAs of one bh wait for each other: a grid of more than
+# one split is launched cooperatively
+COOPERATIVE = ("galerkin_scores_bf16",)
+
+
+def _splits(name: str, bh: int, n: int, device: torch.device,
+            ctas_per_sm: int = 2) -> tuple:
+    """`split_grid` of kernel `name` on the card of `device`."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return split_grid(bh, n, sms, CHUNK_ROWS[name], ctas_per_sm, name in COOPERATIVE)
+
+
+def _occupancy_splits(name: str, bh: int, n: int, d_k: int, p: int,
+                      device: torch.device) -> tuple:
+    """`_splits` of the kernel `name` (``csrc/<name>.cu``) with as many CTAs
+    as fit on the card at once (the kernel's occupancy at this (d_k, p),
+    asked once)."""
     key = (name, device.index, d_k, p)
-    if key not in _BWD_CTAS_PER_SM:
+    if key not in _CTAS_PER_SM:
         fn = _build.function(name, f"{name}_ctas_per_sm", _CTAS_ARGTYPES)
         ctas = ctypes.c_int(0)
         with torch.cuda.device(device):
@@ -85,19 +107,19 @@ def _bwd_splits(name: str, bh: int, n: int, d_k: int, p: int,
         if rc != 0 or ctas.value < 1:
             raise RuntimeError(f"{name} occupancy query failed: CUDA error "
                                f"{rc}, {ctas.value} CTAs per SM")
-        _BWD_CTAS_PER_SM[key] = ctas.value
-    return _splits(bh, n, device, BWD_ROWS_PER_CHUNK, _BWD_CTAS_PER_SM[key])
+        _CTAS_PER_SM[key] = ctas.value
+    return _splits(name, bh, n, device, _CTAS_PER_SM[key])
 
 
-_BWD_CTAS_PER_SM: dict = {}
+_CTAS_PER_SM: dict = {}
 _TICKETS: dict = {}
 
 
 def _tickets(device: torch.device, stream: int, count: int) -> torch.Tensor:
-    """`count` int counters the backward kernels' CTAs take tickets from, per
-    (device, stream): zero between launches (each kernel's last CTAs reset
-    them), so launches of either kernel ordered on one stream can share
-    them."""
+    """`count` int counters the CTAs of the bfloat16 forward and of both
+    backward kernels take tickets from, per (device, stream): zero between
+    launches (each kernel's last CTAs reset them), so launches of these
+    kernels ordered on one stream can share them."""
     key = (device.index, stream)
     if key not in _TICKETS or _TICKETS[key].numel() < count:
         _TICKETS[key] = torch.zeros(count, dtype=torch.int32, device=device)
@@ -151,19 +173,26 @@ def _scores_forward(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps):
     b, h, n, d_k = k.shape
     p = 0 if pos is None else pos.shape[-1]
     d_eff = d_k + p
-    rows, splits = _splits(b * h, n, k.device)
-    out = torch.empty((b, h, d_eff, d_eff), dtype=torch.float32, device=k.device)
-    partial = torch.empty((splits, b * h, d_eff, d_eff), dtype=torch.float32,
-                          device=k.device)
     bf16 = k.dtype == torch.bfloat16
     name = "galerkin_scores_bf16" if bf16 else "galerkin_scores"
-    fn = _build.function(name, f"{name}_launch", _ARGTYPES)
+    if bf16:   # one launch: its CTAs sum the partials themselves
+        rows, splits = _occupancy_splits(name, b * h, n, d_k, p, k.device)
+        fn = _build.function(name, f"{name}_launch", _BF16_ARGTYPES)
+    else:      # two launches: partials, then their sum
+        rows, splits = _splits(name, b * h, n, k.device)
+        fn = _build.function(name, f"{name}_launch", _ARGTYPES)
+    out = torch.empty((b, h, d_eff, d_eff), dtype=torch.float32, device=k.device)
+    # the bfloat16 kernel starts each partial on 16 bytes
+    slot = (d_eff * d_eff + 3) // 4 * 4 if bf16 else d_eff * d_eff
+    partial = torch.empty((splits, b * h, slot), dtype=torch.float32, device=k.device)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
+        # the bfloat16 kernel's CTAs of one bh count on two ints
+        tickets = [_tickets(k.device, stream, 2 * b * h).data_ptr()] if bf16 else []
         rc = fn(k.data_ptr(), v.data_ptr(),
                 None if pos is None else pos.data_ptr(),
                 *(t.data_ptr() for t in params),
-                partial.data_ptr(), out.data_ptr(),
+                partial.data_ptr(), out.data_ptr(), *tickets,
                 b, h, n, d_k, p, rows, splits, eps, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -387,7 +416,7 @@ def _scores_backward(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds, eps, need_
     need_dpos = need_dpos and pos is not None
     bf16 = k.dtype == torch.bfloat16
     name = "galerkin_scores_bwd_bf16" if bf16 else "galerkin_scores_bwd"
-    rows, splits = _bwd_splits(name, b * h, n, d_k, p, k.device)
+    rows, splits = _occupancy_splits(name, b * h, n, d_k, p, k.device)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=k.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dparams = empty(4, h, d_k)

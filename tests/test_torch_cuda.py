@@ -92,22 +92,39 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
 TOL_BF16 = 1e-3
 
 
-@pytest.mark.parametrize("b,h,n,d_k,p", GALERKIN_SHAPES + [
-    (2, 4, 1849, 32, 2), (1, 1, 8192, 96, 1), (2, 2, 77, 30, None)])
-def test_galerkin_scores_bf16_kernel_matches_plain(dev, b, h, n, d_k, p):
-    rng = np.random.default_rng(n + 1)
+# (B, H, n, d_k, p) of the bfloat16 forward: the main paths' widths, ragged
+# and single-chunk n, every d_k / 32 class with and without pos, a wide
+# batch whose splits are cut to what the card holds at once (100 bh of 2
+# splits), and one of more bh than the card holds (300 bh of 1 split each,
+# not a cooperative launch)
+GALERKIN_BF16_SHAPES = GALERKIN_SHAPES + [
+    (2, 4, 1849, 32, 2), (1, 1, 8192, 96, 1), (2, 2, 77, 30, None), (4, 4, 5041, 32, 2),
+    (2, 1, 300, 64, None), (1, 2, 300, 128, None), (2, 1, 500, 126, 2), (2, 2, 65, 32, 2),
+    (1, 2, 2100, 96, 1), (25, 4, 1000, 32, 2), (75, 4, 200, 32, 2)]
+
+
+def _galerkin_bf16_args(dev, shape, seed):
+    b, h, n, d_k, p = shape
+    rng = np.random.default_rng(seed)
     k, v = (_t(rng, (b, h, n, d_k), dev).bfloat16() for _ in range(2))
     pos = None if p is None else _t(rng, (b, n, p), dev).bfloat16()
     params = [1 + 0.1 * _t(rng, (h, d_k), dev), 0.1 * _t(rng, (h, d_k), dev),
               1 + 0.1 * _t(rng, (h, d_k), dev), 0.1 * _t(rng, (h, d_k), dev)]
+    return k, v, pos, params
+
+
+@pytest.mark.parametrize("eps", [1e-7, 1e-5])
+@pytest.mark.parametrize("b,h,n,d_k,p", GALERKIN_BF16_SHAPES)
+def test_galerkin_scores_bf16_kernel_matches_plain(dev, b, h, n, d_k, p, eps):
+    k, v, pos, params = _galerkin_bf16_args(dev, (b, h, n, d_k, p), n + 1)
     before = GS.galerkin_scores_bf16.launches, GS.galerkin_scores.launches
-    got = GS.galerkin_scores(k, v, pos, *params, 1e-7)
+    got = GS.galerkin_scores(k, v, pos, *params, eps)
     assert GS.galerkin_scores_bf16.launches == before[0] + 1
     assert GS.galerkin_scores.launches == before[1]
     assert got.dtype == torch.float32
-    want = GS.galerkin_scores_reference(k, v, pos, *params, 1e-7)
+    want = GS.galerkin_scores_reference(k, v, pos, *params, eps)
     torch.testing.assert_close(got, want, rtol=0, atol=TOL_BF16 * want.abs().max().item())
-    assert torch.equal(got, GS.galerkin_scores_bf16(k, v, pos, *params, 1e-7))
+    assert torch.equal(got, GS.galerkin_scores_bf16(k, v, pos, *params, eps))
 
 
 @pytest.mark.parametrize("bh,r,m,d,d_out", [
@@ -288,6 +305,61 @@ def test_galerkin_scores_bwd_bf16_is_one_kernel_without_dpos(dev, b, h, n, d_k, 
     assert len(names) == 1 and "scores_bwd_bf16_kernel" in names[0], names
     names = _device_kernels(lambda: GS.galerkin_scores_bwd_bf16(*args))
     assert len(names) == 2 and "dpos_reduce_kernel" in names[1], names
+
+
+@pytest.mark.parametrize("b,h,n,d_k,p", [(4, 4, 1849, 32, 2), (8, 1, 1024, 96, 1)])
+def test_galerkin_scores_bf16_is_one_kernel(dev, b, h, n, d_k, p):
+    k, v, pos, params = _galerkin_bf16_args(dev, (b, h, n, d_k, p), 7)
+    names = _device_kernels(lambda: GS.galerkin_scores_bf16(k, v, pos, *params, 1e-7))
+    assert len(names) == 1 and "scores_bf16_kernel" in names[0], names
+
+
+def test_galerkin_scores_bf16_replays_in_a_cuda_graph(dev):
+    """The cooperative launch captured in a CUDA graph: every replay gives
+    what an uncaptured call gives, bit for bit, and the counters are back
+    at zero after the replays (an uncaptured call on the stream agrees)."""
+    k, v, pos, params = _galerkin_bf16_args(dev, (4, 4, 1849, 32, 2), 13)
+    call = lambda: GS.galerkin_scores_bf16(k, v, pos, *params, 1e-7)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        want = call()   # builds the kernel and makes this stream's counters
+    stream.synchronize()
+    before = GS.galerkin_scores_bf16.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = call()
+    assert GS.galerkin_scores_bf16.launches == before + 1
+    for _ in range(3):
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    with torch.cuda.stream(stream):
+        again = call()
+    stream.synchronize()
+    assert torch.equal(again, want)
+
+
+def test_bf16_forward_and_backward_share_their_tickets(dev):
+    """The bfloat16 forward and backward kernels take tickets from one pool
+    per stream, at other B*H each: a forward, a backward and a forward again
+    on one stream give what each gives alone."""
+    fk, fv, fpos, fparams = _galerkin_bf16_args(dev, (4, 4, 1849, 32, 2), 10)
+    k, v, pos, params = _galerkin_bf16_args(dev, (3, 1, 700, 96, 1), 11)
+    ds = _t(np.random.default_rng(12), (3, 1, 97, 97), dev)
+    fwd = lambda: GS.galerkin_scores_bf16(fk, fv, fpos, *fparams, 1e-7)
+    bwd = lambda: GS.galerkin_scores_bwd_bf16(k, v, pos, *params, ds, 1e-7, need_dpos=False)
+    alone_fwd = fwd()
+    torch.cuda.synchronize()
+    alone_bwd = bwd()
+    torch.cuda.synchronize()
+    first, grads, again = fwd(), bwd(), fwd()
+    torch.cuda.synchronize()
+    assert torch.equal(first, alone_fwd) and torch.equal(again, alone_fwd)
+    assert all((g is None and a is None) or torch.equal(g, a)
+               for g, a in zip(grads, alone_bwd))
+    want = GS.galerkin_scores_reference(fk, fv, fpos, *fparams, 1e-7)
+    torch.testing.assert_close(first, want, rtol=0, atol=TOL_BF16 * want.abs().max().item())
 
 
 def test_backward_kernels_share_their_tickets(dev):

@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against ROOT [ROOT ...] [--kernel NAME]
-        # A/B of the redesigned galerkin kernels only (against_phase): all
-        # three, or galerkin_scores_bwd (float32), galerkin_scores_bwd_bf16
-        # or galerkin_scores_bf16 (the bfloat16 forward) by name; with the
-        # bfloat16 forward, also the device time of the ex2 bf16 requests
-        # and train step with each checkout's forward (forward_path_phase)
+        # A/B of the redesigned kernels only (against_phase): all four, or
+        # galerkin_scores_bwd (float32), galerkin_scores_bwd_bf16,
+        # galerkin_scores_bf16 (the bfloat16 forward) or fourier_chain
+        # (float32) by name; with the bfloat16 forward, also the device time
+        # of the ex2 bf16 requests and train step with each checkout's
+        # forward (forward_path_phase); with fourier_chain, that of the ex1
+        # fourier f32 request at n = 8192 and train step (chain_path_phase)
 
 1. prints the card (nvidia-smi) and turns TF32 off;
 2. builds every CUDA kernel of the port from galerkin_transformer_torch/csrc
@@ -15,7 +17,10 @@
 3. kernel phases at the serving shapes: each kernel against its plain
    PyTorch version on the same inputs, with its time, the plain version's,
    one PyTorch library call's as a yardstick, and the card's bound: the
-   float32 ``fourier_chain`` and ``galerkin_scores`` at the ex1 shapes,
+   float32 ``fourier_chain`` (also against a float64 reference, to 1e-5
+   of its largest entry, bit-equal on a second call, two device kernels per
+   call: the split of b and c into bfloat16 parts and the chain) and
+   ``galerkin_scores`` at the ex1 shapes,
    ``galerkin_scores`` again at the ex2 shape, and the bfloat16 tensor-core
    kernels ``galerkin_scores_bf16`` (ex1, ex2 serving and ex2 training
    shapes; exactly one device kernel per call, as ``torch.profiler`` counts
@@ -26,7 +31,8 @@
    runs exactly one device kernel per call without dpos and two with, as
    ``torch.profiler`` counts them), and the fourier attention backward at
    the training shape against ``fourier_attention_bwd_reference``: three
-   ``fourier_chain`` launches in float32, three ``fourier_chain_mixed``
+   ``fourier_chain`` launches in float32 (each sweep also against float64,
+   to 1e-5 of its largest entry), three ``fourier_chain_mixed``
    launches (one float32 operand each) for bfloat16 q, k, v;
    wide phase: a galerkin and a fourier ``SimpleAttention`` with heads of
    d_k + pos_dim = 130 columns, wider than the kernels take, forward and
@@ -147,7 +153,11 @@ PEAKS = {
 # kernel vs plain version on the same card: float32 sums over n = 8192 terms
 # taken in another order; measured relative to the largest entry
 TOL_GALERKIN = 1e-4
-TOL_FOURIER = 1e-3
+TOL_FOURIER = 1e-4
+# the float32 fourier_chain against a float64 reference of the same chain, of
+# its largest entry: the plain float32 version is about 1e-6 off, one-pass
+# TF32 (10 significand bits) about 1e-4
+TOL_FOURIER_F64 = 1e-5
 # a bfloat16 kernel vs its plain version: both round the same float32 values
 # to bfloat16 and sum the same products in float32, in another order; a value
 # on a rounding boundary may round the other way (one bfloat16 step, 2^-8, of
@@ -271,6 +281,33 @@ def max_err(got, ref):
     return (got - ref).abs().max().item(), ref.abs().max().item()
 
 
+def chain_float64(a, b, c, row_block: int = 2048):
+    """(A Bᵀ) C per bh in float64, rows taken `row_block` at a time as
+    `fourier_chain_reference` takes them."""
+    bh, r, _ = a.shape
+    out = torch.empty((bh, r, c.shape[-1]), dtype=torch.float64, device=a.device)
+    bt, cd = b.double().transpose(1, 2), c.double()
+    for r0 in range(0, r, row_block):
+        out[:, r0:r0 + row_block] = torch.matmul(
+            torch.matmul(a[:, r0:r0 + row_block].double(), bt), cd)
+    return out
+
+
+def float64_check(tag, got, plain, ops):
+    """The float32 chain `got` and its plain version `plain` on operands
+    `ops` against `chain_float64`: the kernel within TOL_FOURIER_F64 of the
+    largest entry.  Returns the kernel's error of max|ref|."""
+    ref = chain_float64(*ops)
+    scale = ref.abs().max().item()
+    err = (got.double() - ref).abs().max().item() / scale
+    plain_err = (plain.double() - ref).abs().max().item() / scale
+    print(f"  {tag} vs float64: kernel {err:.3e}, plain float32 {plain_err:.3e} of "
+          f"max|ref| (tol {TOL_FOURIER_F64:.0e})")
+    if not err <= TOL_FOURIER_F64:
+        raise AssertionError(f"{tag} is {err:.3e} of max|ref| from float64")
+    return err
+
+
 def _tensor(a, dev, dtype=None):
     t = torch.from_numpy(a.astype(np.float32)).to(dev)
     return t if dtype is None else t.to(dtype)
@@ -367,11 +404,25 @@ def fourier_phase(rng, dev, peak, dtype=None):
           f"max|ref|={scale:.3e} rel={err / scale:.3e} tol={tol:.0e}")
     if not err <= tol * scale:
         raise AssertionError(f"{name} disagrees with its plain version")
+    if not bf16:
+        float64_check(name, got, ref, (a, b, c))
+        if not torch.equal(got, FC.fourier_chain(a, b, c)):
+            raise AssertionError(f"{name} is not deterministic run to run")
+        # the split of b and c into their bfloat16 parts, then the chain
+        names = device_kernels(lambda: FC.fourier_chain(a, b, c))
+        print(f"  {len(names)} device kernels per call (torch.profiler): "
+              f"{[n_[:40] for n_ in names]}")
+        if len(names) != 2:
+            raise AssertionError(f"{name} ran {len(names)} device kernels per call, "
+                                 f"expected 2")
 
     ms = time_ms(lambda: FC.fourier_chain(a, b, c), 5)
     plain_ms = time_ms(lambda: FC.fourier_chain_reference(a, b, c), 3)
     library_ms = time_ms(lambda: torch.matmul(torch.matmul(a, b.transpose(1, 2)), c), 3)
-    # a, b, c read once, out (float32) written once
+    # a, b, c read once, out (float32) written once.  A float32 product runs
+    # as six bfloat16 passes on the tensor cores, the cheapest form the card
+    # has at float32 accuracy (its float32 rate outside the tensor cores gives
+    # the bound printed beside it)
     nbytes = (2 if bf16 else 4) * (bh * n * d * 3) + 4 * bh * n * d
     flops = 2 * bh * n * n * (d + d)
     res = dict(name=name, route="cuda",
@@ -379,9 +430,12 @@ def fourier_phase(rng, dev, peak, dtype=None):
                replaces="galerkin_transformer_tpu/ops/pallas/fourier.py:31",
                shape=[bh, n, d], max_abs_err=err, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms,
-               **bound(nbytes, flops, peak, "bf16_flops" if bf16 else "f32_flops"))
+               **bound(nbytes, flops * (1 if bf16 else 6), peak, "bf16_flops"))
+    cuda_cores = "" if bf16 else (
+        f", CUDA-core bound {bound(nbytes, flops, peak)['bound_ms']:.5f} ms")
     print(f"  {ms:.4f} ms, plain {plain_ms:.4f} ms, library ((a@b^T)@c, two matmuls) "
-          f"{library_ms:.4f} ms, bound {res['bound_ms']:.5f} ms ({res['bound_by']})")
+          f"{library_ms:.4f} ms, bound {res['bound_ms']:.5f} ms ({res['bound_by']}"
+          f"{'' if bf16 else ', six bf16 passes'}){cuda_cores}")
     return res
 
 
@@ -474,14 +528,19 @@ def fourier_bwd_phase(rng, dev, peak):
     flat = [x.reshape(bh, n, d) for x in (q, k, v, g)]
     qf, kf, vf, gf = flat
     sweeps = ((gf, vf, kf), (vf, gf, qf), (kf, qf, gf))
+    for name, ops in zip(("dQ", "dK", "dV"), sweeps):
+        float64_check(f"fourier backward sweep {name} (unscaled)", FC.fourier_chain(*ops),
+                      FC.fourier_chain_reference(*ops), ops)
     ms = time_ms(lambda: [FC.fourier_chain(*o) for o in sweeps], 3)
     plain_ms = time_ms(lambda: FC.fourier_attention_bwd_reference(q, k, v, g), 3)
     library_ms = time_ms(lambda: [torch.matmul(torch.matmul(a, b.transpose(1, 2)), c)
                                   for a, b, c in sweeps], 3)
-    b_ = bound(3 * 4 * (bh * n * d * 4), 3 * 2 * bh * n * n * (d + d), peak)
+    nbytes, flops = 3 * 4 * (bh * n * d * 4), 3 * 2 * bh * n * n * (d + d)
+    b_ = bound(nbytes, 6 * flops, peak, "bf16_flops")
     print(f"fourier backward, three fourier_chain launches (BH,n,d)=({bh},{n},{d}): "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (2 matmuls x 3) "
-          f"{library_ms:.4f} ms, bound {b_['bound_ms']:.4f} ms ({b_['bound_by']})")
+          f"{library_ms:.4f} ms, bound {b_['bound_ms']:.4f} ms ({b_['bound_by']}, six bf16 "
+          f"passes), CUDA-core bound {bound(nbytes, flops, peak)['bound_ms']:.4f} ms")
 
 
 def fourier_bwd_bf16_phase(rng, dev, peak):
@@ -613,27 +672,33 @@ def load_port(root: str, alias: str):
 AB_SHAPES = {"galerkin_scores_bwd": ((EX1_SHAPE, 1e-5), (EX2_TRAIN_SHAPE, 1e-7)),
              "galerkin_scores_bwd_bf16": ((EX1_SHAPE, 1e-5), (EX2_TRAIN_SHAPE, 1e-7)),
              "galerkin_scores_bf16": ((EX1_SHAPE, 1e-5), (EX2_SHAPE, 1e-7),
-                                      (EX2_TRAIN_SHAPE, 1e-7))}
+                                      (EX2_TRAIN_SHAPE, 1e-7)),
+             # (BH, n, d): the forward at ex1 serving, the three backward
+             # sweeps at ex1 training
+             "fourier_chain": ((BATCH, RESOLUTIONS[0], 97), (BATCH, TRAIN_N, 97))}
 
 
 def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
-    """The galerkin kernels `names` of this checkout against the same
+    """The redesigned kernels `names` of this checkout against the same
     wrappers of other checkouts of the port (``--against``), at the shapes
-    of `AB_SHAPES`: the backward kernels as the training path calls them (no
-    dpos; float32 inputs for ``galerkin_scores_bwd``, bfloat16 ones for
-    ``galerkin_scores_bwd_bf16``), the bfloat16 forward through
-    ``galerkin_scores``.  Each build is held against this checkout's plain
-    version (TOL_GALERKIN, TOL_BF16_BWD, TOL_BF16_KERNEL) and must be
-    bit-equal on a second call; the builds are timed in turns, this one
-    first and last (A, B, ..., B, A)."""
-    ports, builders = {"this": GS}, [_build]
+    of `AB_SHAPES`: the galerkin backward kernels as the training path calls
+    them (no dpos; float32 inputs for ``galerkin_scores_bwd``, bfloat16 ones
+    for ``galerkin_scores_bwd_bf16``), the bfloat16 forward through
+    ``galerkin_scores``, ``fourier_chain`` in float32 (`chain_against`).
+    Each build is held against this checkout's plain version (TOL_GALERKIN,
+    TOL_BF16_BWD, TOL_BF16_KERNEL) and must be bit-equal on a second call;
+    the builds are timed in turns, this one first and last (A, B, ..., B, A)."""
+    packages = {"this": "galerkin_transformer_torch"}
     for i, root in enumerate(roots):
-        alias = load_port(root, f"other_port_{i}").__name__
-        ports[root] = importlib.import_module(f"{alias}.ops.cuda.galerkin")
-        builders.append(importlib.import_module(f"{alias}.ops.cuda._build"))
+        packages[root] = load_port(root, f"other_port_{i}").__name__
+    modules = lambda sub: {tag: importlib.import_module(f"{pkg}.ops.cuda.{sub}")
+                           for tag, pkg in packages.items()}
+    ports, fports = modules("galerkin"), modules("fourier")
+    builders = list(modules("_build").values())
     t0 = time.perf_counter()
     # the forward's path phase runs this checkout's bfloat16 backward too
     path = "galerkin_scores_bf16" in names and len(ports) > 1
+    chain_path = "fourier_chain" in names and len(ports) > 1
     extra = ["galerkin_scores_bwd_bf16"] if path and "galerkin_scores_bwd_bf16" not in names else []
     with ThreadPoolExecutor(len(builders)) as pool:
         logs = list(pool.map(lambda b: b.build(list(names) + (extra if b is _build else [])),
@@ -647,6 +712,9 @@ def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
     dev = torch.device("cuda")
     rows = []
     for name in names:
+        if name == "fourier_chain":
+            rows += chain_against(fports, rng, dev)
+            continue
         bf16 = name.endswith("_bf16")
         backward = "_bwd" in name
         tol = (TOL_BF16_BWD if bf16 else TOL_GALERKIN) if backward else TOL_BF16_KERNEL
@@ -685,16 +753,144 @@ def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
             print(f"{name} (B,H,n,d_k,p)={tuple(shape)} eps={eps:.0e}: "
                   + "; ".join(f"{tag} {min(t):.4f} ms {t} (err {errs[tag]:.2e})"
                               for tag, t in times.items()))
-    return {"against": rows, **({"path": forward_path_phase(ports)} if path else {})}
+    return {"against": rows, **({"path": forward_path_phase(ports)} if path else {}),
+            **({"chain_path": chain_path_phase(fports)} if chain_path else {})}
+
+
+def chain_against(fports, rng, dev) -> list:
+    """`fourier_chain` of each checkout in `fports` on float32 operands at
+    the shapes of `AB_SHAPES`: the forward (one call) at ex1 serving, the
+    three sweeps of the backward at ex1 training, each held against this
+    checkout's plain version (TOL_FOURIER) and bit-equal on a second call,
+    its error against float64 reported (this checkout's held to
+    TOL_FOURIER_F64), timed in turns beside the library call."""
+    rows = []
+    for bh, n, d in AB_SHAPES["fourier_chain"]:
+        forward = n == RESOLUTIONS[0]
+        if forward:
+            ops = [tuple(_tensor(rng.standard_normal((bh, n, d)), dev) for _ in range(3))]
+        else:
+            q, k, v, g = (_tensor(rng.standard_normal((bh, n, d)), dev) for _ in range(4))
+            ops = [(g, v, k), (v, g, q), (k, q, g)]
+        plains = [FC.fourier_chain_reference(*o) for o in ops]
+        refs = [chain_float64(*o) for o in ops]
+        calls, errs, errs64 = {}, {}, {}
+        for tag, port in fports.items():
+            calls[tag] = lambda port=port: [port.fourier_chain(*o) for o in ops]
+            got, again = calls[tag](), calls[tag]()
+            torch.cuda.synchronize()
+            errs[tag] = max(max_err(x, p)[0] / max_err(x, p)[1] for x, p in zip(got, plains))
+            errs64[tag] = max(((x.double() - r).abs().max() / r.abs().max()).item()
+                              for x, r in zip(got, refs))
+            if not errs[tag] <= TOL_FOURIER:
+                raise AssertionError(f"{tag}: fourier_chain disagrees with the plain "
+                                     f"version, {errs[tag]:.3e} of max|ref|")
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{tag}: fourier_chain is not bit-equal run to run")
+        if not errs64["this"] <= TOL_FOURIER_F64:
+            raise AssertionError(f"fourier_chain is {errs64['this']:.3e} of max|ref| from "
+                                 f"float64")
+        iters = 5 if forward else 20
+        times = {tag: [] for tag in fports}
+        for tag in list(fports) + list(fports)[::-1]:
+            times[tag].append(time_ms(calls[tag], iters))
+        library_ms = time_ms(lambda: [torch.matmul(torch.matmul(a, b.transpose(1, 2)), c)
+                                      for a, b, c in ops], iters)
+        what = "forward" if forward else "backward, three sweeps"
+        rows.append(dict(name="fourier_chain", work=what, shape=[bh, n, d], ms=times,
+                         rel_err=errs, rel_err_f64=errs64, library_ms=library_ms))
+        print(f"fourier_chain {what} (BH,n,d)=({bh},{n},{d}): " + "; ".join(
+            f"{tag} {min(t):.4f} ms {t} (err {errs[tag]:.2e}, vs float64 {errs64[tag]:.2e})"
+            for tag, t in times.items()) + f"; library {library_ms:.4f} ms")
+    return rows
+
+
+def profile_swapped(module, attr: str, impls: dict, works: dict, kernels: dict,
+                    repeats: int) -> dict:
+    """`works` profiled with `module.attr` set to each of `impls` in turn, in
+    the order A, B, ..., B, A, `module.attr` restored after: per work and
+    tag, the device time of one call (torch.profiler, the mean of `repeats`
+    after two warm-up calls), and the part of it, and the launches, of the
+    device kernels named in `kernels[tag]`."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = {work: {tag: [] for tag in impls} for work in works}
+    own = getattr(module, attr)
+    try:
+        for tag in list(impls) + list(impls)[::-1]:
+            setattr(module, attr, impls[tag])
+            for work, fn in works.items():
+                for _ in range(2):
+                    fn()
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]
+                                            ) as prof:
+                    for _ in range(repeats):
+                        fn()
+                    torch.cuda.synchronize()
+                busy = part = count = 0
+                for e in prof.key_averages():
+                    if e.device_type == cuda and e.device_time_total > 0:
+                        busy += e.device_time_total
+                        if e.key in kernels[tag]:
+                            part += e.device_time_total
+                            count += e.count
+                rows[work][tag].append(dict(device_ms=busy / repeats / 1e3,
+                                            kernel_ms=part / repeats / 1e3,
+                                            kernel_launches=count / repeats))
+    finally:
+        setattr(module, attr, own)
+    return rows
+
+
+def print_swapped(what: str, rows: dict):
+    for work, by_tag in rows.items():
+        print(f"{work}, {what} of each checkout: " + "; ".join(
+            f"{tag} device " + ", ".join(f"{r['device_ms']:.3f}" for r in runs)
+            + " ms, kernel " + ", ".join(f"{r['kernel_ms']:.4f}" for r in runs)
+            + " ms in " + ", ".join(f"{r['kernel_launches']:g}" for r in runs) + " kernels"
+            for tag, runs in by_tag.items()))
+
+
+def chain_path_phase(fports, repeats: int = 5) -> list:
+    """One ex1 fourier float32 request at n = 8192 (batch 8) and one ex1
+    fourier float32 train step at n = 2048 with the ``fourier_chain`` of
+    each checkout of `fports` in turn (`profile_swapped`; the forward and
+    the backward of ``FourierAttention`` both take it from this checkout's
+    module)."""
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    # the device kernels of each checkout's chain at both sizes
+    kernels = {tag: set() for tag in fports}
+    for bh, n, d in AB_SHAPES["fourier_chain"]:
+        a, b, c = (_tensor(rng.standard_normal((bh, n, d)), dev) for _ in range(3))
+        for tag, port in fports.items():
+            kernels[tag] |= set(device_kernels(lambda port=port: port.fourier_chain(a, b, c)))
+    cfg = load_config("ex1_burgers")
+    cfg["attention_type"] = "fourier"
+    gpu = Predictor(SimpleTransformer.from_config(cfg, device="cuda", seed=SEED))
+    batch = make_batch(rng, RESOLUTIONS[0])
+    train = BurgersDataset(subsample=SUBSAMPLE, train_data=True, train_portion=0.5,
+                           n_samples_synthetic=TRAIN_SAMPLES)
+    batches = list(DataLoader(train, BATCH, shuffle=True, drop_last=True, seed=SEED))
+    model = SimpleTransformer.from_config(cfg, device="cuda", seed=SEED)
+    h = 1 / TRAIN_N
+    step = make_burgers_steps(model, WeightedL2Loss(regularizer=True, h=h, gamma=0.1),
+                              WeightedL2Loss(h=h),
+                              AdamOneCycle(model.parameters(), 1e-3, 100 * len(batches)))[0]
+    works = {f"ex1 fourier f32 request n={RESOLUTIONS[0]} batch={BATCH}": lambda: gpu(batch),
+             f"ex1 fourier f32 train step n={TRAIN_N} batch={BATCH}": lambda: step(batches[0])}
+    impls = {tag: port.fourier_chain for tag, port in fports.items()}
+    rows = profile_swapped(FC, "fourier_chain", impls, works, kernels, repeats)
+    print_swapped("fourier_chain", rows)
+    return [dict(work=work, runs=by_tag) for work, by_tag in rows.items()]
 
 
 def forward_path_phase(ports, repeats: int = 5) -> list:
     """The ex2 bf16 requests at both grids and the ex2 bf16 train step with
     the bfloat16 forward of each checkout of `ports` in turn (this
     checkout's ``_scores_forward`` replaced by theirs; all else is this
-    checkout's), profiled in the order A, B, ..., B, A: the device time of
-    one request or step (torch.profiler, the mean of `repeats` after two
-    warm-up calls), and the part of it, and the launches, of the device
+    checkout's), profiled by `profile_swapped`: the device time of one
+    request or step, and the part of it, and the launches, of the device
     kernels that one call of that checkout's forward runs."""
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
@@ -709,45 +905,14 @@ def forward_path_phase(ports, repeats: int = 5) -> list:
         grid_pos, grid = darcy_grids(n_f, n_c)
         batch = dict(node=rng.standard_normal((BATCH_2D, n_f, n_f, 1)).astype(np.float32),
                      pos=grid_pos[None].repeat(BATCH_2D, 0), grid=grid[None].repeat(BATCH_2D, 0))
-        works[f"request ({n_f},{n_c})"] = lambda gpu=gpu, batch=batch: gpu(batch)
+        works[f"ex2 bf16 request ({n_f},{n_c})"] = lambda gpu=gpu, batch=batch: gpu(batch)
     batches, normalizer, (n_f, n_c) = ex2_train_data()
     _, step = ex2_step("cuda", torch.bfloat16, ex2_config(n_f, n_c), batches, normalizer, n_f)
-    works[f"train step ({n_f},{n_c})"] = lambda: step(batches[0])
+    works[f"ex2 bf16 train step ({n_f},{n_c})"] = lambda: step(batches[0])
 
-    cuda = torch.autograd.DeviceType.CUDA
-    # each forward taken before any is swapped in: "this" is GS itself
     forwards = {tag: port._scores_forward for tag, port in ports.items()}
-    rows = {work: {tag: [] for tag in ports} for work in works}
-    try:
-        for tag in list(ports) + list(ports)[::-1]:
-            GS._scores_forward = forwards[tag]
-            for work, fn in works.items():
-                for _ in range(2):
-                    fn()
-                torch.cuda.synchronize()
-                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]
-                                            ) as prof:
-                    for _ in range(repeats):
-                        fn()
-                    torch.cuda.synchronize()
-                busy = fwd = count = 0
-                for e in prof.key_averages():
-                    if e.device_type == cuda and e.device_time_total > 0:
-                        busy += e.device_time_total
-                        if e.key in forward_kernels[tag]:
-                            fwd += e.device_time_total
-                            count += e.count
-                rows[work][tag].append(dict(device_ms=busy / repeats / 1e3,
-                                            forward_ms=fwd / repeats / 1e3,
-                                            forward_launches=count / repeats))
-    finally:
-        GS._scores_forward = forwards["this"]
-    for work, by_tag in rows.items():
-        print(f"ex2 bf16 {work}, bf16 forward of each checkout: " + "; ".join(
-            f"{tag} device " + ", ".join(f"{r['device_ms']:.3f}" for r in runs)
-            + " ms, forward " + ", ".join(f"{r['forward_ms']:.4f}" for r in runs)
-            + " ms in " + ", ".join(f"{r['forward_launches']:g}" for r in runs) + " kernels"
-            for tag, runs in by_tag.items()))
+    rows = profile_swapped(GS, "_scores_forward", forwards, works, forward_kernels, repeats)
+    print_swapped("the bf16 forward", rows)
     return [dict(work=work, runs=by_tag) for work, by_tag in rows.items()]
 
 
@@ -1203,7 +1368,7 @@ def driver_phase():
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Build, check and drive the port on one GPU.")
     parser.add_argument("--against", nargs="+", metavar="ROOT",
-                        help="only time the redesigned galerkin kernels of this checkout "
+                        help="only time the redesigned kernels of this checkout "
                              "against those of other checkouts of the port (e.g. an "
                              "earlier commit unpacked with git archive)")
     parser.add_argument("--kernel", choices=tuple(AB_SHAPES),

@@ -3,7 +3,9 @@
 
 ``fourier_chain`` computes out[bh, r] = Σ_m (A_r · B_m) C_m in float32
 without storing the score matrix.  On CUDA tensors it launches
-``csrc/fourier_chain.cu`` (float32 inputs, CUDA cores) or
+``csrc/fourier_chain.cu`` (float32 inputs, on the tensor cores by wgmma:
+each float32 operand in three bfloat16 parts whose sum is exact, six part
+products per product, float32 sums) or
 ``csrc/fourier_chain_bf16.cu`` (bfloat16 inputs, tensor cores; the score
 tile is rounded to bfloat16 before the second product); on CPU tensors it
 runs ``fourier_chain_reference``, the plain PyTorch version of both.
@@ -27,8 +29,10 @@ import torch.nn.functional as F
 from . import _build
 
 MAX_D = 128   # d and d_out that the kernels take
-MMA_TILE = 16  # the bf16 kernel's mma depth and tile width
+MMA_TILE = 16  # the tensor-core kernels' mma depth and tile width
+CHAIN_STEP = 32   # middle rows per step of csrc/fourier_chain.cu (kTM)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_F32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _MIXED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
@@ -79,8 +83,9 @@ def fourier_chain(a, b, c) -> torch.Tensor:
     a, b, c are all float32 or all bfloat16 (mixed types raise).  CPU
     tensors run the plain version; CUDA tensors launch a kernel, which
     takes contiguous tensors with d, d_out <= 128.  Each float32 launch
-    adds one to ``fourier_chain.launches``, each bfloat16 launch one to
-    ``fourier_chain_bf16.launches``.
+    (the split of b and c into their bfloat16 parts, then the chain: two
+    device kernels) adds one to ``fourier_chain.launches``, each
+    bfloat16 launch one to ``fourier_chain_bf16.launches``.
     """
     _check_types(a, b, c)
     if a.dtype == torch.bfloat16:
@@ -92,12 +97,17 @@ def fourier_chain(a, b, c) -> torch.Tensor:
     _check(a, b, c)
     bh, r, d = a.shape
     m, d_out = c.shape[1], c.shape[2]
+    width = math.ceil(max(d, d_out) / MMA_TILE) * MMA_TILE
+    # the three bfloat16 parts of b and c, `width` columns and m rounded up
+    # to the kernel's step of CHAIN_STEP rows
+    parts = torch.empty(6 * bh * math.ceil(m / CHAIN_STEP) * CHAIN_STEP * width,
+                        dtype=torch.bfloat16, device=a.device)
     out = torch.empty((bh, r, d_out), dtype=torch.float32, device=a.device)
-    fn = _build.function("fourier_chain", "fourier_chain_launch", _ARGTYPES)
+    fn = _build.function("fourier_chain", "fourier_chain_launch", _F32_ARGTYPES)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
-                bh, r, m, d, d_out, stream)
+                parts.data_ptr(), bh, r, m, d, d_out, stream)
     if rc != 0:
         raise RuntimeError(f"fourier_chain kernel launch failed: CUDA error {rc}")
     fourier_chain.launches += 1

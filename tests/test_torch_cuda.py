@@ -53,7 +53,7 @@ def test_galerkin_scores_kernel_matches_plain(dev, b, h, n, d_k, p):
 
 @pytest.mark.parametrize("bh,r,m,d,d_out", [
     (4, 128, 128, 17, 17), (2, 200, 77, 97, 97), (3, 65, 300, 8, 40),
-    (1, 1, 1, 128, 128), (8, 1000, 1000, 97, 97)])
+    (1, 1, 1, 128, 128), (8, 1000, 1000, 97, 97), (8, 2048, 2048, 97, 97)])
 def test_fourier_chain_kernel_matches_plain(dev, bh, r, m, d, d_out):
     rng = np.random.default_rng(r + m)
     a, b, c = _t(rng, (bh, r, d), dev), _t(rng, (bh, m, d), dev), _t(rng, (bh, m, d_out), dev)
@@ -62,6 +62,31 @@ def test_fourier_chain_kernel_matches_plain(dev, bh, r, m, d, d_out):
     assert FC.fourier_chain.launches == before + 1
     want = FC.fourier_chain_reference(a, b, c)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+def _chain_float64(a, b, c, row_block=2048):
+    out = torch.empty((a.shape[0], a.shape[1], c.shape[2]), dtype=torch.float64,
+                      device=a.device)
+    bt, cd = b.double().transpose(1, 2), c.double()
+    for r0 in range(0, a.shape[1], row_block):
+        out[:, r0:r0 + row_block] = (a[:, r0:r0 + row_block].double() @ bt) @ cd
+    return out
+
+
+# (BH, R, M, d, d_out) of n >= 2048: the ex1 training sweeps, the ex1
+# serving width at n = 4096, and ragged edges at full width
+@pytest.mark.parametrize("bh,r,m,d,d_out", [
+    (8, 2048, 2048, 97, 97), (8, 4096, 4096, 97, 97), (3, 2100, 2050, 128, 100)])
+def test_fourier_chain_kernel_is_float32_against_float64(dev, bh, r, m, d, d_out):
+    """The tensor-core chain keeps float32 accuracy: within 1e-5 of the
+    largest entry of a float64 reference (one-pass TF32 is about 1e-4 off),
+    and bit-equal on a second call."""
+    rng = np.random.default_rng(r + m + d)
+    a, b, c = _t(rng, (bh, r, d), dev), _t(rng, (bh, m, d), dev), _t(rng, (bh, m, d_out), dev)
+    got = FC.fourier_chain(a, b, c)
+    want = _chain_float64(a, b, c)
+    assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+    assert torch.equal(got, FC.fourier_chain(a, b, c))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

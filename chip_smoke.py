@@ -2,14 +2,17 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --against ROOT [ROOT ...] [--kernel NAME]
-        # A/B of the redesigned kernels only (against_phase): all four, or
+    python3 chip_smoke.py --against ROOT [ROOT ...] [--kernel NAME [NAME ...]]
+        # A/B of the redesigned kernels only (against_phase): all six, or
         # galerkin_scores_bwd (float32), galerkin_scores_bwd_bf16,
-        # galerkin_scores_bf16 (the bfloat16 forward) or fourier_chain
-        # (float32) by name; with the bfloat16 forward, also the device time
-        # of the ex2 bf16 requests and train step with each checkout's
-        # forward (forward_path_phase); with fourier_chain, that of the ex1
-        # fourier f32 request at n = 8192 and train step (chain_path_phase)
+        # galerkin_scores_bf16 (the bfloat16 forward), fourier_chain
+        # (float32), fourier_chain_bf16 or fourier_chain_mixed by name; with
+        # the bfloat16 forward, also the device time of the ex2 bf16 requests
+        # and train step with each checkout's forward (forward_path_phase);
+        # with fourier_chain, that of the ex1 fourier f32 request at n = 8192
+        # and train step (chain_path_phase); with fourier_chain_bf16 or
+        # fourier_chain_mixed, that of the ex1 fourier bf16 request and train
+        # step with each checkout's two bfloat16 chains
 
 1. prints the card (nvidia-smi) and turns TF32 off;
 2. builds every CUDA kernel of the port from galerkin_transformer_torch/csrc
@@ -18,13 +21,13 @@
    PyTorch version on the same inputs, with its time, the plain version's,
    one PyTorch library call's as a yardstick, and the card's bound: the
    float32 ``fourier_chain`` (also against a float64 reference, to 1e-5
-   of its largest entry, bit-equal on a second call, two device kernels per
-   call: the split of b and c into bfloat16 parts and the chain) and
-   ``galerkin_scores`` at the ex1 shapes,
+   of its largest entry) and ``galerkin_scores`` at the ex1 shapes,
    ``galerkin_scores`` again at the ex2 shape, and the bfloat16 tensor-core
    kernels ``galerkin_scores_bf16`` (ex1, ex2 serving and ex2 training
    shapes; exactly one device kernel per call, as ``torch.profiler`` counts
-   them) and ``fourier_chain_bf16`` (ex1 shape);
+   them) and ``fourier_chain_bf16`` (ex1 serving shape, and timed at the
+   training shape); each chain bit-equal on a second call and two device
+   kernels per call (its layout prologue and the chain, no copy);
 4. backward kernel phases: ``galerkin_scores_bwd`` and
    ``galerkin_scores_bwd_bf16`` at the ex2 training shape and the ex1 shape
    against their plain versions (and bit-equal on a second call; each
@@ -33,7 +36,8 @@
    the training shape against ``fourier_attention_bwd_reference``: three
    ``fourier_chain`` launches in float32 (each sweep also against float64,
    to 1e-5 of its largest entry), three ``fourier_chain_mixed``
-   launches (one float32 operand each) for bfloat16 q, k, v;
+   launches (one float32 operand each, each bit-equal on a second call and
+   two device kernels) for bfloat16 q, k, v;
    wide phase: a galerkin and a fourier ``SimpleAttention`` with heads of
    d_k + pos_dim = 130 columns, wider than the kernels take, forward and
    backward on the card against the CPU, with no kernel launched (the JAX
@@ -241,17 +245,23 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(fn) -> list:
+def device_kernels(fn, tries: int = 3) -> list:
     """Names of the device kernels that one fn() call runs (torch.profiler),
-    after a warm-up call; copies and fills are not counted."""
+    after a warm-up call; copies and fills are not counted.  The profiler
+    has been seen to drop a kernel's record (a call of one kernel came back
+    empty), so the longest of `tries` profiles is taken: a kernel that runs
+    in every call is not missed, and none is counted that runs in none."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "emcpy" not in e.name and "emset" not in e.name]
+    runs = []
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        runs.append([e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "emcpy" not in e.name and "emset" not in e.name])
+    return max(runs, key=len)
 
 
 def ptxas_summary(log: str) -> list:
@@ -406,15 +416,9 @@ def fourier_phase(rng, dev, peak, dtype=None):
         raise AssertionError(f"{name} disagrees with its plain version")
     if not bf16:
         float64_check(name, got, ref, (a, b, c))
-        if not torch.equal(got, FC.fourier_chain(a, b, c)):
-            raise AssertionError(f"{name} is not deterministic run to run")
-        # the split of b and c into their bfloat16 parts, then the chain
-        names = device_kernels(lambda: FC.fourier_chain(a, b, c))
-        print(f"  {len(names)} device kernels per call (torch.profiler): "
-              f"{[n_[:40] for n_ in names]}")
-        if len(names) != 2:
-            raise AssertionError(f"{name} ran {len(names)} device kernels per call, "
-                                 f"expected 2")
+    if not torch.equal(got, FC.fourier_chain(a, b, c)):
+        raise AssertionError(f"{name} is not deterministic run to run")
+    check_chain_kernels(name, lambda: FC.fourier_chain(a, b, c))
 
     ms = time_ms(lambda: FC.fourier_chain(a, b, c), 5)
     plain_ms = time_ms(lambda: FC.fourier_chain_reference(a, b, c), 3)
@@ -436,7 +440,30 @@ def fourier_phase(rng, dev, peak, dtype=None):
     print(f"  {ms:.4f} ms, plain {plain_ms:.4f} ms, library ((a@b^T)@c, two matmuls) "
           f"{library_ms:.4f} ms, bound {res['bound_ms']:.5f} ms ({res['bound_by']}"
           f"{'' if bf16 else ', six bf16 passes'}){cuda_cores}")
+    if bf16:   # the forward of the bfloat16 train step (printed, not in the line)
+        n = TRAIN_N
+        a, b, c = (_tensor(rng.standard_normal((bh, n, d)), dev, dtype) for _ in range(3))
+        err, scale = max_err(FC.fourier_chain(a, b, c), FC.fourier_chain_reference(a, b, c))
+        if not err <= tol * scale:
+            raise AssertionError(f"{name} disagrees with its plain version at n = {n}")
+        ms = time_ms(lambda: FC.fourier_chain(a, b, c), 20)
+        library_ms = time_ms(lambda: torch.matmul(torch.matmul(a, b.transpose(1, 2)), c), 20)
+        b_ = bound(2 * bh * n * d * 3 + 4 * bh * n * d, 2 * bh * n * n * (d + d), peak,
+                   "bf16_flops")
+        print(f"{name} (BH,R=M,d)=({bh},{n},{d}): rel={err / scale:.3e}; {ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms ({b_['bound_by']})")
     return res
+
+
+def check_chain_kernels(name, call):
+    """A chain call runs two device kernels (torch.profiler): its layout
+    prologue and the chain, no copy of an operand."""
+    names = device_kernels(call)
+    print(f"  {name}: {len(names)} device kernels per call (torch.profiler): "
+          f"{[n_[:60] for n_ in names]}")
+    if len(names) != 2 or "layout_kernel" not in names[0] or "chain_kernel" not in names[1]:
+        raise AssertionError(f"{name} ran {names} per call, expected the layout prologue "
+                             f"and the chain")
 
 
 def galerkin_bwd_phase(rng, dev, peak, shape=EX1_SHAPE, dtype=None, eps=1e-5):
@@ -577,6 +604,10 @@ def fourier_bwd_bf16_phase(rng, dev, peak):
         if not err <= tol * scale:
             raise AssertionError(f"fourier_chain_mixed sweep {name} disagrees with its "
                                  f"plain version")
+        if not torch.equal(got, FC.fourier_chain_mixed(*ops)):
+            raise AssertionError(f"fourier_chain_mixed sweep {name} is not deterministic")
+        check_chain_kernels(f"fourier_chain_mixed sweep {name}",
+                            lambda ops=ops: FC.fourier_chain_mixed(*ops))
         errs.append(err)
     xs = [x.clone().requires_grad_() for x in (q, k, v)]
     before = counter.launches
@@ -675,7 +706,13 @@ AB_SHAPES = {"galerkin_scores_bwd": ((EX1_SHAPE, 1e-5), (EX2_TRAIN_SHAPE, 1e-7))
                                       (EX2_TRAIN_SHAPE, 1e-7)),
              # (BH, n, d): the forward at ex1 serving, the three backward
              # sweeps at ex1 training
-             "fourier_chain": ((BATCH, RESOLUTIONS[0], 97), (BATCH, TRAIN_N, 97))}
+             "fourier_chain": ((BATCH, RESOLUTIONS[0], 97), (BATCH, TRAIN_N, 97)),
+             # the bfloat16 forward at ex1 serving and at ex1 training
+             "fourier_chain_bf16": ((BATCH, RESOLUTIONS[0], 97), (BATCH, TRAIN_N, 97)),
+             # the three sweeps of the bfloat16 backward at ex1 training
+             "fourier_chain_mixed": ((BATCH, TRAIN_N, 97),)}
+CHAINS = ("fourier_chain", "fourier_chain_bf16", "fourier_chain_mixed")
+ERROR_DRAWS = 8   # more input draws on which `--against` ranks the chains' errors
 
 
 def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
@@ -699,6 +736,8 @@ def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
     # the forward's path phase runs this checkout's bfloat16 backward too
     path = "galerkin_scores_bf16" in names and len(ports) > 1
     chain_path = "fourier_chain" in names and len(ports) > 1
+    bf16_chain_path = bool({"fourier_chain_bf16", "fourier_chain_mixed"} & set(names)
+                           ) and len(ports) > 1
     extra = ["galerkin_scores_bwd_bf16"] if path and "galerkin_scores_bwd_bf16" not in names else []
     with ThreadPoolExecutor(len(builders)) as pool:
         logs = list(pool.map(lambda b: b.build(list(names) + (extra if b is _build else [])),
@@ -712,8 +751,8 @@ def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
     dev = torch.device("cuda")
     rows = []
     for name in names:
-        if name == "fourier_chain":
-            rows += chain_against(fports, rng, dev)
+        if name in CHAINS:
+            rows += chain_against(name, fports, rng, dev)
             continue
         bf16 = name.endswith("_bf16")
         backward = "_bwd" in name
@@ -754,70 +793,131 @@ def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
                   + "; ".join(f"{tag} {min(t):.4f} ms {t} (err {errs[tag]:.2e})"
                               for tag, t in times.items()))
     return {"against": rows, **({"path": forward_path_phase(ports)} if path else {}),
-            **({"chain_path": chain_path_phase(fports)} if chain_path else {})}
+            **({"chain_path": chain_path_phase(fports)} if chain_path else {}),
+            **({"bf16_chain_path": chain_path_phase(fports, torch.bfloat16)}
+               if bf16_chain_path else {})}
 
 
-def chain_against(fports, rng, dev) -> list:
-    """`fourier_chain` of each checkout in `fports` on float32 operands at
-    the shapes of `AB_SHAPES`: the forward (one call) at ex1 serving, the
-    three sweeps of the backward at ex1 training, each held against this
-    checkout's plain version (TOL_FOURIER) and bit-equal on a second call,
-    its error against float64 reported (this checkout's held to
-    TOL_FOURIER_F64), timed in turns beside the library call."""
+def chain_ops(name, rng, dev, bh, n, d):
+    """What one A/B call of chain `name` does at (bh, n, d), and its operand
+    triples: the forward (one triple), or the three sweeps of the backward
+    (float32 q, k, v, g for ``fourier_chain``; bfloat16 q, k, v and a
+    float32 g for ``fourier_chain_mixed``)."""
+    def t(dtype=None):
+        return _tensor(rng.standard_normal((bh, n, d)), dev, dtype)
+    if name == "fourier_chain_mixed" or (name == "fourier_chain" and n != RESOLUTIONS[0]):
+        dtype = torch.bfloat16 if name == "fourier_chain_mixed" else None
+        q, k, v = (t(dtype) for _ in range(3))
+        g = t()
+        return "backward, three sweeps", [(g, v, k), (v, g, q), (k, q, g)]
+    dtype = torch.bfloat16 if name == "fourier_chain_bf16" else None
+    return "forward", [tuple(t(dtype) for _ in range(3))]
+
+
+def chain_tolerance(name, ops) -> float:
+    """Of max|ref|, a chain against its plain version: float32 sums in
+    another order (TOL_FOURIER, and TOL_MIXED_F32 for a mixed sweep with a
+    float32 C), or a bfloat16 score tile that may round the other way."""
+    if name == "fourier_chain":
+        return TOL_FOURIER
+    return TOL_MIXED_F32 if ops[2].dtype == torch.float32 else TOL_BF16_KERNEL
+
+
+def chain_against(name, fports, rng, dev) -> list:
+    """Chain `name` (one of CHAINS) of each checkout in `fports` at the
+    shapes of `AB_SHAPES` (`chain_ops`): each call held against this
+    checkout's plain version (`chain_tolerance`) and bit-equal on a second
+    call, each build's errors printed (for the float32 chain also against
+    float64, this checkout's held to TOL_FOURIER_F64), timed in turns beside
+    the library call (two matmuls; in float32 for the mixed sweeps); a
+    backward is timed whole and sweep by sweep."""
     rows = []
-    for bh, n, d in AB_SHAPES["fourier_chain"]:
-        forward = n == RESOLUTIONS[0]
-        if forward:
-            ops = [tuple(_tensor(rng.standard_normal((bh, n, d)), dev) for _ in range(3))]
-        else:
-            q, k, v, g = (_tensor(rng.standard_normal((bh, n, d)), dev) for _ in range(4))
-            ops = [(g, v, k), (v, g, q), (k, q, g)]
+    for bh, n, d in AB_SHAPES[name]:
+        what, ops = chain_ops(name, rng, dev, bh, n, d)
         plains = [FC.fourier_chain_reference(*o) for o in ops]
-        refs = [chain_float64(*o) for o in ops]
+        tols = [chain_tolerance(name, o) for o in ops]
+        refs = [chain_float64(*o) for o in ops] if name == "fourier_chain" else None
         calls, errs, errs64 = {}, {}, {}
         for tag, port in fports.items():
-            calls[tag] = lambda port=port: [port.fourier_chain(*o) for o in ops]
+            fn = getattr(port, name)
+            calls[tag] = lambda fn=fn: [fn(*o) for o in ops]
             got, again = calls[tag](), calls[tag]()
             torch.cuda.synchronize()
-            errs[tag] = max(max_err(x, p)[0] / max_err(x, p)[1] for x, p in zip(got, plains))
-            errs64[tag] = max(((x.double() - r).abs().max() / r.abs().max()).item()
-                              for x, r in zip(got, refs))
-            if not errs[tag] <= TOL_FOURIER:
-                raise AssertionError(f"{tag}: fourier_chain disagrees with the plain "
-                                     f"version, {errs[tag]:.3e} of max|ref|")
+            errs[tag] = [max_err(x, p)[0] / max_err(x, p)[1] for x, p in zip(got, plains)]
+            if refs is not None:
+                errs64[tag] = max(((x.double() - r).abs().max() / r.abs().max()).item()
+                                  for x, r in zip(got, refs))
+            if not all(e <= tol for e, tol in zip(errs[tag], tols)):
+                raise AssertionError(f"{tag}: {name} disagrees with the plain version, "
+                                     f"{errs[tag]} of max|ref| (tol {tols})")
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                raise AssertionError(f"{tag}: fourier_chain is not bit-equal run to run")
-        if not errs64["this"] <= TOL_FOURIER_F64:
-            raise AssertionError(f"fourier_chain is {errs64['this']:.3e} of max|ref| from "
-                                 f"float64")
-        iters = 5 if forward else 20
+                raise AssertionError(f"{tag}: {name} is not bit-equal run to run")
+        if refs is not None and not errs64["this"] <= TOL_FOURIER_F64:
+            raise AssertionError(f"{name} is {errs64['this']:.3e} of max|ref| from float64")
+        iters = 5 if n == RESOLUTIONS[0] else 20
         times = {tag: [] for tag in fports}
+        each = {tag: [] for tag in fports}
         for tag in list(fports) + list(fports)[::-1]:
             times[tag].append(time_ms(calls[tag], iters))
+            if len(ops) > 1:
+                fn = getattr(fports[tag], name)
+                each[tag].append([time_ms(lambda o=o: fn(*o), iters) for o in ops])
+        lib_ops = [[x.float() for x in o] for o in ops] if name == "fourier_chain_mixed" else ops
         library_ms = time_ms(lambda: [torch.matmul(torch.matmul(a, b.transpose(1, 2)), c)
-                                      for a, b, c in ops], iters)
-        what = "forward" if forward else "backward, three sweeps"
-        rows.append(dict(name="fourier_chain", work=what, shape=[bh, n, d], ms=times,
-                         rel_err=errs, rel_err_f64=errs64, library_ms=library_ms))
-        print(f"fourier_chain {what} (BH,n,d)=({bh},{n},{d}): " + "; ".join(
-            f"{tag} {min(t):.4f} ms {t} (err {errs[tag]:.2e}, vs float64 {errs64[tag]:.2e})"
+                                      for a, b, c in lib_ops], iters)
+        draws = error_draws(name, fports, rng, dev, (bh, n, d)) if n == TRAIN_N else None
+        rows.append(dict(name=name, work=what, shape=[bh, n, d], ms=times, sweeps_ms=each,
+                         rel_err=errs, rel_err_f64=errs64, library_ms=library_ms,
+                         rel_err_draws=draws))
+        print(f"{name} {what} (BH,n,d)=({bh},{n},{d}): " + "; ".join(
+            f"{tag} {min(t):.4f} ms {t}"
+            + (f" (sweeps {[round(min(x), 4) for x in zip(*each[tag])]})" if each[tag] else "")
+            + f" (err {', '.join(f'{e:.4e}' for e in errs[tag])}"
+            + (f", vs float64 {errs64[tag]:.2e}" if refs is not None else "") + ")"
             for tag, t in times.items()) + f"; library {library_ms:.4f} ms")
     return rows
 
 
-def profile_swapped(module, attr: str, impls: dict, works: dict, kernels: dict,
-                    repeats: int) -> dict:
-    """`works` profiled with `module.attr` set to each of `impls` in turn, in
-    the order A, B, ..., B, A, `module.attr` restored after: per work and
-    tag, the device time of one call (torch.profiler, the mean of `repeats`
-    after two warm-up calls), and the part of it, and the launches, of the
-    device kernels named in `kernels[tag]`."""
+def error_draws(name, fports, rng, dev, shape, draws: int = ERROR_DRAWS) -> dict:
+    """Chain `name` of each checkout against this checkout's plain version
+    on `draws` more input draws at `shape` (a bfloat16 score tile that
+    lands near a rounding boundary may round either way, so one draw does
+    not rank two builds): per checkout, per call of `chain_ops`, the error
+    of max|ref| in each draw; printed with the draws in which this
+    checkout's error is above each other's."""
+    out = {tag: [] for tag in fports}
+    for _ in range(draws):
+        _, ops = chain_ops(name, rng, dev, *shape)
+        plains = [FC.fourier_chain_reference(*o) for o in ops]
+        for tag, port in fports.items():
+            got = [getattr(port, name)(*o) for o in ops]
+            out[tag].append([max_err(x, p)[0] / max_err(x, p)[1] for x, p in zip(got, plains)])
+    for tag, errs in out.items():
+        per_call = [[e[i] for e in errs] for i in range(len(errs[0]))]
+        above = {other: [sum(a[i] > b[i] for a, b in zip(errs, out[other]))
+                         for i in range(len(per_call))]
+                 for other in fports if other != "this"} if tag == "this" else {}
+        print(f"  {name} {tuple(shape)}, {draws} draws, {tag}: errors of max|ref| "
+              + "; ".join(f"[{', '.join(f'{e:.3e}' for e in es)}] mean {sum(es) / draws:.4e}"
+                          for es in per_call)
+              + "".join(f"; above {other} in {k} of {draws}" for other, k in above.items()))
+    return out
+
+
+def profile_swapped(module, impls: dict, works: dict, kernels: dict, repeats: int) -> dict:
+    """`works` profiled with the attributes of `module` set to each of
+    `impls` in turn (`impls[tag]`: attribute name -> function), in the order
+    A, B, ..., B, A, the attributes restored after: per work and tag, the
+    device time of one call (torch.profiler, the mean of `repeats` after two
+    warm-up calls), and the part of it, and the launches, of the device
+    kernels named in `kernels[tag]`."""
     cuda = torch.autograd.DeviceType.CUDA
     rows = {work: {tag: [] for tag in impls} for work in works}
-    own = getattr(module, attr)
+    own = {attr: getattr(module, attr) for fns in impls.values() for attr in fns}
     try:
         for tag in list(impls) + list(impls)[::-1]:
-            setattr(module, attr, impls[tag])
+            for attr, fn in impls[tag].items():
+                setattr(module, attr, fn)
             for work, fn in works.items():
                 for _ in range(2):
                     fn()
@@ -838,7 +938,8 @@ def profile_swapped(module, attr: str, impls: dict, works: dict, kernels: dict,
                                             kernel_ms=part / repeats / 1e3,
                                             kernel_launches=count / repeats))
     finally:
-        setattr(module, attr, own)
+        for attr, fn in own.items():
+            setattr(module, attr, fn)
     return rows
 
 
@@ -851,37 +952,46 @@ def print_swapped(what: str, rows: dict):
             for tag, runs in by_tag.items()))
 
 
-def chain_path_phase(fports, repeats: int = 5) -> list:
-    """One ex1 fourier float32 request at n = 8192 (batch 8) and one ex1
-    fourier float32 train step at n = 2048 with the ``fourier_chain`` of
-    each checkout of `fports` in turn (`profile_swapped`; the forward and
-    the backward of ``FourierAttention`` both take it from this checkout's
-    module)."""
+def chain_path_phase(fports, dtype=None, repeats: int = 5) -> list:
+    """One ex1 fourier request at n = 8192 (batch 8) and one ex1 fourier
+    train step at n = 2048, in float32 with the ``fourier_chain`` of each
+    checkout of `fports` in turn, or with the bfloat16 encoder (`dtype`)
+    with each checkout's ``fourier_chain_bf16`` and ``fourier_chain_mixed``
+    (`profile_swapped`; ``FourierAttention`` takes them from this
+    checkout's module)."""
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
-    # the device kernels of each checkout's chain at both sizes
+    names = ("fourier_chain",) if dtype is None else CHAINS[1:]
+    # the device kernels of each checkout's chains at the path's sizes: its
+    # prologue and chain (a padded copy runs generic kernels, counted only in
+    # the device time)
     kernels = {tag: set() for tag in fports}
-    for bh, n, d in AB_SHAPES["fourier_chain"]:
-        a, b, c = (_tensor(rng.standard_normal((bh, n, d)), dev) for _ in range(3))
-        for tag, port in fports.items():
-            kernels[tag] |= set(device_kernels(lambda port=port: port.fourier_chain(a, b, c)))
+    for name in names:
+        for bh, n, d in AB_SHAPES[name]:
+            _, ops = chain_ops(name, rng, dev, bh, n, d)
+            for tag, port in fports.items():
+                fn = getattr(port, name)
+                kernels[tag] |= {k for k in device_kernels(lambda fn=fn: [fn(*o) for o in ops])
+                                 if "chain" in k or "split_kernel" in k or "layout_kernel" in k}
     cfg = load_config("ex1_burgers")
     cfg["attention_type"] = "fourier"
-    gpu = Predictor(SimpleTransformer.from_config(cfg, device="cuda", seed=SEED))
+    gpu = Predictor(SimpleTransformer.from_config(cfg, device="cuda", seed=SEED, dtype=dtype))
     batch = make_batch(rng, RESOLUTIONS[0])
     train = BurgersDataset(subsample=SUBSAMPLE, train_data=True, train_portion=0.5,
                            n_samples_synthetic=TRAIN_SAMPLES)
     batches = list(DataLoader(train, BATCH, shuffle=True, drop_last=True, seed=SEED))
-    model = SimpleTransformer.from_config(cfg, device="cuda", seed=SEED)
+    model = SimpleTransformer.from_config(cfg, device="cuda", seed=SEED, dtype=dtype)
     h = 1 / TRAIN_N
     step = make_burgers_steps(model, WeightedL2Loss(regularizer=True, h=h, gamma=0.1),
                               WeightedL2Loss(h=h),
                               AdamOneCycle(model.parameters(), 1e-3, 100 * len(batches)))[0]
-    works = {f"ex1 fourier f32 request n={RESOLUTIONS[0]} batch={BATCH}": lambda: gpu(batch),
-             f"ex1 fourier f32 train step n={TRAIN_N} batch={BATCH}": lambda: step(batches[0])}
-    impls = {tag: port.fourier_chain for tag, port in fports.items()}
-    rows = profile_swapped(FC, "fourier_chain", impls, works, kernels, repeats)
-    print_swapped("fourier_chain", rows)
+    kind = dtype_name(dtype)
+    works = {f"ex1 fourier {kind} request n={RESOLUTIONS[0]} batch={BATCH}": lambda: gpu(batch),
+             f"ex1 fourier {kind} train step n={TRAIN_N} batch={BATCH}": lambda: step(batches[0])}
+    impls = {tag: {name: getattr(port, name) for name in names}
+             for tag, port in fports.items()}
+    rows = profile_swapped(FC, impls, works, kernels, repeats)
+    print_swapped(" and ".join(names), rows)
     return [dict(work=work, runs=by_tag) for work, by_tag in rows.items()]
 
 
@@ -910,8 +1020,8 @@ def forward_path_phase(ports, repeats: int = 5) -> list:
     _, step = ex2_step("cuda", torch.bfloat16, ex2_config(n_f, n_c), batches, normalizer, n_f)
     works[f"ex2 bf16 train step ({n_f},{n_c})"] = lambda: step(batches[0])
 
-    forwards = {tag: port._scores_forward for tag, port in ports.items()}
-    rows = profile_swapped(GS, "_scores_forward", forwards, works, forward_kernels, repeats)
+    forwards = {tag: {"_scores_forward": port._scores_forward} for tag, port in ports.items()}
+    rows = profile_swapped(GS, forwards, works, forward_kernels, repeats)
     print_swapped("the bf16 forward", rows)
     return [dict(work=work, runs=by_tag) for work, by_tag in rows.items()]
 
@@ -1371,8 +1481,8 @@ def main(argv=None) -> int:
                         help="only time the redesigned kernels of this checkout "
                              "against those of other checkouts of the port (e.g. an "
                              "earlier commit unpacked with git archive)")
-    parser.add_argument("--kernel", choices=tuple(AB_SHAPES),
-                        help="with --against: time this kernel only")
+    parser.add_argument("--kernel", nargs="+", choices=tuple(AB_SHAPES),
+                        help="with --against: time these kernels only")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1389,7 +1499,7 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     peak = peaks_for(name)
     if args.against:
-        names = tuple(AB_SHAPES) if args.kernel is None else (args.kernel,)
+        names = tuple(AB_SHAPES) if args.kernel is None else tuple(args.kernel)
         print(json.dumps({"card": smi, **against_phase(args.against, names)}))
         return 0
 

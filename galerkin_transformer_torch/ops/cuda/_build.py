@@ -3,9 +3,10 @@
 Each ``galerkin_transformer_torch/csrc/<name>.cu`` is compiled by ``nvcc``
 into its own shared library with a plain C interface,
 ``build/<name>-<hash>.so`` at the root of the checkout.  The hash covers
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  ``build()`` starts one ``nvcc`` per source, all
-at once, and waits for every one of them.  Nothing is built at import:
+the source, every header under ``csrc/`` and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+``build()`` starts one ``nvcc`` per source, all at once, and waits for
+every one of them.  Nothing is built at import:
 the first wrapper call on a CUDA tensor builds what it needs.
 """
 from __future__ import annotations
@@ -46,7 +47,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in [src, *headers])
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

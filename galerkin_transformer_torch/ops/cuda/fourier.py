@@ -24,16 +24,18 @@ import ctypes
 import math
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
 
 MAX_D = 128   # d and d_out that the kernels take
 MMA_TILE = 16  # the tensor-core kernels' mma depth and tile width
-CHAIN_STEP = 32   # middle rows per step of csrc/fourier_chain.cu (kTM)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_F32_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_MIXED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# middle rows per step (kTM) of csrc/fourier_chain.cu, fourier_chain_bf16.cu
+# and fourier_chain_mixed.cu: each call's workspace holds whole steps
+CHAIN_STEP = 32
+CHAIN_BF16_STEP = 128
+CHAIN_MIXED_STEP = 64
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_MIXED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def fourier_chain_reference(a, b, c, row_block: int = 2048) -> torch.Tensor:
@@ -77,6 +79,37 @@ def _check_types(a, b, c):
                         f"{b.dtype}, {c.dtype}")
 
 
+def workspace_elements(parts: int, bh: int, m: int, width: int, step: int) -> int:
+    """bfloat16 elements of a chain call's workspace: `parts` part tiles of
+    b and c (three for a float32 operand, one for a bfloat16 one), each of
+    `bh` × (m rounded up to the kernel's `step`) × `width`."""
+    return parts * bh * math.ceil(m / step) * step * width
+
+
+def _launch(name, argtypes, a, b, c, parts, step, *flags) -> torch.Tensor:
+    """One call of ``csrc/<name>.cu`` on CUDA tensors a, b, c where they lie
+    (no padded copies): its layout prologue writes the `parts` part tiles of
+    b and c into a workspace of whole steps of `step` rows, then its chain
+    kernel runs (two device kernels).  `flags` go to the kernel after d_out."""
+    if a.device.type != "cuda":
+        raise ValueError(f"fourier_chain runs on cpu or cuda, not {a.device}")
+    _check(a, b, c)
+    bh, r, d = a.shape
+    m, d_out = c.shape[1], c.shape[2]
+    width = math.ceil(max(d, d_out) / MMA_TILE) * MMA_TILE
+    ws = torch.empty(workspace_elements(parts, bh, m, width, step), dtype=torch.bfloat16,
+                     device=a.device)
+    out = torch.empty((bh, r, d_out), dtype=torch.float32, device=a.device)
+    fn = _build.function(name, f"{name}_launch", argtypes)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                bh, r, m, d, d_out, *flags, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return out
+
+
 def fourier_chain(a, b, c) -> torch.Tensor:
     """out[bh, r] = Σ_m (A_r · B_m) C_m, (BH, R, d_out) float32, unscaled.
 
@@ -92,24 +125,7 @@ def fourier_chain(a, b, c) -> torch.Tensor:
         return fourier_chain_bf16(a, b, c)
     if a.device.type == "cpu":
         return fourier_chain_reference(a, b, c)
-    if a.device.type != "cuda":
-        raise ValueError(f"fourier_chain runs on cpu or cuda, not {a.device}")
-    _check(a, b, c)
-    bh, r, d = a.shape
-    m, d_out = c.shape[1], c.shape[2]
-    width = math.ceil(max(d, d_out) / MMA_TILE) * MMA_TILE
-    # the three bfloat16 parts of b and c, `width` columns and m rounded up
-    # to the kernel's step of CHAIN_STEP rows
-    parts = torch.empty(6 * bh * math.ceil(m / CHAIN_STEP) * CHAIN_STEP * width,
-                        dtype=torch.bfloat16, device=a.device)
-    out = torch.empty((bh, r, d_out), dtype=torch.float32, device=a.device)
-    fn = _build.function("fourier_chain", "fourier_chain_launch", _F32_ARGTYPES)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
-                parts.data_ptr(), bh, r, m, d, d_out, stream)
-    if rc != 0:
-        raise RuntimeError(f"fourier_chain kernel launch failed: CUDA error {rc}")
+    out = _launch("fourier_chain", _ARGTYPES, a, b, c, 6, CHAIN_STEP)
     fourier_chain.launches += 1
     return out
 
@@ -122,30 +138,16 @@ def fourier_chain_bf16(a, b, c) -> torch.Tensor:
     Σ_m bf16(A_r · B_m) C_m with float32 sums, (BH, R, d_out) float32.
 
     CPU tensors run `fourier_chain_reference`; CUDA tensors launch
-    ``csrc/fourier_chain_bf16.cu``.  The kernel reads rows of one width, a
-    multiple of 16 (its mma depth), so a, b and c are padded here with zero
-    columns.  Each launch adds one to ``fourier_chain_bf16.launches``.
+    ``csrc/fourier_chain_bf16.cu`` (a layout prologue and the chain, two
+    device kernels, which read a, b and c where they lie).  Each launch adds
+    one to ``fourier_chain_bf16.launches``.
     """
     _check_types(a, b, c)
     if a.dtype != torch.bfloat16:
         raise TypeError(f"fourier_chain_bf16 takes bfloat16, got {a.dtype}")
     if a.device.type == "cpu":
         return fourier_chain_reference(a, b, c)
-    if a.device.type != "cuda":
-        raise ValueError(f"fourier_chain runs on cpu or cuda, not {a.device}")
-    _check(a, b, c)
-    bh, r, d = a.shape
-    m, d_out = c.shape[1], c.shape[2]
-    width = math.ceil(max(d, d_out) / MMA_TILE) * MMA_TILE
-    ap, bp, cp = (F.pad(t, (0, width - t.shape[2])) for t in (a, b, c))
-    out = torch.empty((bh, r, d_out), dtype=torch.float32, device=a.device)
-    fn = _build.function("fourier_chain_bf16", "fourier_chain_bf16_launch", _ARGTYPES)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(ap.data_ptr(), bp.data_ptr(), cp.data_ptr(), out.data_ptr(),
-                bh, r, m, width, d_out, stream)
-    if rc != 0:
-        raise RuntimeError(f"fourier_chain_bf16 kernel launch failed: CUDA error {rc}")
+    out = _launch("fourier_chain_bf16", _ARGTYPES, a, b, c, 2, CHAIN_BF16_STEP)
     fourier_chain_bf16.launches += 1
     return out
 
@@ -165,9 +167,8 @@ def fourier_chain_mixed(a, b, c) -> torch.Tensor:
     `fourier_chain_reference`; CUDA tensors launch
     ``csrc/fourier_chain_mixed.cu``, which splits the float32 operand into
     three bfloat16 parts whose sum is exact and runs every product on the
-    tensor cores with float32 sums.  The bfloat16 operands are padded here
-    with zero columns to a multiple of 16.  Each launch adds one to
-    ``fourier_chain_mixed.launches``.
+    tensor cores with float32 sums (a layout prologue and the chain, two
+    device kernels).  Each launch adds one to ``fourier_chain_mixed.launches``.
     """
     types = [t.dtype for t in (a, b, c)]
     if sorted(types, key=str) != [torch.bfloat16, torch.bfloat16, torch.float32]:
@@ -175,26 +176,8 @@ def fourier_chain_mixed(a, b, c) -> torch.Tensor:
                         f"operands, got {types}")
     if a.device.type == "cpu":
         return fourier_chain_reference(a, b, c)
-    if a.device.type != "cuda":
-        raise ValueError(f"fourier_chain runs on cpu or cuda, not {a.device}")
-    _check(a, b, c)
-    bh, r, d = a.shape
-    m, d_out = c.shape[1], c.shape[2]
-    width = math.ceil(max(d, d_out) / MMA_TILE) * MMA_TILE
-    f32_operand = types.index(torch.float32)
-    ops = [t if i == f32_operand else F.pad(t, (0, width - t.shape[2]))
-           for i, t in enumerate((a, b, c))]
-    parts = torch.empty((3, bh, ops[f32_operand].shape[1], width),
-                        dtype=torch.bfloat16, device=a.device)
-    out = torch.empty((bh, r, d_out), dtype=torch.float32, device=a.device)
-    fn = _build.function("fourier_chain_mixed", "fourier_chain_mixed_launch",
-                         _MIXED_ARGTYPES)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(t.data_ptr() for t in ops), out.data_ptr(), parts.data_ptr(),
-                bh, r, m, d, width, d_out, f32_operand, stream)
-    if rc != 0:
-        raise RuntimeError(f"fourier_chain_mixed kernel launch failed: CUDA error {rc}")
+    out = _launch("fourier_chain_mixed", _MIXED_ARGTYPES, a, b, c, 4, CHAIN_MIXED_STEP,
+                  types.index(torch.float32))
     fourier_chain_mixed.launches += 1
     return out
 

@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against ROOT [ROOT ...] [--kernel NAME [NAME ...]]
-        # A/B of the redesigned kernels only (against_phase): all six, or
+        # A/B of the redesigned kernels only (against_phase): all seven, or
+        # galerkin_scores (the float32 forward, also against float64),
         # galerkin_scores_bwd (float32), galerkin_scores_bwd_bf16,
         # galerkin_scores_bf16 (the bfloat16 forward), fourier_chain
         # (float32), fourier_chain_bf16 or fourier_chain_mixed by name; with
-        # the bfloat16 forward, also the device time of the ex2 bf16 requests
-        # and train step with each checkout's forward (forward_path_phase);
+        # either forward, also the device time of the ex2 requests and train
+        # step of its type with each checkout's forward (forward_path_phase);
         # with fourier_chain, that of the ex1 fourier f32 request at n = 8192
         # and train step (chain_path_phase); with fourier_chain_bf16 or
         # fourier_chain_mixed, that of the ex1 fourier bf16 request and train
         # step with each checkout's two bfloat16 chains
+    python3 chip_smoke.py --stage-sweep
+        # the float32 galerkin forward with only its copies, only LN, only
+        # the product and whole, at the ex1 width over n (stage_sweep_phase)
 
 1. prints the card (nvidia-smi) and turns TF32 off;
 2. builds every CUDA kernel of the port from galerkin_transformer_torch/csrc
@@ -22,17 +26,21 @@
    one PyTorch library call's as a yardstick, and the card's bound: the
    float32 ``fourier_chain`` (also against a float64 reference, to 1e-5
    of its largest entry) and ``galerkin_scores`` at the ex1 shapes,
-   ``galerkin_scores`` again at the ex2 shape, and the bfloat16 tensor-core
-   kernels ``galerkin_scores_bf16`` (ex1, ex2 serving and ex2 training
-   shapes; exactly one device kernel per call, as ``torch.profiler`` counts
-   them) and ``fourier_chain_bf16`` (ex1 serving shape, and timed at the
-   training shape); each chain bit-equal on a second call and two device
-   kernels per call (its layout prologue and the chain, no copy);
+   ``galerkin_scores`` again at the ex2 serving and training shapes (each
+   also against a float64 reference, to 1e-5 of its largest entry, and
+   timed with only its copies, only LayerNorm and only the product), and the
+   bfloat16 tensor-core kernels ``galerkin_scores_bf16`` (ex1, ex2 serving
+   and ex2 training shapes) and ``fourier_chain_bf16`` (ex1 serving shape,
+   and timed at the training shape); each galerkin forward exactly one device kernel per
+   call, as a CUDA graph captured from the call holds them (``torch.profiler``
+   has dropped short kernels); each kernel bit-equal on a
+   second call, and each chain two device kernels per call (its layout
+   prologue and the chain, no copy);
 4. backward kernel phases: ``galerkin_scores_bwd`` and
    ``galerkin_scores_bwd_bf16`` at the ex2 training shape and the ex1 shape
    against their plain versions (and bit-equal on a second call; each
    runs exactly one device kernel per call without dpos and two with, as
-   ``torch.profiler`` counts them), and the fourier attention backward at
+   a CUDA graph of the call holds them), and the fourier attention backward at
    the training shape against ``fourier_attention_bwd_reference``: three
    ``fourier_chain`` launches in float32 (each sweep also against float64,
    to 1e-5 of its largest entry), three ``fourier_chain_mixed``
@@ -126,6 +134,7 @@ from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss,  # n
                                               WeightedL2Loss2d, make_burgers_steps,
                                               make_darcy_steps)
 from galerkin_transformer_torch.ops.cuda import _build  # noqa: E402
+from galerkin_transformer_torch.ops.cuda._graph import launched_kernels  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import fourier as FC  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import galerkin as GS  # noqa: E402
 from galerkin_transformer_torch.ops.attention import per_head_layer_norm  # noqa: E402
@@ -162,6 +171,10 @@ TOL_FOURIER = 1e-4
 # its largest entry: the plain float32 version is about 1e-6 off, one-pass
 # TF32 (10 significand bits) about 1e-4
 TOL_FOURIER_F64 = 1e-5
+# the float32 galerkin_scores against a float64 reference, of its largest
+# entry: the plain float32 version is about 3e-7 off, one bfloat16 pass about
+# 1e-3 (tests/test_torch_galerkin_split.py)
+TOL_GALERKIN_F64 = 1e-5
 # a bfloat16 kernel vs its plain version: both round the same float32 values
 # to bfloat16 and sum the same products in float32, in another order; a value
 # on a rounding boundary may round the other way (one bfloat16 step, 2^-8, of
@@ -246,11 +259,11 @@ def time_ms(fn, iters: int) -> float:
 
 
 def device_kernels(fn, tries: int = 3) -> list:
-    """Names of the device kernels that one fn() call runs (torch.profiler),
-    after a warm-up call; copies and fills are not counted.  The profiler
-    has been seen to drop a kernel's record (a call of one kernel came back
-    empty), so the longest of `tries` profiles is taken: a kernel that runs
-    in every call is not missed, and none is counted that runs in none."""
+    """Names of the device kernels that one fn() call runs, as
+    ``torch.profiler`` names them (to pick a call's kernels out of a profile;
+    `kernels_per_call` counts them), after a warm-up call; copies and fills
+    are not counted.  The profiler has been seen to drop a kernel's record,
+    so the longest of `tries` profiles is taken."""
     fn()
     torch.cuda.synchronize()
     runs = []
@@ -278,13 +291,26 @@ def ptxas_summary(log: str) -> list:
         elif "registers" in line:
             regs = re.search(r"Used (\d+) registers", line)
             entries.append((name, regs.group(1) if regs else "?", spill))
-    if not entries:
-        return []
-    filt = os.path.join(os.path.dirname(os.path.realpath(_build._nvcc())), "cu++filt")
-    names = subprocess.run([filt, "-p", *(e[0] for e in entries)], capture_output=True,
-                           text=True, check=True).stdout.splitlines()
+    names = demangled([e[0] for e in entries])
     return [f"{shown}: {regs} registers, {spill}"
             for shown, (_, regs, spill) in zip(names, entries)]
+
+
+def demangled(names: list) -> list:
+    """Kernel `names` demangled by the toolkit's ``cu++filt``, without their
+    parameter lists."""
+    if not names:
+        return []
+    filt = os.path.join(os.path.dirname(os.path.realpath(_build._nvcc())), "cu++filt")
+    return subprocess.run([filt, "-p", *names], capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+
+
+def kernels_per_call(fn) -> list:
+    """The demangled names of the device kernels that one fn() call
+    launches, in launch order (``launched_kernels``: the kernel nodes of a
+    CUDA graph captured from the call)."""
+    return demangled(launched_kernels(fn))
 
 
 def max_err(got, ref):
@@ -316,6 +342,32 @@ def float64_check(tag, got, plain, ops):
     if not err <= TOL_FOURIER_F64:
         raise AssertionError(f"{tag} is {err:.3e} of max|ref| from float64")
     return err
+
+
+def scores_float64(k, v, pos, params, eps):
+    """S = [pos, LN_K(K)]ᵀ[pos, LN_V(V)] per (b, h) in float64 from the
+    same float32 inputs."""
+    def ln(x, scale, bias):
+        x = x.double()
+        mean = x.mean(-1, keepdim=True)
+        var = (x - mean).square().mean(-1, keepdim=True)
+        return ((x - mean) / torch.sqrt(var + eps) * scale.double()[:, None]
+                + bias.double()[:, None])
+    b, h, n, _ = k.shape
+
+    def cat(x):
+        if pos is None:
+            return x
+        return torch.cat([pos.double()[:, None].expand(b, h, n, pos.shape[-1]), x], -1)
+    return torch.matmul(cat(ln(k, *params[:2])).transpose(-2, -1), cat(ln(v, *params[2:])))
+
+
+def scores_float64_err(got, args) -> float:
+    """The float32 scores `got` of `galerkin_scores(*args)` against
+    `scores_float64`, of its largest entry."""
+    k, v, pos, *params, eps = args
+    ref = scores_float64(k, v, pos, params, eps)
+    return ((got.double() - ref).abs().max() / ref.abs().max()).item()
 
 
 def _tensor(a, dev, dtype=None):
@@ -362,16 +414,24 @@ def galerkin_phase(rng, dev, peak, shape=EX1_SHAPE, dtype=None, eps=1e-5):
           f"max_abs_err={err:.3e} max|ref|={scale:.3e} rel={err / scale:.3e} tol={tol:.0e}")
     if not err <= tol * scale:
         raise AssertionError(f"{name} disagrees with its plain version")
+    if not bf16:   # the six part products keep float32 accuracy
+        err64 = scores_float64_err(got, args)
+        plain64 = scores_float64_err(ref, args)
+        print(f"  vs float64: kernel {err64:.3e}, plain float32 {plain64:.3e} of max|ref| "
+              f"(tol {TOL_GALERKIN_F64:.0e})")
+        if not err64 <= TOL_GALERKIN_F64:
+            raise AssertionError(f"{name} is {err64:.3e} of max|ref| from float64")
     again = GS.galerkin_scores(*args)
     if not torch.equal(got, again):
         raise AssertionError(f"{name} is not deterministic run to run")
-    if bf16:   # one launch: its CTAs sum the partials themselves
-        names = device_kernels(lambda: GS.galerkin_scores(*args))
-        print(f"  {len(names)} device kernel(s) per call (torch.profiler): "
-              f"{[n_[:40] for n_ in names]}")
-        if len(names) != 1:
-            raise AssertionError(f"{name} ran {len(names)} device kernels per call, "
-                                 f"expected 1")
+    # one launch: its CTAs sum the partials themselves
+    names = kernels_per_call(lambda: GS.galerkin_scores(*args))
+    print(f"  {len(names)} device kernel(s) per call (CUDA graph): "
+          f"{[n_[:40] for n_ in names]}")
+    if len(names) != 1:
+        raise AssertionError(f"{name} ran {len(names)} device kernels per call, expected 1")
+    if not bf16:
+        stage_split(args)
 
     ms = time_ms(lambda: GS.galerkin_scores(*args), 50)
     plain_ms = time_ms(lambda: GS.galerkin_scores_reference(*args), 20)
@@ -382,17 +442,53 @@ def galerkin_phase(rng, dev, peak, shape=EX1_SHAPE, dtype=None, eps=1e-5):
     size = 2 if bf16 else 4
     nbytes = (size * (2 * b * h * n * d_k + b * n * p)
               + 4 * (4 * h * d_k + b * h * d_eff * d_eff))
-    flops = 2 * b * h * n * d_eff * d_eff + 2 * 8 * b * h * n * d_k   # product + LN
+    product, ln = 2 * b * h * n * d_eff * d_eff, 2 * 8 * b * h * n * d_k
+    # a float32 product runs as six bfloat16 passes on the tensor cores, the
+    # cheapest form the card has at float32 accuracy (its float32 rate outside
+    # the tensor cores gives the bound printed beside it); LN at the float32 rate
+    passes = 1 if bf16 else 6
+    flops = passes * product + ln * peak["bf16_flops"] / peak["f32_flops"]
     res = dict(name=name, route="cuda",
                source=f"galerkin_transformer_torch/csrc/{name}.cu",
                replaces="galerkin_transformer_tpu/ops/pallas/galerkin.py:46",
                shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms,
-               **bound(nbytes, flops, peak, "bf16_flops" if bf16 else "f32_flops"))
+               library_ms=library_ms, **bound(nbytes, int(flops), peak, "bf16_flops"))
+    cuda_cores = "" if bf16 else (
+        f", CUDA-core bound {bound(nbytes, product + ln, peak)['bound_ms']:.5f} ms")
     print(f"  {ms:.4f} ms, plain {plain_ms:.4f} ms, library (matmul of the normalised "
           f"concatenations) {library_ms:.4f} ms, bound {res['bound_ms']:.5f} ms "
-          f"({res['bound_by']})")
+          f"({res['bound_by']}{'' if bf16 else ', six bf16 passes'}){cuda_cores}")
     return res
+
+
+def stage_split(args, iters: int = 50):
+    """The float32 forward's time with only its copies and the sum over the
+    splits, with LayerNorm alone, with the product alone (on what the tiles
+    hold: not S) and whole (``GS.WORK_LN``, ``GS.WORK_PRODUCT``)."""
+    times = {what: time_ms(lambda work=work: GS._scores_forward(*args, work=work), iters)
+             for what, work in (("copies", 0), ("LN", GS.WORK_LN),
+                                ("product", GS.WORK_PRODUCT),
+                                ("whole", GS.WORK_LN | GS.WORK_PRODUCT))}
+    print("  stages: " + ", ".join(f"{what} {ms:.4f} ms" for what, ms in times.items()))
+    return times
+
+
+def stage_sweep_phase(ns=(64, 1024, 2048, 4096, 8192, 16384)) -> list:
+    """`stage_split` of the float32 forward at the ex1 width (batch 8,
+    d_k 96, p 1) over n (``--stage-sweep``): between two n past the 50 MB
+    L2 the difference is the time of the added 64-row chunks, and n = 64 is
+    one chunk of one CTA per bh (no sum over splits)."""
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    rows = []
+    for n in ns:
+        shape = (BATCH, 1, n, 96, 1)
+        k, v, pos, params = galerkin_inputs(rng, dev, shape, None)
+        per_split, splits = GS._occupancy_splits("galerkin_scores", BATCH, n, 96, 1, dev)
+        print(f"galerkin_scores (B,H,n,d_k,p)={shape}: {splits} splits of {per_split} rows")
+        rows.append(dict(shape=list(shape), splits=splits,
+                         **stage_split((k, v, pos, *params, 1e-5))))
+    return rows
 
 
 def fourier_phase(rng, dev, peak, dtype=None):
@@ -456,10 +552,10 @@ def fourier_phase(rng, dev, peak, dtype=None):
 
 
 def check_chain_kernels(name, call):
-    """A chain call runs two device kernels (torch.profiler): its layout
-    prologue and the chain, no copy of an operand."""
-    names = device_kernels(call)
-    print(f"  {name}: {len(names)} device kernels per call (torch.profiler): "
+    """A chain call runs two device kernels (a CUDA graph of the call holds
+    two): its layout prologue and the chain, no copy of an operand."""
+    names = kernels_per_call(call)
+    print(f"  {name}: {len(names)} device kernels per call (CUDA graph): "
           f"{[n_[:60] for n_ in names]}")
     if len(names) != 2 or "layout_kernel" not in names[0] or "chain_kernel" not in names[1]:
         raise AssertionError(f"{name} ran {names} per call, expected the layout prologue "
@@ -501,9 +597,9 @@ def galerkin_bwd_phase(rng, dev, peak, shape=EX1_SHAPE, dtype=None, eps=1e-5):
 
     # one device kernel per call; a second one sums dpos over heads
     for need_dpos, want in ((False, 1), (True, 2)):
-        names = device_kernels(lambda: GS.galerkin_scores_bwd(*args, need_dpos=need_dpos))
+        names = kernels_per_call(lambda: GS.galerkin_scores_bwd(*args, need_dpos=need_dpos))
         print(f"{name} need_dpos={need_dpos}: {len(names)} device kernel(s) per call "
-              f"(torch.profiler): {[n_[:40] for n_ in names]}")
+              f"(CUDA graph): {[n_[:40] for n_ in names]}")
         if len(names) != want:
             raise AssertionError(f"{name} ran {len(names)} device kernels per call with "
                                  f"need_dpos={need_dpos}, expected {want}")
@@ -704,6 +800,7 @@ AB_SHAPES = {"galerkin_scores_bwd": ((EX1_SHAPE, 1e-5), (EX2_TRAIN_SHAPE, 1e-7))
              "galerkin_scores_bwd_bf16": ((EX1_SHAPE, 1e-5), (EX2_TRAIN_SHAPE, 1e-7)),
              "galerkin_scores_bf16": ((EX1_SHAPE, 1e-5), (EX2_SHAPE, 1e-7),
                                       (EX2_TRAIN_SHAPE, 1e-7)),
+             "galerkin_scores": ((EX1_SHAPE, 1e-5), (EX2_SHAPE, 1e-7), (EX2_TRAIN_SHAPE, 1e-7)),
              # (BH, n, d): the forward at ex1 serving, the three backward
              # sweeps at ex1 training
              "fourier_chain": ((BATCH, RESOLUTIONS[0], 97), (BATCH, TRAIN_N, 97)),
@@ -733,14 +830,16 @@ def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
     ports, fports = modules("galerkin"), modules("fourier")
     builders = list(modules("_build").values())
     t0 = time.perf_counter()
-    # the forward's path phase runs this checkout's bfloat16 backward too
-    path = "galerkin_scores_bf16" in names and len(ports) > 1
+    # a forward's path phase runs this checkout's backward of its type too
+    paths = [n_ for n_ in ("galerkin_scores", "galerkin_scores_bf16")
+             if n_ in names and len(ports) > 1]
+    extra = [n_.replace("scores", "scores_bwd") for n_ in paths]
     chain_path = "fourier_chain" in names and len(ports) > 1
     bf16_chain_path = bool({"fourier_chain_bf16", "fourier_chain_mixed"} & set(names)
                            ) and len(ports) > 1
-    extra = ["galerkin_scores_bwd_bf16"] if path and "galerkin_scores_bwd_bf16" not in names else []
     with ThreadPoolExecutor(len(builders)) as pool:
-        logs = list(pool.map(lambda b: b.build(list(names) + (extra if b is _build else [])),
+        logs = list(pool.map(lambda b: b.build(sorted(set(names) | set(extra if b is _build
+                                                                        else []))),
                              builders))
     print(f"built {list(names)} of {list(ports)} in {time.perf_counter() - t0:.1f} s")
     for tag, log in zip(ports, logs):
@@ -756,7 +855,7 @@ def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
             continue
         bf16 = name.endswith("_bf16")
         backward = "_bwd" in name
-        tol = (TOL_BF16_BWD if bf16 else TOL_GALERKIN) if backward else TOL_BF16_KERNEL
+        tol = TOL_BF16_BWD if backward and bf16 else TOL_BF16_KERNEL if bf16 else TOL_GALERKIN
         for shape, eps in AB_SHAPES[name]:
             b, h, n, d_k, p = shape
             k, v, pos, params = galerkin_inputs(rng, dev, shape,
@@ -772,7 +871,7 @@ def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
                 args = (k, v, pos, *params, eps)
                 ref = [GS.galerkin_scores_reference(*args)]
                 call = lambda port, args=args: (port.galerkin_scores(*args),)
-            calls, errs = {}, {}
+            calls, errs, errs64 = {}, {}, {}
             for tag, port in ports.items():
                 calls[tag] = lambda port=port, call=call: call(port)
                 got, again = calls[tag](), calls[tag]()
@@ -785,14 +884,22 @@ def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
                                          f"{errs[tag]:.3e} of max|ref|")
                 if not all(g is None or torch.equal(g, a) for g, a in zip(got, again)):
                     raise AssertionError(f"{tag}: {name} is not bit-equal run to run")
+                if name == "galerkin_scores":
+                    errs64[tag] = scores_float64_err(got[0], args)
+            if errs64 and not errs64["this"] <= TOL_GALERKIN_F64:
+                raise AssertionError(f"{name} is {errs64['this']:.3e} of max|ref| from float64")
             times = {tag: [] for tag in ports}
             for tag in list(ports) + list(ports)[::-1]:
                 times[tag].append(time_ms(calls[tag], 50))
-            rows.append(dict(name=name, shape=list(shape), eps=eps, ms=times, rel_err=errs))
+            rows.append(dict(name=name, shape=list(shape), eps=eps, ms=times, rel_err=errs,
+                             rel_err_f64=errs64))
             print(f"{name} (B,H,n,d_k,p)={tuple(shape)} eps={eps:.0e}: "
-                  + "; ".join(f"{tag} {min(t):.4f} ms {t} (err {errs[tag]:.2e})"
+                  + "; ".join(f"{tag} {min(t):.4f} ms {t} (err {errs[tag]:.2e}"
+                              + (f", vs float64 {errs64[tag]:.2e}" if errs64 else "") + ")"
                               for tag, t in times.items()))
-    return {"against": rows, **({"path": forward_path_phase(ports)} if path else {}),
+    return {"against": rows,
+            **{f"path {n_}": forward_path_phase(ports, torch.bfloat16 if n_.endswith("_bf16")
+                                                else None) for n_ in paths},
             **({"chain_path": chain_path_phase(fports)} if chain_path else {}),
             **({"bf16_chain_path": chain_path_phase(fports, torch.bfloat16)}
                if bf16_chain_path else {})}
@@ -995,34 +1102,36 @@ def chain_path_phase(fports, dtype=None, repeats: int = 5) -> list:
     return [dict(work=work, runs=by_tag) for work, by_tag in rows.items()]
 
 
-def forward_path_phase(ports, repeats: int = 5) -> list:
-    """The ex2 bf16 requests at both grids and the ex2 bf16 train step with
-    the bfloat16 forward of each checkout of `ports` in turn (this
-    checkout's ``_scores_forward`` replaced by theirs; all else is this
-    checkout's), profiled by `profile_swapped`: the device time of one
-    request or step, and the part of it, and the launches, of the device
-    kernels that one call of that checkout's forward runs."""
+def forward_path_phase(ports, dtype=torch.bfloat16, repeats: int = 5) -> list:
+    """The ex2 requests at both grids and the ex2 train step, with the
+    bfloat16 encoder (`dtype`) or in float32 (None), with the galerkin
+    forward of each checkout of `ports` in turn (this checkout's
+    ``_scores_forward`` replaced by theirs; all else is this checkout's),
+    profiled by `profile_swapped`: the device time of one request or step,
+    and the part of it, and the launches, of the device kernels that one
+    call of that checkout's forward runs."""
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
-    k, v, pos, params = galerkin_inputs(rng, dev, EX2_TRAIN_SHAPE, torch.bfloat16)
+    kind = dtype_name(dtype)
+    k, v, pos, params = galerkin_inputs(rng, dev, EX2_TRAIN_SHAPE, dtype)
     forward_kernels = {tag: set(device_kernels(
         lambda port=port: port.galerkin_scores(k, v, pos, *params, 1e-7)))
         for tag, port in ports.items()}
     works = {}
     for n_f, n_c in GRIDS_2D:
         gpu = Predictor(FourierTransformer2D.from_config(ex2_config(n_f, n_c), seed=SEED,
-                                                         dtype=torch.bfloat16))
+                                                         dtype=dtype))
         grid_pos, grid = darcy_grids(n_f, n_c)
         batch = dict(node=rng.standard_normal((BATCH_2D, n_f, n_f, 1)).astype(np.float32),
                      pos=grid_pos[None].repeat(BATCH_2D, 0), grid=grid[None].repeat(BATCH_2D, 0))
-        works[f"ex2 bf16 request ({n_f},{n_c})"] = lambda gpu=gpu, batch=batch: gpu(batch)
+        works[f"ex2 {kind} request ({n_f},{n_c})"] = lambda gpu=gpu, batch=batch: gpu(batch)
     batches, normalizer, (n_f, n_c) = ex2_train_data()
-    _, step = ex2_step("cuda", torch.bfloat16, ex2_config(n_f, n_c), batches, normalizer, n_f)
-    works[f"ex2 bf16 train step ({n_f},{n_c})"] = lambda: step(batches[0])
+    _, step = ex2_step("cuda", dtype, ex2_config(n_f, n_c), batches, normalizer, n_f)
+    works[f"ex2 {kind} train step ({n_f},{n_c})"] = lambda: step(batches[0])
 
     forwards = {tag: {"_scores_forward": port._scores_forward} for tag, port in ports.items()}
     rows = profile_swapped(GS, forwards, works, forward_kernels, repeats)
-    print_swapped("the bf16 forward", rows)
+    print_swapped(f"the {kind} forward", rows)
     return [dict(work=work, runs=by_tag) for work, by_tag in rows.items()]
 
 
@@ -1483,6 +1592,9 @@ def main(argv=None) -> int:
                              "earlier commit unpacked with git archive)")
     parser.add_argument("--kernel", nargs="+", choices=tuple(AB_SHAPES),
                         help="with --against: time these kernels only")
+    parser.add_argument("--stage-sweep", action="store_true",
+                        help="only time the float32 galerkin forward's stages at the "
+                             "ex1 width over n (stage_sweep_phase)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1502,6 +1614,9 @@ def main(argv=None) -> int:
         names = tuple(AB_SHAPES) if args.kernel is None else tuple(args.kernel)
         print(json.dumps({"card": smi, **against_phase(args.against, names)}))
         return 0
+    if args.stage_sweep:
+        print(json.dumps({"card": smi, "stage_sweep": stage_sweep_phase()}))
+        return 0
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -1520,6 +1635,7 @@ def main(argv=None) -> int:
                fourier_bwd_bf16_phase(rng, dev, peak)]
     # the same kernels at the other main paths' shapes (printed, not in the line)
     galerkin_phase(rng, dev, peak, EX2_SHAPE, eps=1e-7)
+    galerkin_phase(rng, dev, peak, EX2_TRAIN_SHAPE, eps=1e-7)
     galerkin_phase(rng, dev, peak, dtype=bf16)
     galerkin_phase(rng, dev, peak, EX2_TRAIN_SHAPE, bf16, eps=1e-7)
     galerkin_bwd_phase(rng, dev, peak, dtype=bf16)

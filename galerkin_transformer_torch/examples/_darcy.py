@@ -130,7 +130,10 @@ def train_and_report(model: torch.nn.Module, config: dict, args, train_dataset,
                               drop_last=True, seed=args.seed)
     valid_loader = DataLoader(valid_dataset, args.val_batch_size)
     normalizer = train_dataset.normalizer_y.as_tuple()
-    sample = next(iter(valid_loader))
+    # drawn from the training loader, as the JAX drivers draw it: the draw
+    # takes the loader's first shuffle, so training epoch e shuffles with
+    # seed + e + 1 in both packages
+    sample = next(iter(train_loader))
     print("=" * 20, "Data loader batch", "=" * 20)
     for k, v in sample.items():
         print(k, "\t", v.shape)

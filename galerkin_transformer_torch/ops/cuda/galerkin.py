@@ -3,10 +3,12 @@
 ``galerkin_scores`` computes S = [pos, LN_K(K)]ᵀ[pos, LN_V(V)], unscaled,
 in float32, and is differentiable (``GalerkinScores``, the counterpart of
 the custom VJP of ``galerkin_scores_fused``).  On CUDA tensors the forward
-launches ``csrc/galerkin_scores.cu`` (float32 K, V, pos) or
-``csrc/galerkin_scores_bf16.cu`` (bfloat16 K, V, pos: LN statistics in
-float32, LN output rounded to bfloat16, the product on the tensor cores
-with a float32 sum; one device kernel), and the backward launches
+launches ``csrc/galerkin_scores.cu`` (float32 K, V, pos: the LN output cut
+into three bfloat16 parts, six part products on the tensor cores, float32
+sums) or ``csrc/galerkin_scores_bf16.cu`` (bfloat16 K, V, pos: LN
+statistics in float32, LN output rounded to bfloat16, the product on the
+tensor cores with a float32 sum); either is one device kernel, whose CTAs
+sum their partials themselves.  The backward launches
 ``csrc/galerkin_scores_bwd.cu`` (float32) or
 ``csrc/galerkin_scores_bwd_bf16.cu`` (bfloat16 K, V, pos);
 on CPU tensors they run ``galerkin_scores_reference`` and
@@ -27,15 +29,15 @@ import torch
 from ..attention import per_head_layer_norm
 from . import _build
 
-# sequence rows per chunk of each kernel (kRowsPerChunk in
-# csrc/galerkin_scores.cu, kRows in the other three sources): a CTA owns a
-# whole number of chunks
-CHUNK_ROWS = {"galerkin_scores": 32, "galerkin_scores_bf16": 64,
+# sequence rows per chunk of each kernel (kRows in each source): a CTA owns
+# a whole number of chunks
+CHUNK_ROWS = {"galerkin_scores": 64, "galerkin_scores_bf16": 64,
               "galerkin_scores_bwd": 64, "galerkin_scores_bwd_bf16": 64}
 MAX_D = 128           # d_k and d_k + p that the kernel takes
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_void_p])
+# the float32 forward takes its work (WORK_LN, WORK_PRODUCT) after eps
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _BF16_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                   + [ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
@@ -83,21 +85,14 @@ def split_grid(bh: int, n: int, sms: int, chunk: int, ctas_per_sm: int,
 
 # the kernels whose CTAs of one bh wait for each other: a grid of more than
 # one split is launched cooperatively
-COOPERATIVE = ("galerkin_scores_bf16",)
-
-
-def _splits(name: str, bh: int, n: int, device: torch.device,
-            ctas_per_sm: int = 2) -> tuple:
-    """`split_grid` of kernel `name` on the card of `device`."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return split_grid(bh, n, sms, CHUNK_ROWS[name], ctas_per_sm, name in COOPERATIVE)
+COOPERATIVE = ("galerkin_scores", "galerkin_scores_bf16")
 
 
 def _occupancy_splits(name: str, bh: int, n: int, d_k: int, p: int,
                       device: torch.device) -> tuple:
-    """`_splits` of the kernel `name` (``csrc/<name>.cu``) with as many CTAs
-    as fit on the card at once (the kernel's occupancy at this (d_k, p),
-    asked once)."""
+    """`split_grid` of the kernel `name` (``csrc/<name>.cu``) on the card of
+    `device`, with as many CTAs as fit on it at once (the kernel's occupancy
+    at this (d_k, p), asked once)."""
     key = (name, device.index, d_k, p)
     if key not in _CTAS_PER_SM:
         fn = _build.function(name, f"{name}_ctas_per_sm", _CTAS_ARGTYPES)
@@ -108,7 +103,9 @@ def _occupancy_splits(name: str, bh: int, n: int, d_k: int, p: int,
             raise RuntimeError(f"{name} occupancy query failed: CUDA error "
                                f"{rc}, {ctas.value} CTAs per SM")
         _CTAS_PER_SM[key] = ctas.value
-    return _splits(name, bh, n, device, _CTAS_PER_SM[key])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return split_grid(bh, n, sms, CHUNK_ROWS[name], _CTAS_PER_SM[key],
+                      name in COOPERATIVE)
 
 
 _CTAS_PER_SM: dict = {}
@@ -116,10 +113,10 @@ _TICKETS: dict = {}
 
 
 def _tickets(device: torch.device, stream: int, count: int) -> torch.Tensor:
-    """`count` int counters the CTAs of the bfloat16 forward and of both
-    backward kernels take tickets from, per (device, stream): zero between
-    launches (each kernel's last CTAs reset them), so launches of these
-    kernels ordered on one stream can share them."""
+    """`count` int counters the CTAs of the forward and backward kernels
+    take tickets from, per (device, stream): zero between launches (each
+    kernel's last CTAs reset them), so launches of these kernels ordered on
+    one stream can share them."""
     key = (device.index, stream)
     if key not in _TICKETS or _TICKETS[key].numel() < count:
         _TICKETS[key] = torch.zeros(count, dtype=torch.int32, device=device)
@@ -161,7 +158,13 @@ def _check(k, v, pos, params):
             raise ValueError("the kernel takes contiguous tensors")
 
 
-def _scores_forward(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps):
+# the stages of the float32 forward kernel: the wrapper runs both; one alone
+# (chip_smoke.py times each) does not give S
+WORK_LN, WORK_PRODUCT = 1, 2
+
+
+def _scores_forward(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps,
+                    work=WORK_LN | WORK_PRODUCT):
     params = (scale_k, bias_k, scale_v, bias_v)
     _check_types(k, v, pos, params)
     if k.device.type == "cpu":
@@ -175,25 +178,24 @@ def _scores_forward(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps):
     d_eff = d_k + p
     bf16 = k.dtype == torch.bfloat16
     name = "galerkin_scores_bf16" if bf16 else "galerkin_scores"
-    if bf16:   # one launch: its CTAs sum the partials themselves
-        rows, splits = _occupancy_splits(name, b * h, n, d_k, p, k.device)
-        fn = _build.function(name, f"{name}_launch", _BF16_ARGTYPES)
-    else:      # two launches: partials, then their sum
-        rows, splits = _splits(name, b * h, n, k.device)
-        fn = _build.function(name, f"{name}_launch", _ARGTYPES)
+    if bf16 and work != WORK_LN | WORK_PRODUCT:
+        raise ValueError("only the float32 forward runs a stage alone")
+    # one launch: its CTAs sum the partials themselves
+    rows, splits = _occupancy_splits(name, b * h, n, d_k, p, k.device)
+    fn = _build.function(name, f"{name}_launch", _BF16_ARGTYPES if bf16 else _ARGTYPES)
     out = torch.empty((b, h, d_eff, d_eff), dtype=torch.float32, device=k.device)
-    # the bfloat16 kernel starts each partial on 16 bytes
-    slot = (d_eff * d_eff + 3) // 4 * 4 if bf16 else d_eff * d_eff
-    partial = torch.empty((splits, b * h, slot), dtype=torch.float32, device=k.device)
+    # each partial starts on 16 bytes
+    partial = torch.empty((splits, b * h, (d_eff * d_eff + 3) // 4 * 4),
+                          dtype=torch.float32, device=k.device)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
-        # the bfloat16 kernel's CTAs of one bh count on two ints
-        tickets = [_tickets(k.device, stream, 2 * b * h).data_ptr()] if bf16 else []
+        # the CTAs of one bh count on two ints
+        tickets = _tickets(k.device, stream, 2 * b * h).data_ptr()
         rc = fn(k.data_ptr(), v.data_ptr(),
                 None if pos is None else pos.data_ptr(),
                 *(t.data_ptr() for t in params),
-                partial.data_ptr(), out.data_ptr(), *tickets,
-                b, h, n, d_k, p, rows, splits, eps, stream)
+                partial.data_ptr(), out.data_ptr(), tickets,
+                b, h, n, d_k, p, rows, splits, eps, *([] if bf16 else [work]), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     if bf16:

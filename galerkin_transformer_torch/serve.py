@@ -6,7 +6,8 @@ batches (1D: node (B, n, C), pos and grid (B, n, 1); 2D: node
 predictions.  The operator is discretization-invariant,
 so every input resolution is served by the same weights; there is nothing
 to compile per resolution.  The target normalizer is kept as data and
-handed to models whose forward takes it.
+handed to models whose forward takes it.  Floating inputs and normalizers
+are taken as float32, whatever their type.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ class Predictor:
         self.model = model.to(self.device).eval()
         # (mean, std, eps) as numpy arrays or tensors; held on the device
         self.normalizer = None if normalizer is None else tuple(
-            torch.as_tensor(x, device=self.device) for x in normalizer)
+            _as_input(x, self.device) for x in normalizer)
         self._takes_normalizer = (
             "normalizer" in inspect.signature(model.forward).parameters)
 
@@ -50,8 +51,7 @@ class Predictor:
     def __call__(self, batch: dict) -> np.ndarray:
         kwargs = {"normalizer": self.normalizer} if self._takes_normalizer else {}
         with torch.inference_mode():
-            node, pos, grid = (torch.as_tensor(np.asarray(batch[k]),
-                                               device=self.device)
+            node, pos, grid = (_as_input(batch[k], self.device)
                                for k in ("node", "pos", "grid"))
             out = self.model(node, None, pos, grid, **kwargs)["preds"]
             return out.cpu().numpy()
@@ -59,3 +59,11 @@ class Predictor:
     def warmup(self, batch: dict) -> "Predictor":
         self(batch)
         return self
+
+
+def _as_input(x, device: torch.device) -> torch.Tensor:
+    """`x` on `device`, floating types as float32 (as ``jnp.asarray`` gives
+    them with x64 off: a float64 batch is served, not refused); integer
+    types as they are."""
+    t = torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x), device=device)
+    return t.float() if t.is_floating_point() else t

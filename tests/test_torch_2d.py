@@ -574,6 +574,20 @@ def test_predictor_serves_two_resolutions_like_jax():
     assert not pred.model.training
 
 
+def test_predictor_serves_a_float64_batch_like_jax():
+    """A float64 batch and a float64 normalizer are served in float32, as
+    ``jnp.asarray`` makes them with x64 off, and not refused."""
+    cfg = _small_cfg()
+    batch = {k: v.astype(np.float64) for k, v in _batch(29, 15, seed=8).items()}
+    jmodel, params = _jax_model(cfg, _batch(29, 15, seed=6))
+    normalizer = (np.full((1, 1, 1), 0.3), np.full((1, 1, 1), 2.0), np.float32(1e-5))
+    pred = Predictor(_port(cfg, params), normalizer=normalizer, device="cpu")
+    out = pred(batch)
+    assert out.dtype == np.float32 and out.shape == (2, 29, 29, 1)
+    want = JaxPredictor(jmodel, params, normalizer=normalizer)(batch)
+    np.testing.assert_allclose(out, want, rtol=RTOL, atol=ATOL)
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -16,6 +16,7 @@ import torch
 
 from galerkin_transformer_torch.ops.cuda import fourier as FC
 from galerkin_transformer_torch.ops.cuda import galerkin as GS
+from galerkin_transformer_torch.ops.cuda._graph import launched_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -35,9 +36,11 @@ def _t(rng, shape, dev):
 
 GALERKIN_SHAPES = [(2, 2, 200, 16, 1), (1, 3, 33, 24, None), (3, 1, 1000, 96, 1),
                    (2, 2, 64, 125, 3), (1, 1, 5, 8, 2)]
+# the float32 forward at the ex1 and ex2 serving shapes too
+GALERKIN_F32_SHAPES = GALERKIN_SHAPES + [(8, 1, 8192, 96, 1), (4, 4, 5041, 32, 2)]
 
 
-@pytest.mark.parametrize("b,h,n,d_k,p", GALERKIN_SHAPES)
+@pytest.mark.parametrize("b,h,n,d_k,p", GALERKIN_F32_SHAPES)
 def test_galerkin_scores_kernel_matches_plain(dev, b, h, n, d_k, p):
     rng = np.random.default_rng(n)
     k, v = _t(rng, (b, h, n, d_k), dev), _t(rng, (b, h, n, d_k), dev)
@@ -49,6 +52,42 @@ def test_galerkin_scores_kernel_matches_plain(dev, b, h, n, d_k, p):
     assert GS.galerkin_scores.launches == before + 1
     want = GS.galerkin_scores_reference(k, v, pos, *params)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+def _scores_float64(k, v, pos, params, eps=1e-5):
+    def ln(x, scale, bias):
+        x = x.double()
+        mean = x.mean(-1, keepdim=True)
+        var = (x - mean).square().mean(-1, keepdim=True)
+        return ((x - mean) / torch.sqrt(var + eps) * scale.double()[:, None]
+                + bias.double()[:, None])
+    b, h, n, _ = k.shape
+
+    def cat(x):
+        if pos is None:
+            return x
+        return torch.cat([pos.double()[:, None].expand(b, h, n, pos.shape[-1]), x], -1)
+    return cat(ln(k, *params[:2])).transpose(-2, -1) @ cat(ln(v, *params[2:]))
+
+
+# (B, H, n, d_k, p): the main paths' shapes, every d_k / 32 class, d_k = 128
+# (the six part tiles without padding) and odd d_k
+@pytest.mark.parametrize("b,h,n,d_k,p", [
+    (8, 1, 8192, 96, 1), (4, 4, 5041, 32, 2), (4, 4, 1849, 32, 2), (1, 2, 300, 128, None),
+    (2, 1, 500, 126, 2), (2, 2, 1000, 33, 3), (1, 2, 2100, 64, None)])
+def test_galerkin_scores_kernel_is_float32_against_float64(dev, b, h, n, d_k, p):
+    """The six part products keep float32 accuracy: within 1e-5 of the
+    largest entry of a float64 reference (one bfloat16 pass is about 1e-3
+    off), and bit-equal on a second call."""
+    rng = np.random.default_rng(n + d_k)
+    k, v = _t(rng, (b, h, n, d_k), dev), _t(rng, (b, h, n, d_k), dev)
+    pos = None if p is None else torch.rand(b, n, p, device=dev)
+    params = [1 + 0.1 * _t(rng, (h, d_k), dev), 0.1 * _t(rng, (h, d_k), dev),
+              1 + 0.1 * _t(rng, (h, d_k), dev), 0.1 * _t(rng, (h, d_k), dev)]
+    got = GS.galerkin_scores(k, v, pos, *params)
+    want = _scores_float64(k, v, pos, params)
+    assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+    assert torch.equal(got, GS.galerkin_scores(k, v, pos, *params))
 
 
 @pytest.mark.parametrize("bh,r,m,d,d_out", [
@@ -128,11 +167,11 @@ GALERKIN_BF16_SHAPES = GALERKIN_SHAPES + [
     (1, 2, 2100, 96, 1), (25, 4, 1000, 32, 2), (75, 4, 200, 32, 2)]
 
 
-def _galerkin_bf16_args(dev, shape, seed):
+def _galerkin_bf16_args(dev, shape, seed, dtype=torch.bfloat16):
     b, h, n, d_k, p = shape
     rng = np.random.default_rng(seed)
-    k, v = (_t(rng, (b, h, n, d_k), dev).bfloat16() for _ in range(2))
-    pos = None if p is None else _t(rng, (b, n, p), dev).bfloat16()
+    k, v = (_t(rng, (b, h, n, d_k), dev).to(dtype) for _ in range(2))
+    pos = None if p is None else _t(rng, (b, n, p), dev).to(dtype)
     params = [1 + 0.1 * _t(rng, (h, d_k), dev), 0.1 * _t(rng, (h, d_k), dev),
               1 + 0.1 * _t(rng, (h, d_k), dev), 0.1 * _t(rng, (h, d_k), dev)]
     return k, v, pos, params
@@ -294,22 +333,12 @@ def test_galerkin_scores_bwd_kernel_matches_plain(dev, b, h, n, d_k, p, eps):
         assert (g is None and a is None) or torch.equal(g, a)
 
 
-def _device_kernels(fn, tries=3):
-    """Names of the device kernels that one fn() call runs (torch.profiler).
-    The profiler has been seen to drop a kernel's record, so the longest of
-    `tries` profiles is taken: a kernel that runs in every call is not
-    missed, and none is counted that runs in none."""
-    fn()
-    torch.cuda.synchronize()
-    runs = []
-    for _ in range(tries):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        runs.append([e.name for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and "emcpy" not in e.name and "emset" not in e.name])
-    return max(runs, key=len)
+def test_launched_kernels_holds_the_kernels_of_a_call(dev):
+    """``launched_kernels`` (the kernel nodes of a CUDA graph of the call)
+    counts each kernel a call launches, and no copy."""
+    x, y = torch.ones(4096, device=dev), torch.empty(4096, device=dev)
+    assert len(launched_kernels(lambda: torch.exp(x + 1))) == 2
+    assert len(launched_kernels(lambda: (y.copy_(x), x + 1))) == 1
 
 
 # the operand types of each chain kernel: float32, bfloat16, and the three
@@ -331,7 +360,7 @@ def _chain_call(dev, types, bh, r, m, d, d_out):
 def test_chain_kernels_are_two_device_kernels_without_copies(dev, kind, bh, r, m, d, d_out):
     """A chain call is its layout prologue and the chain, which read the
     operands where they lie: no padded or converted copy runs."""
-    names = _device_kernels(_chain_call(dev, CHAIN_TYPES[kind], bh, r, m, d, d_out))
+    names = launched_kernels(_chain_call(dev, CHAIN_TYPES[kind], bh, r, m, d, d_out))
     assert len(names) == 2, names
     assert "layout_kernel" in names[0] and "chain_kernel" in names[1], names
 
@@ -352,9 +381,9 @@ def test_galerkin_scores_bwd_is_one_kernel_without_dpos(dev, b, h, n, d_k, p):
     params = [1 + 0.1 * _t(rng, (h, d_k), dev) for _ in range(4)]
     ds = _t(rng, (b, h, d_k + p, d_k + p), dev)
     args = (k, v, pos, *params, ds)
-    names = _device_kernels(lambda: GS.galerkin_scores_bwd(*args, need_dpos=False))
+    names = launched_kernels(lambda: GS.galerkin_scores_bwd(*args, need_dpos=False))
     assert len(names) == 1 and "scores_bwd_kernel" in names[0], names
-    names = _device_kernels(lambda: GS.galerkin_scores_bwd(*args))
+    names = launched_kernels(lambda: GS.galerkin_scores_bwd(*args))
     assert len(names) == 2 and "dpos_reduce_kernel" in names[1], names
 
 
@@ -366,34 +395,45 @@ def test_galerkin_scores_bwd_bf16_is_one_kernel_without_dpos(dev, b, h, n, d_k, 
     params = [1 + 0.1 * _t(rng, (h, d_k), dev) for _ in range(4)]
     ds = _t(rng, (b, h, d_k + p, d_k + p), dev)
     args = (k, v, pos, *params, ds, 1e-7)
-    names = _device_kernels(lambda: GS.galerkin_scores_bwd_bf16(*args, need_dpos=False))
+    names = launched_kernels(lambda: GS.galerkin_scores_bwd_bf16(*args, need_dpos=False))
     assert len(names) == 1 and "scores_bwd_bf16_kernel" in names[0], names
-    names = _device_kernels(lambda: GS.galerkin_scores_bwd_bf16(*args))
+    names = launched_kernels(lambda: GS.galerkin_scores_bwd_bf16(*args))
     assert len(names) == 2 and "dpos_reduce_kernel" in names[1], names
 
 
+# the two forward kernels: (wrapper, input type, the kernel's name)
+FORWARDS = {"f32": (GS.galerkin_scores, torch.float32, "scores_kernel"),
+            "bf16": (GS.galerkin_scores_bf16, torch.bfloat16, "scores_bf16_kernel")}
+
+
+@pytest.mark.parametrize("kind", list(FORWARDS))
 @pytest.mark.parametrize("b,h,n,d_k,p", [(4, 4, 1849, 32, 2), (8, 1, 1024, 96, 1)])
-def test_galerkin_scores_bf16_is_one_kernel(dev, b, h, n, d_k, p):
-    k, v, pos, params = _galerkin_bf16_args(dev, (b, h, n, d_k, p), 7)
-    names = _device_kernels(lambda: GS.galerkin_scores_bf16(k, v, pos, *params, 1e-7))
-    assert len(names) == 1 and "scores_bf16_kernel" in names[0], names
+def test_galerkin_scores_bf16_is_one_kernel(dev, kind, b, h, n, d_k, p):
+    """Each forward, float32 and bfloat16, is one device kernel whose CTAs
+    sum their partials themselves."""
+    fwd, dtype, kernel = FORWARDS[kind]
+    k, v, pos, params = _galerkin_bf16_args(dev, (b, h, n, d_k, p), 7, dtype)
+    names = launched_kernels(lambda: fwd(k, v, pos, *params, 1e-7))
+    assert len(names) == 1 and kernel in names[0], names
 
 
-def test_galerkin_scores_bf16_replays_in_a_cuda_graph(dev):
+@pytest.mark.parametrize("kind", list(FORWARDS))
+def test_galerkin_scores_bf16_replays_in_a_cuda_graph(dev, kind):
     """The cooperative launch captured in a CUDA graph: every replay gives
     what an uncaptured call gives, bit for bit, and the counters are back
     at zero after the replays (an uncaptured call on the stream agrees)."""
-    k, v, pos, params = _galerkin_bf16_args(dev, (4, 4, 1849, 32, 2), 13)
-    call = lambda: GS.galerkin_scores_bf16(k, v, pos, *params, 1e-7)
+    fwd, dtype, _ = FORWARDS[kind]
+    k, v, pos, params = _galerkin_bf16_args(dev, (4, 4, 1849, 32, 2), 13, dtype)
+    call = lambda: fwd(k, v, pos, *params, 1e-7)
     stream = torch.cuda.Stream()
     with torch.cuda.stream(stream):
         want = call()   # builds the kernel and makes this stream's counters
     stream.synchronize()
-    before = GS.galerkin_scores_bf16.launches
+    before = fwd.launches
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=stream):
         got = call()
-    assert GS.galerkin_scores_bf16.launches == before + 1
+    assert fwd.launches == before + 1
     for _ in range(3):
         got.zero_()
         graph.replay()
@@ -406,32 +446,44 @@ def test_galerkin_scores_bf16_replays_in_a_cuda_graph(dev):
 
 
 def test_bf16_forward_and_backward_share_their_tickets(dev):
-    """The bfloat16 forward and backward kernels take tickets from one pool
-    per stream, at other B*H each: a forward, a backward and a forward again
-    on one stream give what each gives alone."""
+    """The bfloat16 forward and backward kernels and the float32 forward
+    take tickets from one pool per stream, at other B*H each: forwards and a
+    backward in turn on one stream give what each gives alone."""
     fk, fv, fpos, fparams = _galerkin_bf16_args(dev, (4, 4, 1849, 32, 2), 10)
     k, v, pos, params = _galerkin_bf16_args(dev, (3, 1, 700, 96, 1), 11)
+    f32 = _galerkin_bf16_args(dev, (2, 4, 1000, 32, 2), 14, torch.float32)
     ds = _t(np.random.default_rng(12), (3, 1, 97, 97), dev)
     fwd = lambda: GS.galerkin_scores_bf16(fk, fv, fpos, *fparams, 1e-7)
+    fwd32 = lambda: GS.galerkin_scores(*f32[:3], *f32[3], 1e-7)
     bwd = lambda: GS.galerkin_scores_bwd_bf16(k, v, pos, *params, ds, 1e-7, need_dpos=False)
     alone_fwd = fwd()
     torch.cuda.synchronize()
+    alone_fwd32 = fwd32()
+    torch.cuda.synchronize()
     alone_bwd = bwd()
     torch.cuda.synchronize()
-    first, grads, again = fwd(), bwd(), fwd()
+    first, first32, grads, again, again32 = fwd(), fwd32(), bwd(), fwd(), fwd32()
     torch.cuda.synchronize()
     assert torch.equal(first, alone_fwd) and torch.equal(again, alone_fwd)
+    assert torch.equal(first32, alone_fwd32) and torch.equal(again32, alone_fwd32)
     assert all((g is None and a is None) or torch.equal(g, a)
                for g, a in zip(grads, alone_bwd))
     want = GS.galerkin_scores_reference(fk, fv, fpos, *fparams, 1e-7)
     torch.testing.assert_close(first, want, rtol=0, atol=TOL_BF16 * want.abs().max().item())
+    want = GS.galerkin_scores_reference(*f32[:3], *f32[3], 1e-7)
+    torch.testing.assert_close(first32, want, rtol=0, atol=1e-4 * want.abs().max().item())
 
 
 def test_backward_kernels_share_their_tickets(dev):
     """The float32 and bfloat16 backward kernels take tickets from one pool
-    per stream, at other B*H each: calls that alternate, twice over, each
-    match the plain version and give what they gave the first time."""
+    per stream, at other B*H each, and so does the float32 forward between
+    them: calls that alternate, twice over, each match the plain version and
+    give what they gave the first time."""
     rng = np.random.default_rng(9)
+    fwd_args = _galerkin_bf16_args(dev, (3, 2, 900, 40, 2), 15, torch.float32)
+    fwd = lambda: GS.galerkin_scores(*fwd_args[:3], *fwd_args[3])
+    fwd_want = GS.galerkin_scores_reference(*fwd_args[:3], *fwd_args[3])
+    fwd_first = None
     cases = []
     for b, h, n, d_k, p, dtype in ((2, 4, 300, 32, 2, torch.bfloat16),
                                    (3, 1, 500, 96, 1, torch.float32),
@@ -455,6 +507,11 @@ def test_backward_kernels_share_their_tickets(dev):
                 first.append(got)
             else:
                 assert all(torch.equal(g, f) for g, f in zip(got, first[i]))
+            scores = fwd()
+            torch.testing.assert_close(scores, fwd_want, rtol=0,
+                                       atol=1e-4 * fwd_want.abs().max().item())
+            fwd_first = scores if fwd_first is None else fwd_first
+            assert torch.equal(scores, fwd_first)
 
 
 @pytest.mark.parametrize("attention_type", ["galerkin", "fourier"])

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from galerkin_transformer_tpu.data import DarcyDataset as JaxDarcyDataset
+from galerkin_transformer_tpu.data import DataLoader as JaxDataLoader
 from galerkin_transformer_tpu.data import synthetic as j_synthetic
 from galerkin_transformer_tpu.models import FourierTransformer2D as JaxModel2D
 from galerkin_transformer_tpu.ops import fem as j_fem
@@ -26,6 +27,7 @@ from galerkin_transformer_torch.ops import fem
 from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss2d,
                                               load_checkpoint, make_darcy_steps, run_train)
 from galerkin_transformer_torch.utils import config as t_config
+from galerkin_transformer_torch.examples._darcy import SEED
 from galerkin_transformer_torch.utils.weights import params_from_jax
 
 NO_DROPOUT = dict(dropout=0.0, downscaler_dropout=0.0, upscaler_dropout=0.0,
@@ -362,6 +364,29 @@ def test_run_train_checkpoints_a_2d_model_with_its_normalizer(tmp_path):
 
 # ---------------------------------------------------------------- drivers
 
+def _record_shuffled_passes(monkeypatch):
+    """Every pass over a shuffling port `DataLoader` from here on, in the
+    order they start: its loader, the seed it shuffles with, the batches it
+    gave, and whether it ran to its end."""
+    passes = []
+    own = DataLoader.__iter__
+
+    def recording(self):
+        if not self.shuffle:
+            yield from own(self)
+            return
+        record = dict(loader=self, shuffle_seed=self.seed + self._epoch, batches=[],
+                      done=False)
+        passes.append(record)
+        for batch in own(self):
+            record["batches"].append(batch)
+            yield batch
+        record["done"] = True
+
+    monkeypatch.setattr(DataLoader, "__iter__", recording)
+    return passes
+
+
 SMALL = ["--device", "cpu", "--n-grid-fine", "31", "--n-samples", "16", "--batch-size", "4"]
 
 
@@ -374,14 +399,30 @@ SMALL = ["--device", "cpu", "--n-grid-fine", "31", "--n-samples", "16", "--batch
                        "--online-noise"], "darcy_inv_16_6gt_192d_qkv_4h_1.0e-02_*", (16, 6)),
 ], ids=["ex2", "ex2-bf16-accum", "ex3-online-noise"])
 def test_darcy_drivers_train_on_the_cpu_and_their_checkpoint_serves(
-        data_path, tmp_path, capsys, module, argv, stem, shape):
+        data_path, tmp_path, capsys, monkeypatch, module, argv, stem, shape):
     import importlib
     driver = importlib.import_module(f"galerkin_transformer_torch.examples.{module}")
     epochs = int(argv[argv.index("--epochs") + 1])
+    passes = _record_shuffled_passes(monkeypatch)
     val = driver.main(SMALL + argv, model_save_path=str(tmp_path / "ckpt"))
     out = capsys.readouterr().out
     assert np.isfinite(val) and f"Best model's validation metric: {val:.4e}" in out
     assert out.count("epoch [") == epochs
+    # the printed batch takes the training loader's first shuffle, as in the
+    # JAX drivers: training epoch e shuffles with seed + e + 1, and its
+    # batches come in the order of the JAX package's loader in that flow
+    train = [p for p in passes if p["done"]]
+    assert [p["shuffle_seed"] for p in train] == [SEED + e + 1 for e in range(epochs)]
+    loader = train[0]["loader"]
+    jax_loader = JaxDataLoader(loader.dataset, loader.batch_size, shuffle=True,
+                               drop_last=True, seed=SEED)
+    next(iter(jax_loader))
+    want = list(jax_loader)
+    assert len(want) == len(train[0]["batches"]) > 0
+    for got, batch in zip(train[0]["batches"], want):
+        assert got.keys() == batch.keys()
+        for key in got:
+            np.testing.assert_array_equal(got[key], batch[key])
     ckpts = list((tmp_path / "ckpt").glob(stem + ".ckpt"))
     assert len(ckpts) == 1
     n_f, n_c = shape

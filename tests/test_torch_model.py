@@ -134,6 +134,21 @@ def test_predictor_serves_two_resolutions_like_jax(attention_type, tmp_path):
     assert not pred.model.training
 
 
+@pytest.mark.parametrize("attention_type", ["fourier", "galerkin"])
+def test_predictor_serves_a_float64_batch_like_jax(attention_type):
+    """A float64 batch (``np.random.rand``) is served in float32, as
+    ``jnp.asarray`` makes it with x64 off, and not refused."""
+    cfg = _small_cfg(attention_type)
+    jmodel, params = _jax_params(cfg, _batch(64))
+    rng = np.random.default_rng(4)
+    pos = np.linspace(0, 1, 64)[None, :, None].repeat(2, 0)
+    batch = dict(node=rng.random((2, 64, 1)), pos=pos, grid=pos)
+    assert all(x.dtype == np.float64 for x in batch.values())
+    out = Predictor(_port(cfg, params), device="cpu")(batch)
+    assert out.dtype == np.float32 and out.shape == (2, 64, 1)
+    np.testing.assert_allclose(out, JaxPredictor(jmodel, params)(batch), rtol=RTOL, atol=ATOL)
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _small_cfg("galerkin")

@@ -59,10 +59,18 @@ def test_split_grid_of_the_bfloat16_forward_on_the_main_paths():
 
 
 def test_split_grid_of_the_float32_forward():
-    """The float32 forward keeps its grid: two CTAs per SM, 32-row chunks."""
+    """The float32 forward's cooperative grid on the main paths: 64-row
+    chunks, 132 SMs, one CTA per SM at the ex1 width (d_k 96: the stage
+    buffers and six part tiles take 180,224 bytes) and two at the ex2 width
+    (d_k 32: 65,024 bytes, at most 128 registers a thread), every CTA on the
+    card at once."""
     chunk = GS.CHUNK_ROWS["galerkin_scores"]
-    assert GS.split_grid(8, 8192, 132, chunk, 2) == (256, 32)    # ex1
-    assert GS.split_grid(16, 5041, 132, chunk, 2) == (320, 16)   # ex2 serving
+    assert "galerkin_scores" in GS.COOPERATIVE
+    for bh, n, ctas, grid in [(8, 8192, 1, (512, 16)),      # ex1
+                              (16, 5041, 2, (320, 16)),     # ex2 serving
+                              (16, 1849, 2, (128, 15))]:    # ex2 training
+        assert GS.split_grid(bh, n, 132, chunk, ctas, fit=True) == grid
+        assert bh * grid[1] <= ctas * 132
 
 
 @pytest.mark.parametrize("name", sorted(GS.CHUNK_ROWS))

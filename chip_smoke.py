@@ -91,12 +91,24 @@
    bf16 step once more with ``galerkin_scores_bwd_bf16`` replaced by its
    plain version on the same CUDA inputs, then with the bf16 forward kernel
    replaced too, and prints those gaps;
-7. driver phase: ``examples/ex1_burgers.py``, ``examples/ex2_darcy.py`` (2
+7. device-loop phase, the training paths as the drivers run them by
+   default: the ex1 step (both attention types, float32 and bfloat16) and
+   the ex2 step (float32 and bfloat16) through ``DeviceEpochRunner`` on the
+   training phases' datasets (shuffle and dropout off): two eager warm-up
+   steps, then every step a replay of one CUDA graph, whose kernels must be
+   exactly the step's launches (``LAUNCHES_PER_STEP``, read from the graph's
+   kernel nodes); its per-step losses and final weights against as many
+   eager host-loop steps from the same weights (bit-equal expected, the gap
+   printed); the median step time inside the loop (epoch wall over its
+   steps), the eager step time, the device time of a step and the busy
+   share; launches on this path are the graph's kernels times the replays;
+8. driver phase: ``examples/ex1_burgers.py``, ``examples/ex2_darcy.py`` (2
    epochs each) and ``examples/ex3_darcy_inv.py`` (1 epoch) of the port,
-   in-process; their losses must be finite, and the ex1 and ex2 best
-   checkpoints must load into ``Predictor`` and serve a batch (ex2 with
-   the normalizer saved in the checkpoint);
-8. prints one {"kernels": [...]} line (launches summed over the main
+   in-process, on the device loop (their default); their losses must be
+   finite, and the ex1 and ex2 best checkpoints must load into
+   ``Predictor`` and serve a batch (ex2 with the normalizer saved in the
+   checkpoint);
+9. prints one {"kernels": [...]} line (launches summed over the main
    paths), then the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a GPU it exits 1 and
@@ -105,6 +117,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import importlib
 import importlib.util
@@ -117,6 +130,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -130,11 +144,12 @@ from galerkin_transformer_torch.data import (BurgersDataset, DarcyDataset,  # no
                                              DataLoader, darcy_grids, get_scaler_sizes)
 from galerkin_transformer_torch.examples import (ex1_burgers, ex2_darcy,  # noqa: E402
                                                  ex3_darcy_inv)
-from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss,  # noqa: E402
-                                              WeightedL2Loss2d, make_burgers_steps,
-                                              make_darcy_steps)
+from galerkin_transformer_torch.train import (AdamOneCycle, DeviceEpochRunner,  # noqa: E402
+                                              WeightedL2Loss, WeightedL2Loss2d,
+                                              make_burgers_steps, make_darcy_steps)
 from galerkin_transformer_torch.ops.cuda import _build  # noqa: E402
-from galerkin_transformer_torch.ops.cuda._graph import launched_kernels  # noqa: E402
+from galerkin_transformer_torch.ops.cuda._graph import (launched_kernels,  # noqa: E402
+                                                        wrapper_launches)
 from galerkin_transformer_torch.ops.cuda import fourier as FC  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import galerkin as GS  # noqa: E402
 from galerkin_transformer_torch.ops.attention import per_head_layer_norm  # noqa: E402
@@ -222,6 +237,12 @@ TOL_TRAIN_GRAD_BF16 = 2.0 ** -4
 TRAIN_2D = dict(n_grid_fine=211, subsample_nodes=1, subsample_attn=5,
                 n_samples_synthetic=10)
 TRAIN_2D_STEPS = 8
+# device-loop phase: epochs of each runner (ex1: 4 steps an epoch, ex2: 2), the
+# first with the eager warm-up and the capture; the rest time the replays
+LOOP_EPOCHS = {"ex1": 8, "ex2": 12}
+# the device loop against as many eager host-loop steps from the same weights:
+# float32 relative (losses; each weight against its tensor's largest entry)
+TOL_LOOP = 1e-5
 # (B, H, n, d_k, p) of the galerkin kernels on the main paths: ex1, ex2 serving
 # at (n_f, n_c) = (211, 71), ex2 training
 EX1_SHAPE = (BATCH, 1, RESOLUTIONS[0], 96, 1)
@@ -543,11 +564,13 @@ def fourier_phase(rng, dev, peak, dtype=None):
         if not err <= tol * scale:
             raise AssertionError(f"{name} disagrees with its plain version at n = {n}")
         ms = time_ms(lambda: FC.fourier_chain(a, b, c), 20)
+        plain_ms = time_ms(lambda: FC.fourier_chain_reference(a, b, c), 20)
         library_ms = time_ms(lambda: torch.matmul(torch.matmul(a, b.transpose(1, 2)), c), 20)
         b_ = bound(2 * bh * n * d * 3 + 4 * bh * n * d, 2 * bh * n * n * (d + d), peak,
                    "bf16_flops")
         print(f"{name} (BH,R=M,d)=({bh},{n},{d}): rel={err / scale:.3e}; {ms:.4f} ms, "
-              f"library {library_ms:.4f} ms, bound {b_['bound_ms']:.5f} ms ({b_['bound_by']})")
+              f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+              f"{b_['bound_ms']:.5f} ms ({b_['bound_by']})")
     return res
 
 
@@ -1150,6 +1173,19 @@ def make_batch(rng, n):
     return dict(node=node, pos=pos, grid=pos)
 
 
+def device_ms(work) -> float:
+    """Device time of one `work()` call: queued behind a device-side spin, so
+    that the host's launch cost is hidden, between two CUDA events."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    work()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def breakdown(work, top: int = 5) -> str:
     """Device time of one `work()` call (a served request, or a train step)
     by kernel (torch.profiler), and the device's busy share of its
@@ -1375,27 +1411,35 @@ def time_steps(tag, step, batches, n_steps, points):
     print(f"  breakdown train {tag}: {breakdown(lambda: step(batches[0]))}")
 
 
+def ex1_train_data():
+    """The ex1 training set of the training phases (synthetic Cole–Hopf)."""
+    return BurgersDataset(subsample=SUBSAMPLE, train_data=True, train_portion=0.5,
+                          n_samples_synthetic=TRAIN_SAMPLES)
+
+
+def ex1_step(device, dtype, attention_type):
+    """A full-width ex1 SimpleTransformer, its optimizer and its steps."""
+    cfg = load_config("ex1_burgers")
+    cfg["attention_type"] = attention_type
+    model = SimpleTransformer.from_config(cfg, device=device, seed=SEED, dtype=dtype)
+    # 100 epochs of the training set's batches
+    opt = AdamOneCycle(model.parameters(), 1e-3, 100 * (TRAIN_SAMPLES // 2 // BATCH))
+    h = 1 / TRAIN_N
+    return (model, opt) + make_burgers_steps(
+        model, WeightedL2Loss(regularizer=True, h=h, gamma=0.1), WeightedL2Loss(h=h), opt)
+
+
 def training_phase():
     """The second main path: the ex1 train step, in float32 and with the
     bfloat16 encoder.  Returns the launch counts of its whole run."""
     reset_launches()
-    h = 1 / TRAIN_N
-    train = BurgersDataset(subsample=SUBSAMPLE, train_data=True, train_portion=0.5,
-                           n_samples_synthetic=TRAIN_SAMPLES)
+    train = ex1_train_data()
     batches = list(DataLoader(train, BATCH, shuffle=True, drop_last=True, seed=SEED))
     for dtype in DTYPES:
         for attention_type in ATTENTION_TYPES:
-            cfg = load_config("ex1_burgers")
-            cfg["attention_type"] = attention_type
             steps, models = {}, {}
             for device in ("cuda", "cpu"):
-                model = SimpleTransformer.from_config(cfg, device=device, seed=SEED,
-                                                      dtype=dtype)
-                opt = AdamOneCycle(model.parameters(), 1e-3, 100 * len(batches))
-                steps[device] = make_burgers_steps(
-                    model, WeightedL2Loss(regularizer=True, h=h, gamma=0.1),
-                    WeightedL2Loss(h=h), opt)[0]
-                models[device] = model
+                models[device], _, steps[device], _ = ex1_step(device, dtype, attention_type)
             tag = f"ex1 {attention_type} {dtype_name(dtype)} n={TRAIN_N} batch={BATCH}"
             compare_step(tag, steps, models, batches[0],
                          LAUNCHES_PER_STEP[attention_type, dtype],
@@ -1415,7 +1459,7 @@ def ex2_config(n_f, n_c):
 
 
 def ex2_train_data():
-    """Batches of BATCH_2D from `DarcyDataset` at TRAIN_2D, the target
+    """`DarcyDataset` at TRAIN_2D, batches of BATCH_2D from it, the target
     normalizer and (n_f, n_c)."""
     t0 = time.perf_counter()
     train = DarcyDataset(train_data=True, **TRAIN_2D)
@@ -1424,18 +1468,20 @@ def ex2_train_data():
     print(f"DarcyDataset: {len(train)} training samples at (n_f, n_c) = ({n_f}, {n_c}) "
           f"in {time.perf_counter() - t0:.1f} s")
     batches = list(DataLoader(train, BATCH_2D, shuffle=True, drop_last=True, seed=SEED))
-    return batches, train.normalizer_y.as_tuple(), (n_f, n_c)
+    return train, batches, train.normalizer_y.as_tuple(), (n_f, n_c)
 
 
-def ex2_step(device, dtype, config, batches, normalizer, n_f):
-    """A full-width ex2 FourierTransformer2D and its `make_darcy_steps` train step."""
+def ex2_step(device, dtype, config, batches, normalizer, n_f, steps=False):
+    """A full-width ex2 FourierTransformer2D and its `make_darcy_steps` train
+    step; with `steps`, (model, optimizer, train step, eval step)."""
     model = FourierTransformer2D.from_config(config, device=device, seed=SEED, dtype=dtype)
     opt = AdamOneCycle(model.parameters(), 1e-3, 100 * len(batches), pct_start=0.3,
                        grad_clip=0.99)
     h = 1 / n_f
-    step = make_darcy_steps(model, WeightedL2Loss2d(regularizer=True, h=h, gamma=0.5),
-                            WeightedL2Loss2d(h=h), opt, normalizer=normalizer)[0]
-    return model, step
+    train_step, eval_step = make_darcy_steps(
+        model, WeightedL2Loss2d(regularizer=True, h=h, gamma=0.5), WeightedL2Loss2d(h=h),
+        opt, normalizer=normalizer)
+    return (model, opt, train_step, eval_step) if steps else (model, train_step)
 
 
 def training_2d_phase():
@@ -1443,7 +1489,7 @@ def training_2d_phase():
     FourierTransformer2D on batches from `DarcyDataset`, in float32 and with
     the bfloat16 encoder and scalers.  Returns the launch counts of its run."""
     reset_launches()
-    batches, normalizer, (n_f, n_c) = ex2_train_data()
+    _, batches, normalizer, (n_f, n_c) = ex2_train_data()
     cfg = ex2_config(n_f, n_c)
     n_layers = cfg["num_encoder_layers"]
 
@@ -1522,6 +1568,180 @@ def training_2d_phase():
     return counts
 
 
+def graph_launches(runners) -> Counter:
+    """The kernel launches of the runners' captured steps (train and eval):
+    the wrapper launches among each graph's kernels times its replays, less
+    the one capture, which the wrappers counted and which launched nothing."""
+    out = Counter()
+    for runner in runners:
+        for kernels, replays in runner.replayed():
+            for name, n in wrapper_launches(kernels).items():
+                out[name] += n * (replays - 1)
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block: the 2D model's
+    convolutions may otherwise take algorithms whose sums run in an order
+    that differs run to run, so that no two runs, eager or replayed, agree
+    bit for bit."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def run_loop(runner, epochs):
+    """`epochs` epochs of `runner`: (per-step losses, (steps, n_losses);
+    the step time inside the loop of each epoch, its wall over its steps,
+    synchronized; the validation time of each epoch)."""
+    losses, loop_ms, val_ms = [], [], []
+    for e in range(epochs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch_losses = runner.train_epoch(e)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        val = float(runner.validate())
+        loop_ms.append((t1 - t0) * 1e3 / runner.n_batches)
+        val_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(epoch_losses.cpu().numpy().copy())
+        if not math.isfinite(val):
+            raise AssertionError(f"validation metric {val}")
+    return np.concatenate(losses), loop_ms, val_ms
+
+
+def loop_case(tag, make, train, batch, per_step, epochs, tol_loss, tol_param, points):
+    """`make(device)` -> (model, optimizer, train step, eval step).  Over
+    `train` in batches of `batch` (shuffle and dropout off), with cuDNN's
+    deterministic algorithms: `epochs` epochs of `DeviceEpochRunner` on the
+    card and as many eager host-loop steps from the same weights, whose
+    per-step losses and final weights must agree (bit-equal expected; else
+    to `tol_loss` relative and `tol_param` of each weight's largest entry).
+    Then, with cuDNN's defaults (as the drivers run), a second runner times
+    the step inside the loop (epoch wall over its steps, after the epoch of
+    the warm-up and capture), beside the eager step time, a step's device
+    time and the busy share.  Each runner's graph must hold exactly
+    `per_step` wrapper launches.  Returns the two runners."""
+    loader = DataLoader(train, batch, drop_last=True)
+    valid = DataLoader([train[i] for i in range(batch)], batch)
+    steps = epochs * (len(train) // batch)
+
+    def runner_of(model, opt, train_step, eval_step):
+        return DeviceEpochRunner(model, train_step, eval_step, opt, loader, valid,
+                                 verbose=False)
+
+    def check(runner, opt):
+        got = dict(wrapper_launches(runner.kernels()))
+        if (runner.eager_steps, runner.replays) != (2, steps - 2) or opt.count != steps:
+            raise AssertionError(f"loop {tag}: {runner.eager_steps} eager steps, "
+                                 f"{runner.replays} replays, count {opt.count} of {steps}")
+        if got != per_step:
+            raise AssertionError(f"loop {tag}: the captured step holds {got}, "
+                                 f"expected {per_step}")
+        return got
+
+    with deterministic_cudnn():
+        model, opt, train_step, eval_step = make("cuda")
+        checked = runner_of(model, opt, train_step, eval_step)
+        losses, _, _ = run_loop(checked, epochs)
+        got = check(checked, opt)
+        ref_model, _, ref_step, _ = make("cuda")
+        ref_losses, eager_ms = [], []
+        for _ in range(epochs):
+            for host_batch in loader:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = ref_step(host_batch)
+                torch.cuda.synchronize()
+                eager_ms.append((time.perf_counter() - t0) * 1e3)
+                ref_losses.append([float(x) for x in out])
+    ref_losses = np.asarray(ref_losses)
+
+    def loss_gap(a):
+        return float(np.max(np.abs(a - ref_losses) / np.maximum(np.abs(ref_losses), 1e-30)))
+
+    param_gap, worst = 0.0, ""
+    ref_state = ref_model.state_dict()
+    for key, p in model.state_dict().items():
+        err, scale = max_err(p.float(), ref_state[key].float())
+        rel = err / scale if scale > 0 else err
+        if rel > param_gap:
+            param_gap, worst = rel, key
+    gap = loss_gap(losses)
+    bit_equal = gap == 0 and param_gap == 0
+    with deterministic_cudnn():   # the captured eval step against an eager one
+        graph_val = float(checked.validate())
+        eager_val = float(eval_step(next(iter(valid))))
+    val_gap = abs(graph_val - eager_val) / abs(eager_val)
+    print(f"loop {tag}: {steps} steps ({checked.eager_steps} eager, {checked.replays} "
+          f"replays of {len(checked.kernels())} device kernels) vs {steps} eager host-loop "
+          f"steps, cuDNN deterministic: {'bit-equal' if bit_equal else 'not bit-equal'}; "
+          f"losses max rel gap {gap:.3e} (tol {tol_loss:.1e}), weights max gap/max|w| "
+          f"{param_gap:.3e} at {worst or '-'} (tol {tol_param:.1e}); captured "
+          f"launches/step {got}; validation (captured eval step) {graph_val:.6e} vs eager "
+          f"{eager_val:.6e}, rel gap {val_gap:.3e}")
+    if not (np.isfinite(losses).all() and gap <= tol_loss and param_gap <= tol_param
+            and val_gap <= tol_loss):
+        raise AssertionError(f"loop {tag}: the device loop and the host loop disagree")
+
+    model, opt, train_step, eval_step = make("cuda")
+    runner = runner_of(model, opt, train_step, eval_step)
+    losses, loop_ms, val_ms = run_loop(runner, epochs)
+    check(runner, opt)
+    timed = loop_ms[1:]
+    step_ms = statistics.median(timed)
+    dev_ms = device_ms(lambda: runner.train_epoch(epochs)) / runner.n_batches
+    eager = statistics.median(eager_ms[2:])
+    print(f"loop {tag}, cuDNN defaults: losses max rel gap to the deterministic host loop "
+          f"{loss_gap(losses):.3e}; median step in the loop {step_ms:.3f} ms over "
+          f"{len(timed)} epochs (min {min(timed):.3f}, max {max(timed):.3f}), eager "
+          f"host-loop step {eager:.3f} ms ({eager / step_ms:.2f}x), device time "
+          f"{dev_ms:.3f} ms/step (busy {100 * dev_ms / step_ms:.1f} %), validation "
+          f"{statistics.median(val_ms):.2f} ms, {points / step_ms * 1e3:.4e} grid-points/s")
+    print(f"  breakdown loop {tag} (one epoch of {runner.n_batches} replays): "
+          f"{breakdown(lambda: runner.train_epoch(epochs + 1))}")
+    return [checked, runner]
+
+
+def device_loop_phase():
+    """The device-loop path of training (``train/device_loop.py``): the ex1
+    step (both attention types, float32 and bfloat16) and the ex2 step
+    (float32 and bfloat16) through `DeviceEpochRunner` on the training
+    phases' datasets, each against the eager host loop.  Returns the launch
+    counts of its run, the graph replays' included."""
+    reset_launches()
+    runners = []
+    train = ex1_train_data()
+    for dtype in DTYPES:
+        for attention_type in ATTENTION_TYPES:
+            tag = f"ex1 {attention_type} {dtype_name(dtype)} n={TRAIN_N} batch={BATCH}"
+            runners.extend(loop_case(
+                tag, lambda device: ex1_step(device, dtype, attention_type), train, BATCH,
+                LAUNCHES_PER_STEP[attention_type, dtype],
+                LOOP_EPOCHS["ex1"], TOL_LOOP if dtype is None else TOL_TRAIN_LOSS_BF16,
+                TOL_LOOP if dtype is None else TOL_TRAIN_GRAD_BF16, BATCH * TRAIN_N))
+    train_2d, batches, normalizer, (n_f, n_c) = ex2_train_data()
+    cfg = {**ex2_config(n_f, n_c), **NO_DROPOUT}
+    for dtype in DTYPES:
+        fwd, bwd = (("galerkin_scores", "galerkin_scores_bwd") if dtype is None else
+                    ("galerkin_scores_bf16", "galerkin_scores_bwd_bf16"))
+        n_layers = cfg["num_encoder_layers"]
+        tag = f"ex2 galerkin {dtype_name(dtype)} (n_f,n_c)=({n_f},{n_c}) batch={BATCH_2D}"
+        runners.extend(loop_case(
+            tag, lambda device: ex2_step(device, dtype, cfg, batches, normalizer, n_f,
+                                         steps=True), train_2d, BATCH_2D,
+            {fwd: n_layers, bwd: n_layers}, LOOP_EPOCHS["ex2"],
+            TOL_LOOP if dtype is None else TOL_TRAIN_LOSS_BF16,
+            TOL_LOOP if dtype is None else TOL_TRAIN_GRAD_BF16, BATCH_2D * n_f * n_f))
+    counts = Counter(launches())
+    counts.update(graph_launches(runners))
+    return {name: counts[name] for name in COUNTERS}
+
+
 def _driver_outputs(tag, tmp, val, epochs):
     logs = [json.loads(line) for f in glob.glob(os.path.join(tmp, "*.jsonl"))
             for line in open(f)]
@@ -1537,8 +1757,31 @@ def driver_phase():
     """The port's entry points: ex1 and ex2 for 2 epochs, each best
     checkpoint served, and ex3 for 1 epoch.  The Darcy drivers run on a
     small synthetic grid at the configs' widths.  Returns the launch
-    counts of the run."""
+    counts of the run, the device loop's graph replays included (the drivers
+    run it by default)."""
     reset_launches()
+    runners = []
+    init = DeviceEpochRunner.__init__
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        runners.append(self)
+
+    DeviceEpochRunner.__init__ = recording_init
+    try:
+        counts = Counter(_drive())
+    finally:
+        DeviceEpochRunner.__init__ = init
+    if len(runners) != 3 or any(r.replays == 0 for r in runners):
+        raise AssertionError(f"driver: {len(runners)} device loops, replays "
+                             f"{[r.replays for r in runners]}")
+    counts.update(graph_launches(runners))
+    return {name: counts[name] for name in COUNTERS}
+
+
+def _drive():
+    """The three drivers, each best checkpoint checked; the wrappers' launch
+    counts of the run."""
     with tempfile.TemporaryDirectory() as tmp:
         val = ex1_burgers.main(["--n-samples", str(TRAIN_SAMPLES), "--epochs", "2"],
                                model_save_path=tmp)
@@ -1643,9 +1886,9 @@ def main(argv=None) -> int:
     fourier_bwd_phase(rng, dev, peak)
     wide_phase(rng, dev)
     paths = [serving_phase(rng), serving_2d_phase(rng), training_phase(),
-             training_2d_phase(), driver_phase()]
+             training_2d_phase(), device_loop_phase(), driver_phase()]
     print(f"launches by main path (ex1 serving, ex2 serving, ex1 training, ex2 training, "
-          f"drivers): {paths}")
+          f"device loop, drivers): {paths}")
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths)
         if k["launches"] == 0:

@@ -1,5 +1,6 @@
-"""What the two Darcy drivers share: their flags, and the part of a run
-from the built model to the reported metric (counterparts of
+"""What the two Darcy drivers share: their flags (the device-loop flags
+with the ex1 driver too), and the part of a run from the built model to
+the reported metric (counterparts of
 ``utils/args.py::get_args_2d``, ``utils/config.py::merge_config``,
 ``utils/naming.py::get_model_name`` and the tail of ``examples/ex2_darcy.py``).
 """
@@ -78,23 +79,36 @@ def get_args_2d(subsample_nodes=3, subsample_attn=10, gamma=0.5, noise=0.0,
                         "microbatches (the full-batch gradient)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
+    add_device_loop_args(p)
     # not ported: accepted so that a JAX command line is told why it fails
     p.add_argument("--scheduler", type=str, default="onecycle",
                    choices=("onecycle", "plateau"))
-    p.add_argument("--device-data", action="store_true", default=False)
     p.add_argument("--rollback-on-spike", type=float, default=None)
-    p.add_argument("--epochs-per-dispatch", type=int, default=1)
     p.add_argument("--resume-epoch", type=int, default=None)
     args = p.parse_args(argv)
     unported = {"--scheduler plateau": args.scheduler != "onecycle",
-                "--device-data": args.device_data,
                 "--rollback-on-spike": args.rollback_on_spike is not None,
-                "--epochs-per-dispatch": args.epochs_per_dispatch != 1,
                 "--resume-epoch": args.resume_epoch is not None}
     for flag, hit in unported.items():
         if hit:
             raise NotImplementedError(f"{flag} is not ported")
     return args
+
+
+def add_device_loop_args(p: argparse.ArgumentParser):
+    """``--device-data`` (on by default, as in the JAX drivers) and
+    ``--epochs-per-dispatch``: `run_train`'s ``device_loop`` and
+    ``epochs_per_dispatch``."""
+    p.add_argument("--device-data", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="keep the dataset on the device and run each epoch in "
+                        "train.device_loop (each train step a CUDA graph replay "
+                        "on the GPU); --no-device-data uses the host DataLoader "
+                        "per batch")
+    p.add_argument("--epochs-per-dispatch", type=int, default=1,
+                   help="with --device-data: run k epochs per host read with "
+                        "the best epoch tracked on the device (checkpoint IO and "
+                        "early stop react at block granularity)")
 
 
 def merge_args(config: dict, args: argparse.Namespace) -> dict:
@@ -155,7 +169,8 @@ def train_and_report(model: torch.nn.Module, config: dict, args, train_dataset,
         model, train_step, eval_step, optimizer, train_loader, valid_loader,
         epochs=args.epochs, lr_schedule=optimizer.lr_schedule, patience=None,
         model_save_path=model_save_path or MODEL_PATH, model_name=names[0],
-        result_name=names[1], ema_decay=args.ema_decay, normalizer=normalizer)
+        result_name=names[1], ema_decay=args.ema_decay, normalizer=normalizer,
+        device_loop=args.device_data, epochs_per_dispatch=args.epochs_per_dispatch)
     model.load_state_dict(best_params)
     val = validate_epoch(eval_step, valid_loader)
     print(f"\nBest model's validation metric: {val:.4e}")

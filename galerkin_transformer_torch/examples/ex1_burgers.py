@@ -5,7 +5,10 @@ Trains the ex1 ``SimpleTransformer`` (fourier or galerkin encoder +
 spectral decoder) on exact synthetic Cole–Hopf Burgers solutions with the
 reference recipe: H¹-regularized relative L2, Adam with the 1cycle lr and
 cycled β1, global-norm clip 0.999.  Runs on the GPU unless ``--device cpu``
-is given; without a GPU that default raises.
+is given; without a GPU that default raises.  With ``--device-data`` (the
+default, as in the JAX driver) the data stays on the device and each train
+step is a CUDA graph replay on the GPU (``train.device_loop``);
+``--no-device-data`` runs the host loop.
 
     python -m galerkin_transformer_torch.examples.ex1_burgers --attention-type galerkin --bf16
     python -m galerkin_transformer_torch.examples.ex1_burgers --device cpu \\
@@ -26,6 +29,7 @@ from ..train import (AdamOneCycle, WeightedL2Loss, make_burgers_steps, run_train
                      validate_epoch)
 from ..utils import load_config, resolve_device
 from ..utils.config import MODEL_PATH
+from ._darcy import add_device_loop_args
 
 SEED = int(os.environ.get("SEED", 1127802))
 N_GRID_FINE = 2 ** 13
@@ -61,6 +65,7 @@ def get_args(argv=None) -> argparse.Namespace:
                    help="bfloat16 encoder activations (params/decoder stay f32)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
+    add_device_loop_args(p)
     return p.parse_args(argv)
 
 
@@ -119,7 +124,8 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
         model, train_step, eval_step, optimizer, train_loader, valid_loader,
         epochs=args.epochs, lr_schedule=optimizer.lr_schedule, patience=None,
         model_save_path=model_save_path or MODEL_PATH, model_name=ckpt_name,
-        result_name=result_name, ema_decay=args.ema_decay)
+        result_name=result_name, ema_decay=args.ema_decay,
+        device_loop=args.device_data, epochs_per_dispatch=args.epochs_per_dispatch)
 
     model.load_state_dict(best_params)
     val = validate_epoch(eval_step, valid_loader)

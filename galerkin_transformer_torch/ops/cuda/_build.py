@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build"
@@ -85,12 +87,23 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     return logs
 
 
+def refuse_under_capture(what: str):
+    """Raise if the current CUDA stream is capturing a graph: `what` (a
+    build, a library load, an occupancy query, an allocation that must
+    outlive the graph) belongs to the warm-up call before a capture."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} under CUDA graph capture: run the call once "
+                           f"on the capturing stream before capturing it")
+
+
 def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C entry point `symbol` of library `name`, built on first use.
-    Every entry point returns a CUDA error code (``int``)."""
+    Every entry point returns a CUDA error code (``int``).  The first use
+    (an ``nvcc`` build, a library load) must not be under graph capture."""
     with _lock:
         key = (name, symbol)
         if key not in _fns:
+            refuse_under_capture(f"loading {name}.{symbol}")
             if name not in _libs:
                 build([name])
                 _libs[name] = ctypes.CDLL(str(_library_path(name)))

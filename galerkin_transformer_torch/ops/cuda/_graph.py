@@ -1,15 +1,19 @@
-"""The device kernels that one call launches, read from a CUDA graph of it.
+"""The device kernels of a CUDA graph, and so those that one call launches.
 
 ``torch.profiler`` has been seen to drop the record of a short kernel (a
 profile of a call of one kernel came back empty, three times running), so a
 check of how many kernels a call runs reads the kernel nodes of a graph
 captured from the call instead: the graph holds every kernel the call
-enqueues, and is dropped without being launched.  The graph is read through
-the CUDA driver (``libcuda``), which every machine with a card has."""
+enqueues, and is dropped without being launched.  A step that is captured
+once and replayed (``train/device_loop.py``) launches the kernels of its
+graph on every replay: its launches are the graph's kernels times the
+replays.  The graph is read through the CUDA driver (``libcuda``), which
+every machine with a card has."""
 from __future__ import annotations
 
 import ctypes
-from collections import deque
+import re
+from collections import Counter, deque
 
 import torch
 
@@ -24,6 +28,12 @@ class _KernelNodeParams(ctypes.Structure):
                 ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
 
 
+class _EdgeData(ctypes.Structure):
+    """CUgraphEdgeData of the driver API (CUDA 12.3 on)."""
+    _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+
 def _driver():
     cu = ctypes.CDLL("libcuda.so.1")
 
@@ -33,6 +43,7 @@ def _driver():
             text = ctypes.c_char_p()
             cu.cuGetErrorName(status, ctypes.byref(text))
             raise RuntimeError(f"{name} failed: {(text.value or b'?').decode()} ({status})")
+    call.has = lambda name: hasattr(cu, name)
     return call
 
 
@@ -48,7 +59,12 @@ def _nodes_in_order(call, graph: ctypes.c_void_p) -> list:
     call("cuGraphGetEdges", graph, None, None, ctypes.byref(n_edges))
     src = (ctypes.c_void_p * n_edges.value)()
     dst = (ctypes.c_void_p * n_edges.value)()
-    if n_edges.value:   # the driver refuses arrays for no edges
+    if n_edges.value and call.has("cuGraphGetEdges_v2"):
+        # an edge with data of its own (a programmatic launch dependency, as
+        # some library kernels on sm_90 use) makes the first form refuse
+        data = (_EdgeData * n_edges.value)()
+        call("cuGraphGetEdges_v2", graph, src, dst, data, ctypes.byref(n_edges))
+    elif n_edges.value:   # the driver refuses arrays for no edges
         call("cuGraphGetEdges", graph, src, dst, ctypes.byref(n_edges))
     after = {node: [] for node in nodes}
     waits = dict.fromkeys(nodes, 0)
@@ -67,19 +83,12 @@ def _nodes_in_order(call, graph: ctypes.c_void_p) -> list:
     return order
 
 
-def launched_kernels(fn) -> list[str]:
-    """The (mangled) names of the device kernels that one ``fn()`` call
-    launches, in launch order; copies and fills are not kernels.  fn runs
-    once on a side stream first, so that whatever it builds or allocates on
-    first use exists, then once under stream capture on that stream."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn()
-    stream.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
-        fn()
+def graph_kernels(graph: torch.cuda.CUDAGraph) -> list[str]:
+    """The (mangled) names of the device kernels of a captured `graph`, in
+    launch order; copies and fills are not kernels.  The graph must have
+    been made with ``keep_graph=True`` (torch keeps the captured graph
+    beside what it instantiates), so that what a replay launches can be
+    read: each replay launches every one of these kernels once."""
     call = _driver()
     names = []
     for node in _nodes_in_order(call, ctypes.c_void_p(graph.raw_cuda_graph())):
@@ -96,3 +105,47 @@ def launched_kernels(fn) -> list[str]:
             call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(params.kern))
         names.append(name.value.decode())
     return names
+
+
+def launched_kernels(fn) -> list[str]:
+    """The (mangled) names of the device kernels that one ``fn()`` call
+    launches, in launch order; copies and fills are not kernels.  fn runs
+    once on a side stream first, so that whatever it builds or allocates on
+    first use exists, then once under stream capture on that stream."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
+        fn()
+    return graph_kernels(graph)
+
+
+# the one device kernel of each wrapper's call that counts its launch, by
+# the identifier in its mangled name: the galerkin kernels by name, the
+# three chains (one template, chain::chain_kernel<T, TM, ...>) by the rows
+# per step TM of their source.  A call's other kernels (a chain's layout
+# prologue, the backward's dpos sum) are not counted.
+_WRAPPER_OF = ((re.compile(r"13scores_kernel"), "galerkin_scores"),
+               (re.compile(r"18scores_bf16_kernel"), "galerkin_scores_bf16"),
+               (re.compile(r"17scores_bwd_kernel"), "galerkin_scores_bwd"),
+               (re.compile(r"22scores_bwd_bf16_kernel"), "galerkin_scores_bwd_bf16"),
+               (re.compile(r"12chain_kernelILi\d+ELi32E"), "fourier_chain"),
+               (re.compile(r"12chain_kernelILi\d+ELi128E"), "fourier_chain_bf16"),
+               (re.compile(r"12chain_kernelILi\d+ELi64E"), "fourier_chain_mixed"))
+
+
+def wrapper_launches(names: list) -> Counter:
+    """How many calls of each kernel wrapper (``galerkin_scores``,
+    ``fourier_chain``, ...) the mangled kernel `names` (of a graph, or of a
+    call) hold: the count that each wrapper's ``.launches`` would add for
+    them.  A ``chain_kernel`` of none of the three chains raises."""
+    counts = Counter()
+    for name in names:
+        hits = [wrapper for pattern, wrapper in _WRAPPER_OF if pattern.search(name)]
+        if not hits and "12chain_kernel" in name:
+            raise ValueError(f"a chain kernel of no known chain: {name}")
+        counts.update(hits)
+    return counts

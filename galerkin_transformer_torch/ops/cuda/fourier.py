@@ -118,7 +118,11 @@ def fourier_chain(a, b, c) -> torch.Tensor:
     takes contiguous tensors with d, d_out <= 128.  Each float32 launch
     (the split of b and c into their bfloat16 parts, then the chain: two
     device kernels) adds one to ``fourier_chain.launches``, each
-    bfloat16 launch one to ``fourier_chain_bf16.launches``.
+    bfloat16 launch one to ``fourier_chain_bf16.launches``.  The counters
+    are Python attributes that move when the wrapper runs: a call under
+    CUDA graph capture counts once, and the graph's replays do not count
+    (their launches are the graph's kernels times the replays,
+    ``_graph.py``).
     """
     _check_types(a, b, c)
     if a.dtype == torch.bfloat16:

@@ -95,6 +95,7 @@ def _occupancy_splits(name: str, bh: int, n: int, d_k: int, p: int,
     at this (d_k, p), asked once)."""
     key = (name, device.index, d_k, p)
     if key not in _CTAS_PER_SM:
+        _build.refuse_under_capture(f"the {name} occupancy query at d_k={d_k}, p={p}")
         fn = _build.function(name, f"{name}_ctas_per_sm", _CTAS_ARGTYPES)
         ctas = ctypes.c_int(0)
         with torch.cuda.device(device):
@@ -110,15 +111,28 @@ def _occupancy_splits(name: str, bh: int, n: int, d_k: int, p: int,
 
 _CTAS_PER_SM: dict = {}
 _TICKETS: dict = {}
+# pools that a larger one replaced: a CUDA graph captured with one of them
+# still writes to it on every replay, so none is ever freed
+_RETIRED_TICKETS: list = []
 
 
 def _tickets(device: torch.device, stream: int, count: int) -> torch.Tensor:
     """`count` int counters the CTAs of the forward and backward kernels
     take tickets from, per (device, stream): zero between launches (each
     kernel's last CTAs reset them), so launches of these kernels ordered on
-    one stream can share them."""
+    one stream can share them.
+
+    A pool is made outside stream capture, by a first call on the stream
+    (the warm-up before a capture): under capture it would come from the
+    graph's private memory.  A graph captured on the stream keeps the pool's
+    address, and the pool outlives it: a larger pool that replaces it later
+    leaves it allocated.  Replays of the graph and calls on the stream it
+    was captured on must not run at once (they would share the counters)."""
     key = (device.index, stream)
     if key not in _TICKETS or _TICKETS[key].numel() < count:
+        _build.refuse_under_capture(f"a ticket pool of {count} counters")
+        if key in _TICKETS:
+            _RETIRED_TICKETS.append(_TICKETS[key])
         _TICKETS[key] = torch.zeros(count, dtype=torch.int32, device=device)
     return _TICKETS[key]
 
@@ -240,7 +254,10 @@ def galerkin_scores(k, v, pos, scale_k, bias_k, scale_v, bias_v,
     ``galerkin_scores.launches``, each bfloat16 forward launch one to
     ``galerkin_scores_bf16.launches``, each float32 backward launch one to
     ``galerkin_scores_bwd.launches`` and each bfloat16 backward launch one
-    to ``galerkin_scores_bwd_bf16.launches``.
+    to ``galerkin_scores_bwd_bf16.launches``.  The counters are Python
+    attributes that move when the wrapper runs: a call under CUDA graph
+    capture counts once, and the graph's replays do not count (their
+    launches are the graph's kernels times the replays, ``_graph.py``).
     """
     return GalerkinScores.apply(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps)
 

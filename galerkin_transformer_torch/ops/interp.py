@@ -62,13 +62,14 @@ def interp_matrix(n_in: int, n_out: int, dtype=np.float32) -> np.ndarray:
     return m.astype(dtype)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _interp_matrix_on(n_in: int, n_out: int, dtype: torch.dtype,
                       device: torch.device) -> torch.Tensor:
     """`interp_matrix` rounded to `dtype` and held in float32 on `device`.
     Made as a normal tensor even when the first caller runs under
     inference_mode (a Predictor), so that training can save it for
-    backward."""
+    backward.  Never evicted: a CUDA graph captured with it reads it at its
+    address on every replay."""
     with torch.inference_mode(False):
         m = torch.from_numpy(interp_matrix(n_in, n_out))
         return m.to(dtype).float().to(device)

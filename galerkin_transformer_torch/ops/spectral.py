@@ -78,11 +78,13 @@ def _dft_mats_1d(n: int, modes: int):
     return c, s, ci, si
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _dft_mats_1d_on(n: int, modes: int, device: torch.device):
     """The matrices of `_dft_mats_1d`, copied once to `device`.  Made as
     normal tensors even when the first caller runs under inference_mode
-    (a Predictor), so that training can save them for backward."""
+    (a Predictor), so that training can save them for backward.  Never
+    evicted: a CUDA graph captured with them reads them at their address
+    on every replay."""
     with torch.inference_mode(False):
         return tuple(torch.from_numpy(m).to(device) for m in _dft_mats_1d(n, modes))
 
@@ -103,10 +105,10 @@ def _dft_mats_2d_axis0(n: int, modes: int):
     return fc, fs, ic, is_
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _dft_mats_2d_axis0_on(n: int, modes: int, device: torch.device):
-    """`_dft_mats_2d_axis0` on `device`, made outside inference_mode (see
-    `_dft_mats_1d_on`)."""
+    """`_dft_mats_2d_axis0` on `device`, made outside inference_mode and
+    never evicted (see `_dft_mats_1d_on`)."""
     with torch.inference_mode(False):
         return tuple(torch.from_numpy(m).to(device)
                      for m in _dft_mats_2d_axis0(n, modes))

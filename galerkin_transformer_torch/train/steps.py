@@ -13,6 +13,13 @@ A batch is a dict of numpy arrays or tensors (``node``, ``pos``, ``grid``,
 ``None`` leaves); each step moves it to the model's device.  Nothing here
 synchronizes with the device: the caller reads the returned tensors when it
 needs the numbers.
+
+A train step may be captured in a CUDA graph and replayed
+(``train/device_loop.py``): it sets each parameter's ``.grad`` to the
+gradient it computed, so after a capture ``.grad`` is the graph's buffer,
+which every replay rewrites; and ``train_step.generators`` lists the
+``torch.Generator`` objects it draws from besides the default one, which
+the graph must register so that each replay draws anew.
 """
 from __future__ import annotations
 
@@ -27,9 +34,10 @@ class _DarcyLosses(NamedTuple):
 
 
 def to_device(batch: Dict, device: torch.device) -> Dict:
-    """Every non-None leaf as a tensor on `device`."""
-    return {k: None if x is None else torch.as_tensor(x, device=device)
-            for k, x in batch.items()}
+    """Every non-None leaf as a tensor on `device`; a tensor already there
+    is passed as it is (no copy: the device loop's batches stay put)."""
+    return {k: x if x is None or (isinstance(x, torch.Tensor) and x.device == device)
+            else torch.as_tensor(x, device=device) for k, x in batch.items()}
 
 
 def microbatched_value_and_grad(forward_loss: Callable, accum_steps: int):
@@ -107,6 +115,8 @@ def make_burgers_steps(model: torch.nn.Module, loss_fn, metric_fn,
         optimizer.step()
         return res.loss + res.reg + res.ortho, res.reg, res.ortho
 
+    train_step.generators = ()
+
     @torch.no_grad()
     def eval_step(batch: Dict) -> torch.Tensor:
         model.eval()
@@ -166,6 +176,8 @@ def make_darcy_steps(model: torch.nn.Module, loss_fn, metric_fn,
             p.grad = g
         optimizer.step()
         return loss + reg, reg
+
+    train_step.generators = () if noise_generator is None else (noise_generator,)
 
     @torch.no_grad()
     def eval_step(batch: Dict) -> torch.Tensor:

@@ -704,3 +704,136 @@ def test_2d_model_on_cuda_matches_cpu(dev, attention_type, dtype):
     # bfloat16 steps (2^-8) that add up over the layers
     tol = 1e-3 if dtype is None else 2.0 ** -6
     np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+
+
+# ------------------------------------------------------------- device loop
+
+def _ex1_samples(n_samples, n=256, seed=0):
+    """A map-style dataset of `n_samples` random ex1 samples (a list)."""
+    rng = np.random.default_rng(seed)
+    pos = np.linspace(0, 1, n, dtype=np.float32)[:, None]
+    return [dict(node=rng.standard_normal((n, 1)).astype(np.float32), pos=pos, grid=pos,
+                 target=rng.standard_normal((n, 2)).astype(np.float32))
+            for _ in range(n_samples)]
+
+
+def _ex1_steps(device, attention_type, dtype, total=20):
+    from galerkin_transformer_torch import SimpleTransformer, load_config
+    from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss,
+                                                  make_burgers_steps)
+    cfg = load_config("ex1_burgers")
+    cfg.update(n_hidden=32, num_encoder_layers=2, dim_feedforward=64,
+               freq_dim=16, fourier_modes=8, attention_type=attention_type)
+    model = SimpleTransformer.from_config(cfg, device=device, seed=3, dtype=dtype)
+    opt = AdamOneCycle(model.parameters(), 1e-3, total_steps=total)
+    loss = WeightedL2Loss(regularizer=True, h=1 / 256, gamma=0.1)
+    return (model, opt) + make_burgers_steps(model, loss, WeightedL2Loss(h=1 / 256), opt)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("attention_type", ["galerkin", "fourier"])
+def test_captured_step_matches_the_eager_step(dev, attention_type, dtype):
+    """Five steps of the device loop (two eager warm-up steps, the capture,
+    then replays) against five eager host-loop steps from the same weights
+    and batches: the same losses and weights, and the captured graph holds
+    exactly the kernel launches of one eager step."""
+    from galerkin_transformer_torch.data import DataLoader
+    from galerkin_transformer_torch.ops.cuda._graph import wrapper_launches
+    from galerkin_transformer_torch.train import DeviceEpochRunner
+    counters = [GS.galerkin_scores, GS.galerkin_scores_bf16, GS.galerkin_scores_bwd,
+                GS.galerkin_scores_bwd_bf16, FC.fourier_chain, FC.fourier_chain_bf16,
+                FC.fourier_chain_mixed]
+    data = _ex1_samples(20)
+    model, opt, train_step, eval_step = _ex1_steps(dev, attention_type, dtype)
+    valid = DataLoader(data[:8], 3)   # two full batches and a tail of 2
+    runner = DeviceEpochRunner(model, train_step, eval_step, opt,
+                               DataLoader(data, 4, drop_last=True), valid, verbose=False)
+    losses, _ = runner.epoch(0)
+    assert (runner.eager_steps, runner.replays) == (2, 3) and opt.count == 5
+    # the validation's full batches: one eager step, then replays of a capture
+    metrics = [float(eval_step(b)) for b in valid]
+    want_val = (3 * metrics[0] + 3 * metrics[1] + 2 * metrics[2]) / 8
+    np.testing.assert_allclose(float(runner.validate()), want_val, rtol=1e-6)
+    assert [r for _, r in runner.replayed()] == [3, 3]
+    ref_model, _, ref_step, _ = _ex1_steps(dev, attention_type, dtype)
+    before = [c.launches for c in counters]
+    want = []
+    for i, batch in enumerate(DataLoader(data, 4, drop_last=True)):
+        want.append([float(x) for x in ref_step(batch)])
+        if i == 0:
+            per_step = {c.__name__: c.launches - b for c, b in zip(counters, before)
+                        if c.launches != b}
+    assert per_step and dict(wrapper_launches(runner.kernels())) == per_step
+    rtol = 1e-5 if dtype is None else 1e-3
+    np.testing.assert_allclose(losses, want, rtol=rtol)
+    atol = 1e-6 if dtype is None else 1e-4
+    for (key, p), q in zip(model.state_dict().items(), ref_model.state_dict().values()):
+        torch.testing.assert_close(p, q, rtol=rtol, atol=atol, msg=key)
+
+
+@pytest.mark.parametrize("noise", ["dropout", "online-noise"])
+def test_replays_draw_fresh_dropout_and_noise(dev, noise):
+    """Every sample alike and an lr of about zero: each step sees the same
+    batch at the same weights, so only fresh dropout masks (the default
+    generator) or fresh input noise (the step's own registered generator)
+    make the replays' losses differ.  They differ, and stay finite."""
+    from galerkin_transformer_torch import FourierTransformer2D, load_config
+    from galerkin_transformer_torch.data import DataLoader, darcy_grids, get_scaler_sizes
+    from galerkin_transformer_torch.train import (AdamOneCycle, DeviceEpochRunner,
+                                                  WeightedL2Loss2d, make_darcy_steps)
+    n_f, n_c = 29, 15
+    cfg = load_config("ex2_darcy")
+    cfg.update(n_hidden=32, num_encoder_layers=2, n_head=2, dim_feedforward=64,
+               freq_dim=8, fourier_modes=4)
+    if noise == "online-noise":
+        cfg.update(dropout=0.0, downscaler_dropout=0.0, upscaler_dropout=0.0,
+                   ffn_dropout=0.0, encoder_dropout=0.0, decoder_dropout=0.0)
+    cfg["downscaler_size"], cfg["upscaler_size"] = get_scaler_sizes(n_f, n_c)
+    rng = np.random.default_rng(5)
+    pos, grid = darcy_grids(n_f, n_c)
+    sample = dict(node=rng.standard_normal((n_f, n_f, 1)).astype(np.float32),
+                  coeff=rng.uniform(3, 12, (n_f, n_f, 1)).astype(np.float32),
+                  pos=pos, grid=grid,
+                  target=rng.standard_normal((n_f, n_f, 1)).astype(np.float32),
+                  target_grad=rng.standard_normal((n_f, n_f, 2)).astype(np.float32))
+    model = FourierTransformer2D.from_config(cfg, device=dev, seed=3)
+    opt = AdamOneCycle(model.parameters(), 1e-30, total_steps=20)
+    train_step, eval_step = make_darcy_steps(
+        model, WeightedL2Loss2d(regularizer=True, h=1 / n_f, gamma=0.5),
+        WeightedL2Loss2d(h=1 / n_f), opt,
+        online_noise=0.1 if noise == "online-noise" else 0.0,
+        noise_generator=torch.Generator(device=dev).manual_seed(1))
+    runner = DeviceEpochRunner(model, train_step, eval_step, opt,
+                               DataLoader([sample] * 16, 2, drop_last=True),
+                               DataLoader([sample] * 2, 2), verbose=False)
+    losses, val = runner.epoch(0)
+    assert runner.replays == 6 and np.isfinite(losses).all() and np.isfinite(val)
+    replayed = losses[2:, 0]
+    assert len(set(replayed.tolist())) == len(replayed), losses
+
+
+def test_tickets_survive_capture(dev):
+    """A galerkin forward captured on a stream keeps its ticket pool: a
+    replay, an eager call on the same stream that needs a larger pool, then
+    another replay and eager call each give the eager result."""
+    small = _galerkin_bf16_args(dev, (2, 2, 900, 32, 2), 21, torch.float32)
+    large = _galerkin_bf16_args(dev, (4, 8, 900, 32, 2), 22, torch.float32)
+    call = lambda a: GS.galerkin_scores(*a[:3], *a[3], 1e-5)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        want = call(small)
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = call(small)
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            got.zero_()
+            graph.replay()
+            again = call(small)
+            bigger = call(large)   # a larger pool for this stream
+        stream.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    want_large = GS.galerkin_scores_reference(*large[:3], *large[3], 1e-5)
+    torch.testing.assert_close(bigger, want_large, rtol=0,
+                               atol=1e-4 * want_large.abs().max().item())

@@ -404,7 +404,9 @@ def test_darcy_drivers_train_on_the_cpu_and_their_checkpoint_serves(
     driver = importlib.import_module(f"galerkin_transformer_torch.examples.{module}")
     epochs = int(argv[argv.index("--epochs") + 1])
     passes = _record_shuffled_passes(monkeypatch)
-    val = driver.main(SMALL + argv, model_save_path=str(tmp_path / "ckpt"))
+    # the host loop: its shuffle is the loader's, which JAX's host loop shares
+    val = driver.main(SMALL + argv + ["--no-device-data"],
+                      model_save_path=str(tmp_path / "ckpt"))
     out = capsys.readouterr().out
     assert np.isfinite(val) and f"Best model's validation metric: {val:.4e}" in out
     assert out.count("epoch [") == epochs
@@ -443,6 +445,34 @@ def test_darcy_drivers_train_on_the_cpu_and_their_checkpoint_serves(
     assert served.shape == (2, n_out, n_out, 1) and np.isfinite(served).all()
 
 
+@pytest.mark.parametrize("module,argv,stem", [
+    ("ex2_darcy", ["--subsample-nodes", "1", "--subsample-attn", "5", "--epochs", "1"],
+     "darcy_31_6gt_128d_qkv_32f_*"),
+    ("ex3_darcy_inv", ["--subsample-nodes", "2", "--subsample-attn", "6", "--epochs", "3",
+                       "--online-noise", "--epochs-per-dispatch", "2"],
+     "darcy_inv_16_6gt_192d_qkv_4h_1.0e-02_*"),
+], ids=["ex2", "ex3-online-noise-blocks"])
+def test_darcy_drivers_train_on_the_device_loop(data_path, tmp_path, capsys, module, argv,
+                                                stem):
+    """--device-data (the default): the data on the device, every epoch in
+    the device loop (k epochs per host read with --epochs-per-dispatch),
+    and a best checkpoint with its normalizer."""
+    import importlib
+    driver = importlib.import_module(f"galerkin_transformer_torch.examples.{module}")
+    epochs = int(argv[argv.index("--epochs") + 1])
+    val = driver.main(SMALL + argv, model_save_path=str(tmp_path / "ckpt"))
+    out = capsys.readouterr().out
+    assert np.isfinite(val) and f"Best model's validation metric: {val:.4e}" in out
+    assert out.count("epoch [") == epochs and "device-resident data" in out
+    assert ("1 host read per 2 epochs" in out) == ("--epochs-per-dispatch" in argv)
+    ckpts = list((tmp_path / "ckpt").glob(stem + ".ckpt"))
+    assert len(ckpts) == 1
+    ckpt = load_checkpoint(str(ckpts[0]))
+    assert ckpt["normalizer"][0].dim() == 3 and 0 <= ckpt["epoch"] < epochs
+    logs = list((tmp_path / "ckpt").glob(stem + ".jsonl"))
+    assert len(logs) == 1 and len(logs[0].read_text().splitlines()) == epochs
+
+
 @pytest.mark.parametrize("module", ["ex2_darcy", "ex3_darcy_inv"])
 def test_darcy_drivers_raise_without_a_gpu_and_on_unported_flags(monkeypatch, module):
     import importlib
@@ -450,7 +480,7 @@ def test_darcy_drivers_raise_without_a_gpu_and_on_unported_flags(monkeypatch, mo
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         driver.main(["--epochs", "1", "--n-samples", "8", "--n-grid-fine", "13"])
-    for flags in (["--device-data"], ["--scheduler", "plateau"], ["--rollback-on-spike", "10"],
-                  ["--resume-epoch", "1"], ["--epochs-per-dispatch", "2"]):
+    for flags in (["--scheduler", "plateau"], ["--rollback-on-spike", "10"],
+                  ["--resume-epoch", "1"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             driver.main(["--device", "cpu"] + flags)

@@ -305,7 +305,7 @@ def test_run_train_stops_on_a_non_finite_loss(tmp_path, capsys):
 
 @pytest.mark.parametrize("option", [
     dict(plateau=object()), dict(resume=True), dict(async_checkpoint=True),
-    dict(device_loop=True), dict(rollback_on_spike=10.0)])
+    dict(rollback_on_spike=10.0)])
 def test_run_train_refuses_unported_options(option):
     with pytest.raises(NotImplementedError, match="not ported"):
         run_train(None, None, None, None, [], [], **option)
@@ -323,7 +323,29 @@ def test_driver_trains_on_the_cpu(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert np.isfinite(val) and f"Best model's validation metric: {val:.4e}" in out
     assert out.count("epoch [") == 2
+    assert "device-resident data: 8 train" in out   # --device-data is the default
     assert len(list((tmp_path / "ckpt").glob("burgers_128_4ft_96d_qkv_*.ckpt"))) == 1
+
+
+@pytest.mark.parametrize("flags,device_loop", [
+    (["--epochs-per-dispatch", "2"], True), (["--no-device-data"], False)],
+    ids=["device-data-blocks", "host-loop"])
+def test_driver_trains_on_the_cpu_with_the_loop_flags(tmp_path, monkeypatch, capsys, flags,
+                                                      device_loop):
+    from galerkin_transformer_torch.examples import ex1_burgers
+    from galerkin_transformer_torch.utils import config
+    monkeypatch.setattr(config, "DATA_PATH", str(tmp_path / "data"))
+    val = ex1_burgers.main(["--device", "cpu", "--subsample", "64", "--n-samples", "16",
+                            "--epochs", "3", "--batch-size", "4"] + flags,
+                           model_save_path=str(tmp_path / "ckpt"))
+    out = capsys.readouterr().out
+    assert np.isfinite(val) and f"Best model's validation metric: {val:.4e}" in out
+    assert out.count("epoch [") == 3
+    assert ("device-resident data" in out) == device_loop
+    if device_loop:
+        assert "1 host read per 2 epochs" in out
+    log = list((tmp_path / "ckpt").glob("burgers_128_4ft_96d_qkv_*.jsonl"))
+    assert len(log) == 1 and len(log[0].read_text().splitlines()) == 3
 
 
 def test_driver_raises_without_a_gpu(monkeypatch):

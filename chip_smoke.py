@@ -53,12 +53,19 @@
 5. serving phase, the port's first main path: ``Predictor`` answers batches
    of 8 with the full-width ex1 SimpleTransformer (random weights from a
    seed), for fourier and galerkin attention at n = 8192 and n = 2048,
-   timing each request on the host clock (numpy in, numpy out).  Outputs
-   must be finite, of shape (8, n, 1), agree with the same weights run on
-   the CPU through the plain path, and each attention type's kernel must
-   launch exactly once per encoder layer per request; then the same with
+   timing each request on the host clock (numpy in, numpy out).  The first
+   request of a shape runs eagerly and the forward is captured; every
+   later request is a replay of that CUDA graph, whose kernel nodes must
+   hold exactly one launch of the attention type's kernel per encoder
+   layer (launches on this path: the graph's kernels times the replays).
+   Outputs must be finite, of shape (8, n, 1), agree with the same weights
+   run on the CPU through the plain path and with the model called eagerly
+   on the card (bit for bit with cuDNN's deterministic algorithms), which
+   is timed beside the replays, each with its device time, busy share and
+   the memory the shape's graph holds; then the same with
    ``dtype=torch.bfloat16`` (the bfloat16 kernels, against the CPU's
-   bfloat16 plain path);
+   bfloat16 plain path), and a galerkin model with heads of 129 columns
+   (no kernel);
    2D serving phase, the third main path: ``Predictor`` answers batches of 4
    with the full-width ex2 Darcy FourierTransformer2D (random weights from a
    seed, a normalizer, the Dirichlet boundary) at (n_f, n_c) = (141, 43) and
@@ -67,7 +74,11 @@
    path (float32: to 1e-3 of how far the model's own part of the output
    varies over the grid, the normalizer undone; bfloat16: to 2^-6 of that
    part's largest entry), with exactly 6 launches of the matching galerkin
-   kernel per request;
+   kernel per request in the graph;
+   ex4 serving phase, the fifth main path: ``Predictor`` answers batches of
+   4 with the full-width ex4 FourierTransformer2DLite (862,049 parameters,
+   a 10-step window on the 64² grid, float32) as above, with no kernel of
+   the port in the graph;
 6. training phase, the second main path: one ``train_step`` of the
    full-width ex1 model on a batch of 8 at n = 2048 from ``BurgersDataset``
    and ``DataLoader`` (synthetic Cole–Hopf data), on the card and on the
@@ -91,6 +102,13 @@
    bf16 step once more with ``galerkin_scores_bwd_bf16`` replaced by its
    plain version on the same CUDA inputs, then with the bf16 forward kernel
    replaced too, and prints those gaps;
+   ex4 training phase: one ``make_ns_steps`` step of the full-width ex4
+   model (a 10-step rollout and one backward through it, batch 4 from
+   ``NavierStokesDatasetLite``, made by the torch generator on the card)
+   on the card and on the CPU, dropout off, losses and every gradient
+   agreeing; timed steps with the config's dropout; then the step through
+   ``DeviceEpochRunner`` (the whole rollout and its backward one captured
+   graph) against the eager host loop, as in item 7; no kernel launches;
 7. device-loop phase, the training paths as the drivers run them by
    default: the ex1 step (both attention types, float32 and bfloat16) and
    the ex2 step (float32 and bfloat16) through ``DeviceEpochRunner`` on the
@@ -102,12 +120,14 @@
    printed); the median step time inside the loop (epoch wall over its
    steps), the eager step time, the device time of a step and the busy
    share; launches on this path are the graph's kernels times the replays;
-8. driver phase: ``examples/ex1_burgers.py``, ``examples/ex2_darcy.py`` (2
-   epochs each) and ``examples/ex3_darcy_inv.py`` (1 epoch) of the port,
-   in-process, on the device loop (their default); their losses must be
-   finite, and the ex1 and ex2 best checkpoints must load into
-   ``Predictor`` and serve a batch (ex2 with the normalizer saved in the
-   checkpoint);
+8. driver phase: ``examples/ex1_burgers.py``, ``examples/ex2_darcy.py``,
+   ``examples/ex4_navier_stokes.py`` (2 epochs each; ex4 on 20 trajectories
+   made afresh, the training set by the torch generator on the card, the
+   validation set by the host solver, each timed) and
+   ``examples/ex3_darcy_inv.py`` (1 epoch) of the port, in-process, on the
+   device loop (their default); their losses must be finite, and the ex1,
+   ex2 and ex4 best checkpoints must load into ``Predictor`` and serve a
+   batch (ex2 with the normalizer saved in the checkpoint);
 9. prints one {"kernels": [...]} line (launches summed over the main
    paths), then the result line {"ok": true, "device": {...}}.
 
@@ -121,6 +141,7 @@ import contextlib
 import glob
 import importlib
 import importlib.util
+import inspect
 import json
 import math
 import os
@@ -138,15 +159,19 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from galerkin_transformer_torch import (FourierTransformer2D, Predictor,  # noqa: E402
+from galerkin_transformer_torch import (FourierTransformer2D,  # noqa: E402
+                                        FourierTransformer2DLite, Predictor,
                                         SimpleTransformer, load_config)
 from galerkin_transformer_torch.data import (BurgersDataset, DarcyDataset,  # noqa: E402
-                                             DataLoader, darcy_grids, get_scaler_sizes)
+                                             DataLoader, NavierStokesDatasetLite,
+                                             darcy_grids, get_scaler_sizes, ns_grids)
 from galerkin_transformer_torch.examples import (ex1_burgers, ex2_darcy,  # noqa: E402
-                                                 ex3_darcy_inv)
+                                                 ex3_darcy_inv, ex4_navier_stokes)
 from galerkin_transformer_torch.train import (AdamOneCycle, DeviceEpochRunner,  # noqa: E402
                                               WeightedL2Loss, WeightedL2Loss2d,
-                                              make_burgers_steps, make_darcy_steps)
+                                              make_burgers_steps, make_darcy_steps,
+                                              make_ns_steps)
+from galerkin_transformer_torch.utils import config as port_config  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import _build  # noqa: E402
 from galerkin_transformer_torch.ops.cuda._graph import (launched_kernels,  # noqa: E402
                                                         wrapper_launches)
@@ -237,9 +262,9 @@ TOL_TRAIN_GRAD_BF16 = 2.0 ** -4
 TRAIN_2D = dict(n_grid_fine=211, subsample_nodes=1, subsample_attn=5,
                 n_samples_synthetic=10)
 TRAIN_2D_STEPS = 8
-# device-loop phase: epochs of each runner (ex1: 4 steps an epoch, ex2: 2), the
+# device-loop phase: epochs of each runner (ex1: 4 steps an epoch, ex2: 2, ex4: 5), the
 # first with the eager warm-up and the capture; the rest time the replays
-LOOP_EPOCHS = {"ex1": 8, "ex2": 12}
+LOOP_EPOCHS = {"ex1": 8, "ex2": 12, "ex4": 4}
 # the device loop against as many eager host-loop steps from the same weights:
 # float32 relative (losses; each weight against its tensor's largest entry)
 TOL_LOOP = 1e-5
@@ -251,6 +276,16 @@ EX2_TRAIN_SHAPE = (BATCH_2D, 4, ((TRAIN_2D["n_grid_fine"] - 1) // TRAIN_2D["subs
                                  + 1) ** 2, 32, 2)   # (4, 4, 1849, 32, 2)
 NO_DROPOUT = dict(dropout=0.0, downscaler_dropout=0.0, upscaler_dropout=0.0,
                   ffn_dropout=0.0, encoder_dropout=0.0, decoder_dropout=0.0)
+# a served ex1 galerkin model whose heads are wider than the kernels take:
+# d_k + pos_dim = 128 + 1
+WIDE_EX1 = dict(attention_type="galerkin", n_hidden=256, n_head=2, dim_feedforward=512)
+# ex4 (config.yml:121-146) at the JAX driver's defaults: the 64² grid, a
+# 10-step input window and a 10-step rollout; the training phases' set is
+# made by the torch generator on the card (above 16·64² points)
+EX4_PARAMS = 862049
+EX4_GRID = 64
+EX4_WINDOW = 10
+EX4_SAMPLES = 20
 
 
 def peaks_for(name: str) -> dict:
@@ -1186,22 +1221,35 @@ def device_ms(work) -> float:
     return start.elapsed_time(end)
 
 
-def breakdown(work, top: int = 5) -> str:
-    """Device time of one `work()` call (a served request, or a train step)
-    by kernel (torch.profiler), and the device's busy share of its
-    host-clock time, the final synchronize included."""
+def profile(work, top: int = 5) -> dict:
+    """One `work()` call (a served request, or a train step) under
+    torch.profiler: its device time (the kernels' and copies' times
+    summed), its host-clock time with the final synchronize, the device's
+    busy share, how many kernel records the profiler saw, and the top
+    kernels by time."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         work()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.device_time_total / 1e3, e.key) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-    busy_ms = sum(ms for ms, _ in kernels)
-    top_k = ", ".join(f"{key[:48]} {ms:.3f}" for ms, key in sorted(kernels, reverse=True)[:top])
-    return (f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms profiled "
-            f"({100 * busy_ms / wall_ms:.1f} %); top kernels (ms): {top_k}")
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    top_k = ", ".join(f"{e.key[:48]} {e.device_time_total / 1e3:.3f}" for e in
+                      sorted(events, key=lambda e: e.device_time_total, reverse=True)[:top])
+    kernels = sum(e.count for e in events if "emcpy" not in e.key and "emset" not in e.key)
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms, busy=busy_ms / wall_ms, kernels=kernels,
+                top=top_k)
+
+
+def breakdown(work, top: int = 5) -> str:
+    """Device time of one `work()` call by kernel (torch.profiler), and the
+    device's busy share of its host-clock time, the final synchronize
+    included."""
+    p = profile(work, top)
+    return (f"device busy {p['busy_ms']:.3f} ms of {p['wall_ms']:.3f} ms profiled "
+            f"({100 * p['busy']:.1f} %); top kernels (ms): {p['top']}")
 
 
 # each wrapper counts its kernel's launches on itself
@@ -1223,27 +1271,89 @@ def reset_launches():
         fn.launches = 0
 
 
-def serve_and_check(tag, gpu, cpu, batches, kernel, per_request, points, shape, tol,
-                    check=None, scale_of=lambda ref: float(np.abs(ref).max())):
-    """Warm up, time `gpu` on `batches` (host clock, numpy in, numpy out),
-    hold the launch counts to exactly `per_request` of `kernel` and none of
-    any other, check every output, and compare the first one with `cpu` on
-    the same weights, relative to `scale_of` the CPU's output (its largest
-    entry, unless the caller knows a part of it that the model does not
-    compute).  Returns the first output."""
-    gpu.warmup(batches[0])
-    before = launches()
+def eager_request(model, normalizer, batch) -> np.ndarray:
+    """The serving path without a graph: the model called directly under
+    inference_mode, numpy in, numpy out (what `Predictor` ran before it
+    captured one graph per request shape)."""
+    dev = next(model.parameters()).device
+    kwargs = ({"normalizer": normalizer}
+              if "normalizer" in inspect.signature(model.forward).parameters else {})
+    with torch.inference_mode():
+        node, pos, grid = (torch.as_tensor(batch[k], device=dev).float()
+                           for k in ("node", "pos", "grid"))
+        return model(node, None, pos, grid, **kwargs)["preds"].cpu().numpy()
+
+
+def timed_requests(serve, batches) -> tuple:
+    """Each batch served once, host clock (numpy in, numpy out: each call
+    ends synchronized): (outputs, ms per request)."""
     outs, ms = [], []
-    for batch in batches:   # Predictor returns numpy: each call ends synchronized
+    for batch in batches:
         t0 = time.perf_counter()
-        outs.append(gpu(batch))
+        outs.append(serve(batch))
         ms.append((time.perf_counter() - t0) * 1e3)
-    after = launches()
-    for name in after:
-        want = per_request * len(batches) if name == kernel else 0
-        if after[name] - before[name] != want:
-            raise AssertionError(f"{tag}: {name} launched {after[name] - before[name]} "
-                                 f"times in {len(batches)} requests, expected {want}")
+    return outs, ms
+
+
+def graph_launches(replayed) -> Counter:
+    """The kernel launches of captured paths, from their (graph kernels,
+    replays) pairs (served requests, train or eval steps): the wrapper
+    launches among each graph's kernels times its replays, less the one
+    capture, which the wrappers counted and which launched nothing."""
+    out = Counter()
+    for kernels, replays in replayed:
+        for name, n in wrapper_launches(kernels).items():
+            out[name] += n * (replays - 1)
+    return out
+
+
+def forward_launches(forwards) -> Counter:
+    """`graph_launches` of served requests' replayed forwards."""
+    return graph_launches((f.kernels(), f.replays) for f in forwards)
+
+
+def runner_launches(runners) -> Counter:
+    """`graph_launches` of `DeviceEpochRunner`s' captured train and eval steps."""
+    return graph_launches(pair for runner in runners for pair in runner.replayed())
+
+
+def serve_and_check(tag, gpu, cpu, batches, kernel, per_request, points, shape, tol,
+                    replayed, check=None, scale_of=lambda ref: float(np.abs(ref).max())):
+    """`gpu` (a Predictor on the card) serves `batches` of one shape: the
+    first request eagerly, then the capture, then each request a replay of
+    its graph.  Holds the graph's kernel nodes to exactly `per_request`
+    launches of `kernel` (None: no kernel) and none of any other, and the
+    wrappers' counters still over the replays; checks every output, and
+    compares the first one with `cpu` on the same weights, relative to
+    `scale_of` the CPU's output (its largest entry, unless the caller knows
+    a part of it that the model does not compute).  Times each request
+    replayed and eagerly (`eager_request`, the same batches), with the
+    device time (kernels and copies, torch.profiler) and busy share of
+    each, a replay's device span (CUDA events around the graph alone, the
+    gaps between its kernels included), and the memory the shape holds
+    (reserved before and after its first request and capture).  A second
+    Predictor, captured with cuDNN's deterministic algorithms, must give
+    the eager call's output bit for bit; on cuDNN's defaults the replay
+    and the eager call agree to `tol`.  Appends the shape's replayed
+    forwards to `replayed`.  Returns the first output."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    gpu.warmup(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_mib = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
+    forward = gpu.captured(batches[0])
+    replayed.append(forward)
+    want = {} if kernel is None else {kernel: per_request}
+    graph = dict(wrapper_launches(forward.kernels()))
+    if forward.graph is None or graph != want:
+        raise AssertionError(f"{tag}: the captured request holds {graph}, expected {want}")
+    before, replays = launches(), forward.replays
+    outs, ms = timed_requests(gpu, batches)
+    if launches() != before or forward.replays - replays != len(batches):
+        raise AssertionError(f"{tag}: {forward.replays - replays} replays of "
+                             f"{len(batches)} requests, counters moved")
     for out in outs:
         if out.shape != shape or not np.isfinite(out).all():
             raise AssertionError(f"{tag}: bad output {out.shape}, "
@@ -1253,15 +1363,38 @@ def serve_and_check(tag, gpu, cpu, batches, kernel, per_request, points, shape, 
     ref = cpu(batches[0])
     err = float(np.abs(outs[0] - ref).max())
     scale = scale_of(ref)
-    latency = statistics.median(ms)
-    print(f"serve {tag}: median request {latency:.2f} ms over {len(batches)} "
-          f"(min {min(ms):.2f}, max {max(ms):.2f}), "
-          f"{points / latency * 1e3:.4e} grid-points/s, "
-          f"{kernel} launches/request={per_request}, "
-          f"vs CPU plain path max_abs_err={err:.3e} scale={scale:.3e} tol={tol:.1e}")
-    if not err <= tol * scale:
-        raise AssertionError(f"{tag}: GPU and CPU disagree")
-    print(f"  breakdown {tag}: {breakdown(lambda: gpu(batches[1]))}")
+
+    def eager(batch):
+        return eager_request(gpu.model, gpu.normalizer, batch)
+
+    eager(batches[0])
+    eager_outs, eager_ms = timed_requests(eager, batches)
+    gap = float(np.abs(outs[0] - eager_outs[0]).max())
+    with deterministic_cudnn():
+        det = Predictor(gpu.model, normalizer=gpu.normalizer).warmup(batches[0])
+        replayed.append(det.captured(batches[0]))
+        bit_equal = np.array_equal(det(batches[1]), eager(batches[1]))
+    latency, eager_latency = statistics.median(ms), statistics.median(eager_ms)
+    p, q = profile(lambda: gpu(batches[1])), profile(lambda: eager(batches[1]))
+    span = device_ms(forward)   # a replay alone, the gaps between its kernels included
+    print(f"serve {tag}: median request {latency:.3f} ms replayed over {len(batches)} (min "
+          f"{min(ms):.3f}, max {max(ms):.3f}), eager {eager_latency:.3f} ms "
+          f"({eager_latency / latency:.2f}x); device time {p['busy_ms']:.3f} ms replayed "
+          f"(busy {100 * p['busy_ms'] / latency:.1f} % of the request), {q['busy_ms']:.3f} ms "
+          f"eager (busy {100 * q['busy_ms'] / eager_latency:.1f} %); a replay's span "
+          f"{span:.3f} ms ({100 * span / latency:.1f} % of the request); graph memory "
+          f"{held_mib:.1f} MiB; "
+          f"{points / latency * 1e3:.4e} grid-points/s; launches/request {want or 0} (graph "
+          f"kernel nodes); vs CPU plain path max_abs_err={err:.3e} scale={scale:.3e} "
+          f"tol={tol:.1e}; replay vs eager {gap:.3e} on cuDNN defaults, "
+          f"{'bit-equal' if bit_equal else 'NOT bit-equal'} with cuDNN deterministic")
+    seen = ("all" if p["kernels"] >= len(forward.kernels())
+            else f"only {p['kernels']}; the graph's kernels: "
+                 f"{Counter(demangled(forward.kernels())).most_common(8)}")
+    print(f"  breakdown {tag} (a replay of {len(forward.kernels())} kernel nodes, the profiler "
+          f"saw {seen}): top kernels (ms): {p['top']}")
+    if not (err <= tol * scale and gap <= tol * scale and bit_equal):
+        raise AssertionError(f"{tag}: GPU and CPU, or replay and eager call, disagree")
     return outs[0]
 
 
@@ -1278,9 +1411,11 @@ def dtype_name(dtype):
 
 
 def serving_phase(rng):
-    """The first main path: ex1, in float32 and with the bfloat16 encoder.
-    Returns the launch counts of its whole run."""
+    """The first main path: ex1, in float32 and with the bfloat16 encoder,
+    and a galerkin model with heads wider than the kernels take.  Returns
+    the launch counts of its whole run, the graph replays' included."""
     reset_launches()
+    replayed = []
     for dtype in DTYPES:
         for attention_type in ATTENTION_TYPES:
             cfg = load_config("ex1_burgers")
@@ -1297,16 +1432,28 @@ def serving_phase(rng):
                     f"ex1 {attention_type} {dtype_name(dtype)} n={n} batch={BATCH}",
                     gpu, cpu, batches, KERNEL_OF[attention_type, dtype], n_layers,
                     BATCH * n, (BATCH, n, 1),
-                    TOL_SERVE if dtype is None else TOL_SERVE_BF16)
-    return launches()
+                    TOL_SERVE if dtype is None else TOL_SERVE_BF16, replayed)
+    # heads of d_k + pos_dim = 129 columns take the XLA route: no kernel
+    cfg = {**load_config("ex1_burgers"), **WIDE_EX1}
+    n = RESOLUTIONS[1]
+    gpu, cpu = (Predictor(SimpleTransformer.from_config(cfg, device=d, seed=SEED), device=d)
+                for d in ("cuda", "cpu"))
+    serve_and_check(f"ex1 galerkin f32 wide heads (d_k+p=129) n={n} batch={BATCH}", gpu, cpu,
+                    [make_batch(rng, n) for _ in range(REQUESTS)], None, 0, BATCH * n,
+                    (BATCH, n, 1), TOL_SERVE, replayed)
+    counts = Counter(launches())
+    counts.update(forward_launches(replayed))
+    return {name: counts[name] for name in COUNTERS}
 
 
 def serving_2d_phase(rng):
     """The third main path: the full-width ex2 Darcy FourierTransformer2D
     behind `Predictor`, with a normalizer and the Dirichlet boundary, at two
     grid pairs, in float32 and with the bfloat16 encoder and scalers.
-    Returns the launch counts of its whole run."""
+    Returns the launch counts of its whole run, the graph replays'
+    included."""
     reset_launches()
+    replayed = []
 
     def ring_is_zero(out):
         if (out[:, 0].any() or out[:, -1].any() or out[:, :, 0].any()
@@ -1352,13 +1499,44 @@ def serving_2d_phase(rng):
                 f"scalers={cfg['downscaler_size']},{cfg['upscaler_size']} batch={BATCH_2D}",
                 gpu, cpu, batches, KERNEL_OF["galerkin", dtype], n_layers,
                 BATCH_2D * n_f * n_f, (BATCH_2D, n_f, n_f, 1),
-                TOL_SERVE if dtype is None else TOL_SERVE_BF16, check=ring_is_zero,
+                TOL_SERVE if dtype is None else TOL_SERVE_BF16, replayed, check=ring_is_zero,
                 scale_of=variation if dtype is None else largest)
         far = float(np.abs(first[torch.bfloat16] - first[None]).max())
         print(f"  ex2 (n_f,n_c)=({n_f},{n_c}): bf16 output is {far:.3e} from the f32 output, "
               f"whose model part is at most {largest(first[None]):.3e} and varies by "
               f"{variation(first[None]):.3e}")
-    return launches()
+    counts = Counter(launches())
+    counts.update(forward_launches(replayed))
+    return {name: counts[name] for name in COUNTERS}
+
+
+def serving_ex4_phase(rng):
+    """The fifth main path, served: one rollout step of the full-width ex4
+    FourierTransformer2DLite (862,049 parameters, batch 4 of a 10-step window
+    on the 64² grid, float32) behind `Predictor`, against the CPU plain path.
+    No kernel of the port runs on this path (the attention takes the block
+    form without per-head LN).  Returns the launch counts of its run."""
+    reset_launches()
+    replayed = []
+    cfg = load_config("ex4_navier_stokes")
+    gpu = Predictor(FourierTransformer2DLite.from_config(cfg, seed=SEED))
+    cpu = Predictor(FourierTransformer2DLite.from_config(cfg, device="cpu", seed=SEED),
+                    device="cpu")
+    same_weights(gpu, cpu)
+    n_params = sum(p.numel() for p in gpu.model.parameters())
+    if n_params != EX4_PARAMS:
+        raise AssertionError(f"ex4: {n_params} parameters, expected {EX4_PARAMS}")
+    pos, grid = ns_grids(EX4_GRID)
+    batches = [dict(node=rng.standard_normal((BATCH_2D, EX4_GRID, EX4_GRID, EX4_WINDOW))
+                    .astype(np.float32), pos=pos[None].repeat(BATCH_2D, 0),
+                    grid=grid[None].repeat(BATCH_2D, 0)) for _ in range(REQUESTS)]
+    serve_and_check(f"ex4 galerkin f32 n={EX4_GRID}^2 window={EX4_WINDOW} batch={BATCH_2D} "
+                    f"({n_params} parameters)", gpu, cpu, batches, None, 0,
+                    BATCH_2D * EX4_GRID ** 2, (BATCH_2D, EX4_GRID, EX4_GRID, 1), TOL_SERVE,
+                    replayed)
+    counts = Counter(launches())
+    counts.update(forward_launches(replayed))
+    return {name: counts[name] for name in COUNTERS}
 
 
 def compare_step(tag, steps, models, batch, per_step, tol_loss, tol_grad):
@@ -1568,18 +1746,6 @@ def training_2d_phase():
     return counts
 
 
-def graph_launches(runners) -> Counter:
-    """The kernel launches of the runners' captured steps (train and eval):
-    the wrapper launches among each graph's kernels times its replays, less
-    the one capture, which the wrappers counted and which launched nothing."""
-    out = Counter()
-    for runner in runners:
-        for kernels, replays in runner.replayed():
-            for name, n in wrapper_launches(kernels).items():
-                out[name] += n * (replays - 1)
-    return out
-
-
 @contextlib.contextmanager
 def deterministic_cudnn():
     """cuDNN's deterministic algorithms for the block: the 2D model's
@@ -1738,7 +1904,74 @@ def device_loop_phase():
             TOL_LOOP if dtype is None else TOL_TRAIN_LOSS_BF16,
             TOL_LOOP if dtype is None else TOL_TRAIN_GRAD_BF16, BATCH_2D * n_f * n_f))
     counts = Counter(launches())
-    counts.update(graph_launches(runners))
+    counts.update(runner_launches(runners))
+    return {name: counts[name] for name in COUNTERS}
+
+
+@contextlib.contextmanager
+def fresh_data_dir():
+    """An empty data directory for the block: the datasets made in it are
+    made afresh (and their making timed), not read from a cache."""
+    old = port_config.DATA_PATH
+    with tempfile.TemporaryDirectory() as tmp:
+        port_config.DATA_PATH = tmp
+        try:
+            yield tmp
+        finally:
+            port_config.DATA_PATH = old
+
+
+def ex4_train_data():
+    """The ex4 training set of the training phases, made afresh by the torch
+    generator on the card, and its shuffled batches of BATCH_2D."""
+    with fresh_data_dir():
+        t0 = time.perf_counter()
+        train = NavierStokesDatasetLite(n_samples_synthetic=EX4_SAMPLES)
+        made = time.perf_counter() - t0
+    print(f"NavierStokesDatasetLite: {len(train)} trajectories of {EX4_WINDOW} + {EX4_WINDOW} "
+          f"steps at {EX4_GRID}^2 from the torch generator on the card in {made:.2f} s")
+    return train, list(DataLoader(train, BATCH_2D, shuffle=True, drop_last=True, seed=SEED))
+
+
+def ex4_step(device, config):
+    """The full-width ex4 FourierTransformer2DLite, its optimizer and its
+    `make_ns_steps` steps (a 10-step rollout)."""
+    model = FourierTransformer2DLite.from_config(config, device=device, seed=SEED)
+    opt = AdamOneCycle(model.parameters(), 1e-3, 100 * (EX4_SAMPLES // BATCH_2D),
+                       grad_clip=0.99)
+    h = 1 / EX4_GRID
+    return (model, opt) + make_ns_steps(
+        model, WeightedL2Loss2d(regularizer=True, h=h, gamma=0.1), WeightedL2Loss2d(h=h), opt,
+        time_steps=EX4_WINDOW)
+
+
+def ex4_phase():
+    """The fifth main path, trained: one `make_ns_steps` step of the
+    full-width ex4 model (a 10-step rollout and one backward through all of
+    it) on the card and on the CPU from the same weights with dropout off;
+    timed eager steps with the config's dropout; then the step through
+    `DeviceEpochRunner` (the whole rollout and its backward one captured
+    graph) against the eager host loop.  No kernel of the port may launch.
+    Returns the launch counts of the run, the replays' included."""
+    reset_launches()
+    train, batches = ex4_train_data()
+    cfg = load_config("ex4_navier_stokes")
+    steps, models = {}, {}
+    for device in ("cuda", "cpu"):
+        models[device], _, steps[device], _ = ex4_step(device, {**cfg, **NO_DROPOUT})
+    same_weights(models["cuda"], models["cpu"])
+    tag = f"ex4 galerkin f32 n={EX4_GRID}^2 rollout={EX4_WINDOW} batch={BATCH_2D}"
+    points = BATCH_2D * EX4_GRID ** 2 * EX4_WINDOW   # grid points through the model a step
+    compare_step(tag, steps, models, batches[0], {}, TOL_TRAIN_LOSS, TOL_TRAIN_GRAD)
+    del steps, models
+    _, _, step, _ = ex4_step("cuda", cfg)   # the config's ffn dropout
+    time_steps(tag + " config dropout", step, batches, TRAIN_2D_STEPS, points)
+    runners = loop_case(tag, lambda device: ex4_step(device, {**cfg, **NO_DROPOUT}), train,
+                        BATCH_2D, {}, LOOP_EPOCHS["ex4"], TOL_LOOP, TOL_LOOP, points)
+    counts = Counter(launches())
+    counts.update(runner_launches(runners))
+    if any(counts.values()):
+        raise AssertionError(f"ex4: the port's kernels launched {dict(counts)}")
     return {name: counts[name] for name in COUNTERS}
 
 
@@ -1754,9 +1987,10 @@ def _driver_outputs(tag, tmp, val, epochs):
 
 
 def driver_phase():
-    """The port's entry points: ex1 and ex2 for 2 epochs, each best
+    """The port's entry points: ex1, ex2 and ex4 for 2 epochs, each best
     checkpoint served, and ex3 for 1 epoch.  The Darcy drivers run on a
-    small synthetic grid at the configs' widths.  Returns the launch
+    small synthetic grid at the configs' widths, ex4 on a few trajectories
+    at its own grid and width.  Returns the launch
     counts of the run, the device loop's graph replays included (the drivers
     run it by default)."""
     reset_launches()
@@ -1769,19 +2003,22 @@ def driver_phase():
 
     DeviceEpochRunner.__init__ = recording_init
     try:
-        counts = Counter(_drive())
+        counts, served = _drive()
     finally:
         DeviceEpochRunner.__init__ = init
-    if len(runners) != 3 or any(r.replays == 0 for r in runners):
+    counts = Counter(counts)
+    counts.update(forward_launches(served))
+    if len(runners) != 4 or any(r.replays == 0 for r in runners):
         raise AssertionError(f"driver: {len(runners)} device loops, replays "
                              f"{[r.replays for r in runners]}")
-    counts.update(graph_launches(runners))
+    counts.update(runner_launches(runners))
     return {name: counts[name] for name in COUNTERS}
 
 
 def _drive():
-    """The three drivers, each best checkpoint checked; the wrappers' launch
-    counts of the run."""
+    """The four drivers, each best checkpoint checked; the wrappers' launch
+    counts of the run, and the served checkpoints' replayed forwards."""
+    served = []
     with tempfile.TemporaryDirectory() as tmp:
         val = ex1_burgers.main(["--n-samples", str(TRAIN_SAMPLES), "--epochs", "2"],
                                model_save_path=tmp)
@@ -1792,6 +2029,7 @@ def _drive():
                            n_samples_synthetic=TRAIN_SAMPLES)
     batch = next(iter(DataLoader(valid, 4)))
     out = pred(batch)
+    served.append(pred.captured(batch))
     if out.shape != (4, TRAIN_N, 1) or not np.isfinite(out).all():
         raise AssertionError(f"driver: served checkpoint gave {out.shape}")
     print(f"driver ex1: 2 epochs, best validation metric {val:.4e}; the best checkpoint "
@@ -1811,7 +2049,9 @@ def _drive():
         raise AssertionError("driver ex2: the checkpoint carried no normalizer")
     pos, fine = darcy_grids(n_f, n_c)
     node = np.random.default_rng(SEED).standard_normal((4, n_f, n_f, 1)).astype(np.float32)
-    out = pred(dict(node=node, pos=pos[None].repeat(4, 0), grid=fine[None].repeat(4, 0)))
+    batch = dict(node=node, pos=pos[None].repeat(4, 0), grid=fine[None].repeat(4, 0))
+    out = pred(batch)
+    served.append(pred.captured(batch))
     if (out.shape != (4, n_f, n_f, 1) or not np.isfinite(out).all() or out[:, 0].any()
             or out[:, :, -1].any() or not out[:, 1:-1, 1:-1].any()):
         raise AssertionError(f"driver ex2: served checkpoint gave {out.shape}")
@@ -1824,7 +2064,30 @@ def _drive():
                                   "--epochs", "1"], model_save_path=tmp)
         _driver_outputs("ex3", tmp, val, 1)
     print(f"driver ex3 (f32, inverse, 61 grid): 1 epoch, validation metric {val:.4e}")
-    return launches()
+    # ex4 makes its data afresh: the training set by the torch generator on
+    # the card, the validation set (max(n // 4, 4) trajectories, under the
+    # device threshold) by the host solver; the dataset prints each time
+    with tempfile.TemporaryDirectory() as tmp, fresh_data_dir():
+        t0 = time.perf_counter()
+        val = ex4_navier_stokes.main(["--n-samples", str(EX4_SAMPLES), "--epochs", "2"],
+                                     model_save_path=tmp)
+        run_s = time.perf_counter() - t0
+        ckpt = _driver_outputs("ex4", tmp, val, 2)
+        pred = Predictor.from_checkpoint(FourierTransformer2DLite.from_config(
+            load_config("ex4_navier_stokes"), seed=1), ckpt)
+        valid = NavierStokesDatasetLite(train_data=False,
+                                        n_samples_synthetic=max(EX4_SAMPLES // 4, 4))
+    batch = next(iter(DataLoader(valid, BATCH_2D)))
+    outs = [pred(batch) for _ in range(3)]   # eager and capture, then two replays
+    served.append(pred.captured(batch))
+    if (any(o.shape != (BATCH_2D, EX4_GRID, EX4_GRID, 1) or not np.isfinite(o).all()
+            for o in outs) or not np.array_equal(outs[1], outs[2])
+            or pred.captured(batch).replays != 2):
+        raise AssertionError(f"driver ex4: served checkpoint gave {outs[0].shape}")
+    print(f"driver ex4 (f32, {EX4_SAMPLES} trajectories at {EX4_GRID}^2): 2 epochs in "
+          f"{run_s:.1f} s with the data, best validation metric {val:.4e}; the best "
+          f"checkpoint served a validation batch of {outs[0].shape} (2 replays)")
+    return launches(), served
 
 
 def main(argv=None) -> int:
@@ -1885,10 +2148,11 @@ def main(argv=None) -> int:
     galerkin_bwd_phase(rng, dev, peak, EX2_TRAIN_SHAPE, eps=1e-7)
     fourier_bwd_phase(rng, dev, peak)
     wide_phase(rng, dev)
-    paths = [serving_phase(rng), serving_2d_phase(rng), training_phase(),
-             training_2d_phase(), device_loop_phase(), driver_phase()]
-    print(f"launches by main path (ex1 serving, ex2 serving, ex1 training, ex2 training, "
-          f"device loop, drivers): {paths}")
+    paths = [serving_phase(rng), serving_2d_phase(rng), serving_ex4_phase(rng),
+             training_phase(), training_2d_phase(), ex4_phase(), device_loop_phase(),
+             driver_phase()]
+    print(f"launches by main path (ex1 serving, ex2 serving, ex4 serving, ex1 training, "
+          f"ex2 training, ex4 training, device loop, drivers): {paths}")
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths)
         if k["launches"] == 0:

@@ -7,12 +7,12 @@ kernel under ``csrc/``, built with ``nvcc`` on first use and bound with
 nor anything of the JAX package, and builds nothing.
 
 Entry points (``SimpleTransformer``, ``FourierTransformer2D``,
-``Predictor``) run on ``cuda``
+``FourierTransformer2DLite``, ``Predictor``) run on ``cuda``
 unless the caller passes ``device="cpu"``; without a GPU they raise.
 """
-from .models import FourierTransformer2D, SimpleTransformer
+from .models import FourierTransformer2D, FourierTransformer2DLite, SimpleTransformer
 from .serve import Predictor
 from .utils import load_config
 
-__all__ = ["SimpleTransformer", "FourierTransformer2D", "Predictor",
-           "load_config"]
+__all__ = ["SimpleTransformer", "FourierTransformer2D", "FourierTransformer2DLite",
+           "Predictor", "load_config"]

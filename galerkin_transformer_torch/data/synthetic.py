@@ -1,5 +1,5 @@
-"""Synthetic Burgers and Darcy data (counterpart of ``data/synthetic.py``,
-its host generators for ex1 to ex3).
+"""Synthetic Burgers, Darcy and Navier–Stokes data (counterpart of
+``data/synthetic.py``, its host generators for ex1 to ex4).
 
 The reference trains on Li et al's FNO benchmark .mat files, which are not
 redistributable; these generators produce the same kind of problem from a
@@ -130,3 +130,51 @@ def darcy_fd(n_samples: int = 64, n_grid: int = 85, seed: int = 1127802,
         u = spsolve(A, np.ones(n_in * n_in))
         sols[s, 1:-1, 1:-1] = u.reshape(n_in, n_in)
     return coeff, sols
+
+
+def navier_stokes_spectral(n_samples: int = 8, n_grid: int = 64,
+                           n_steps_record: int = 20, record_every: float = 1.0,
+                           visc: float = 1e-3, dt: float = 1e-3,
+                           seed: int = 1127802):
+    """2D NS vorticity on the torus, pseudo-spectral Crank–Nicolson.
+
+    w_t + u·∇w = ν Δw + f,  f = 0.1(sin(2π(x+y)) + cos(2π(x+y))),
+    matching Li et al's data-generation setup.  Returns
+    (N, n, n, n_steps_record) vorticity snapshots at times
+    record_every, 2·record_every, …
+    """
+    rng = np.random.default_rng(seed)
+    w0 = grf_2d(n_samples, n_grid, rng, tau=7.0, alpha=2.5)
+
+    k = np.fft.fftfreq(n_grid, d=1.0 / n_grid) * 2 * np.pi
+    kx = k[:, None]
+    ky_full = k[None, :]
+    lap = -(kx ** 2 + ky_full ** 2)
+    lap_inv = np.where(lap == 0, 1.0, 1.0 / np.where(lap == 0, 1.0, lap))
+
+    xs = np.linspace(0, 1, n_grid, endpoint=False)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    f = 0.1 * (np.sin(2 * np.pi * (X + Y)) + np.cos(2 * np.pi * (X + Y)))
+    f_hat = np.fft.fft2(f)
+
+    # 2/3 dealiasing
+    kmax = n_grid // 3
+    dealias = ((np.abs(np.fft.fftfreq(n_grid) * n_grid)[:, None] <= kmax)
+               & (np.abs(np.fft.fftfreq(n_grid) * n_grid)[None, :] <= kmax))
+
+    w_hat = np.fft.fft2(w0, axes=(1, 2))
+    out = np.zeros((n_samples, n_grid, n_grid, n_steps_record))
+    steps_per_record = int(round(record_every / dt))
+    for rec in range(n_steps_record):
+        for _ in range(steps_per_record):
+            psi_hat = -w_hat * lap_inv
+            u = np.real(np.fft.ifft2(1j * ky_full * psi_hat, axes=(1, 2)))
+            v = np.real(np.fft.ifft2(-1j * kx * psi_hat, axes=(1, 2)))
+            w_x = np.real(np.fft.ifft2(1j * kx * w_hat, axes=(1, 2)))
+            w_y = np.real(np.fft.ifft2(1j * ky_full * w_hat, axes=(1, 2)))
+            adv_hat = np.fft.fft2(u * w_x + v * w_y, axes=(1, 2)) * dealias
+            # Crank–Nicolson on diffusion, explicit advection + forcing
+            w_hat = ((1 + 0.5 * dt * visc * lap) * w_hat
+                     + dt * (-adv_hat + f_hat)) / (1 - 0.5 * dt * visc * lap)
+        out[..., rec] = np.real(np.fft.ifft2(w_hat, axes=(1, 2)))
+    return out

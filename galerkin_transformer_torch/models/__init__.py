@@ -5,8 +5,8 @@ from .layers import (FeedForward, Identity, SimpleAttention, SpectralConv1d,
                      SpectralConv2d)
 from .regressor import PointwiseRegressor, SpectralRegressor
 from .scaler import DownScaler, UpScaler
-from .transformer import (FourierTransformer2D, SimpleTransformer,
-                          inverse_transform)
+from .transformer import (FourierTransformer2D, FourierTransformer2DLite,
+                          SimpleTransformer, inverse_transform)
 
 __all__ = ["SimpleTransformerEncoderLayer", "FeedForward", "Identity",
            "SimpleAttention", "SpectralConv1d", "SpectralConv2d",
@@ -14,4 +14,4 @@ __all__ = ["SimpleTransformerEncoderLayer", "FeedForward", "Identity",
            "Conv2dResBlock", "Conv2dEncoder", "Interp2dEncoder",
            "ConvTranspose2d", "DeConv2dBlock", "Interp2dUpsample",
            "DownScaler", "UpScaler", "SimpleTransformer",
-           "FourierTransformer2D", "inverse_transform"]
+           "FourierTransformer2D", "FourierTransformer2DLite", "inverse_transform"]

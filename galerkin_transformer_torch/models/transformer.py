@@ -1,6 +1,7 @@
 """Operator-learning models (counterpart of ``models/transformer.py``;
-reference libs/model.py:752-1184): the 1D ``SimpleTransformer`` and the 2D
-dual-resolution ``FourierTransformer2D``.
+reference libs/model.py:752-1283): the 1D ``SimpleTransformer``, the 2D
+dual-resolution ``FourierTransformer2D`` and the Navier–Stokes step model
+``FourierTransformer2DLite``.
 
 I/O protocol as in the JAX package: inputs node, edge, pos, grid (+
 weight); output dict(preds, preds_freq, preds_latent, attn_weights).  The
@@ -277,3 +278,79 @@ class FourierTransformer2D(_ConfigurableModel):
             if boundary_value is not None:
                 x = x + boundary_value
         return dict(preds=x, preds_freq=None, preds_latent=[], attn_weights=[])
+
+
+class FourierTransformer2DLite(_ConfigurableModel):
+    """2D model of one Navier–Stokes rollout step (ex4;
+    transformer.py:474-566, reference model.py:1186-1283): node (B, n, n,
+    T_in) and pos (B, n², 2) are concatenated and lifted by an Identity
+    Dense, then the encoder stack on all n² points, dropout and a 2D
+    ``SpectralRegressor`` (no spatial fc) give the next field
+    (B, n, n, n_targets).
+
+    Built and placed as `SimpleTransformer` is; `dtype` is the encoder's
+    compute type (float32 parameters, float32 lift and decoder).  Options
+    of the JAX model that this port does not carry raise
+    ``NotImplementedError``.
+    """
+
+    def __init__(self, node_feats: int = 12, pos_dim: int = 2, n_targets: int = 1,
+                 n_hidden: int = 48, num_encoder_layers: int = 4, n_head: int = 1,
+                 dim_feedforward: Optional[int] = 96, attention_type: str = "galerkin",
+                 xavier_init: float = 1e-2, diagonal_weight: float = 1e-2,
+                 layer_norm: bool = True, attn_norm: Optional[bool] = False,
+                 norm_type: Optional[str] = "layer", norm_eps: Optional[float] = None,
+                 return_attn_weight: bool = False, return_latent: bool = False,
+                 freq_dim: int = 20, num_regressor_layers: int = 2,
+                 fourier_modes: int = 12, spacial_dim: int = 2, spacial_fc: bool = False,
+                 regressor_activation: Optional[str] = None,
+                 dropout: Optional[float] = 0.0, encoder_dropout: Optional[float] = 0.0,
+                 decoder_dropout: Optional[float] = 0.0,
+                 ffn_dropout: Optional[float] = 0.05,
+                 score_dropout: Optional[float] = None, dtype=None, seq_mesh=None,
+                 *, device: Optional[Union[str, torch.device]] = None,
+                 seed: int = 0):
+        super().__init__()
+        _raise_unported("FourierTransformer2DLite", {
+            "seq_mesh (sequence-parallel attention)": seq_mesh is not None,
+            "return_attn_weight": return_attn_weight,
+            "return_latent": return_latent,
+        })
+        device = resolve_device(device)
+        g = torch.Generator().manual_seed(seed)
+        self.n_hidden, self.dtype = n_hidden, dtype
+
+        self.feat_extract = Identity(node_feats, n_hidden, generator=g)
+        self.encoder_layers = nn.ModuleList(
+            SimpleTransformerEncoderLayer(
+                d_model=n_hidden, n_head=n_head, attention_type=attention_type,
+                dim_feedforward=default(dim_feedforward, 2 * n_hidden),
+                layer_norm=layer_norm, attn_norm=attn_norm,
+                norm_type=norm_type, norm_eps=norm_eps,
+                pos_dim=pos_dim, xavier_init=xavier_init,
+                diagonal_weight=diagonal_weight, dropout=encoder_dropout,
+                ffn_dropout=ffn_dropout, score_dropout=score_dropout,
+                dtype=dtype, generator=g)
+            for _ in range(num_encoder_layers))
+        self.dropout = nn.Dropout(default(dropout, 0.05))
+        self.regressor = SpectralRegressor(
+            in_dim=n_hidden, n_hidden=n_hidden, freq_dim=freq_dim,
+            out_dim=n_targets, num_spectral_layers=num_regressor_layers,
+            modes=fourier_modes, spacial_dim=spacial_dim,
+            spacial_fc=spacial_fc, dim_feedforward=freq_dim,
+            activation=regressor_activation, dropout=decoder_dropout,
+            generator=g)
+        self.to(device)
+
+    def forward(self, node, edge=None, pos=None, grid=None):
+        bsz, input_dim = node.shape[0], node.shape[-1]
+        n_grid = grid.shape[1]
+        x = self.feat_extract(torch.cat(
+            [node.reshape(bsz, -1, input_dim), pos.to(node.dtype)], dim=-1))
+        for layer in self.encoder_layers:
+            x = layer(x, pos)
+        if self.dtype is not None:
+            x = x.float()   # the decoder stays float32
+        x = self.dropout(x).reshape(bsz, n_grid, n_grid, self.n_hidden)
+        x = self.regressor(x, grid=grid)
+        return dict(preds=x, preds_freq=None, preds_latent=None, attn_weights=None)

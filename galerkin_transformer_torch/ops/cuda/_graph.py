@@ -8,12 +8,18 @@ enqueues, and is dropped without being launched.  A step that is captured
 once and replayed (``train/device_loop.py``) launches the kernels of its
 graph on every replay: its launches are the graph's kernels times the
 replays.  The graph is read through the CUDA driver (``libcuda``), which
-every machine with a card has."""
+every machine with a card has.
+
+`Replayed` runs a body of device work as the port's captured paths run
+it (the train and eval steps of ``train/device_loop.py``, the served
+requests of ``serve.py``): eagerly for a warm-up, then captured once and
+replayed."""
 from __future__ import annotations
 
 import ctypes
 import re
 from collections import Counter, deque
+from typing import Callable
 
 import torch
 
@@ -149,3 +155,58 @@ def wrapper_launches(names: list) -> Counter:
             raise ValueError(f"a chain kernel of no known chain: {name}")
         counts.update(hits)
     return counts
+
+
+class Replayed:
+    """`body` (device work on device state) run as a captured path runs: on
+    a CUDA device `warmup` times eagerly on `stream`, then captured once in
+    a CUDA graph (the capture runs nothing) and replayed from then on, with
+    `generators` registered; elsewhere (``stream`` None) eagerly every time.
+
+    The eager calls on `stream` make what the body builds or allocates on
+    first use (kernels, ticket pools, occupancy, cached matrices, library
+    workspaces) outside the graph.  A replay reads and writes the tensors
+    the capture found, at their addresses, and runs on the caller's current
+    stream."""
+
+    def __init__(self, body: Callable, stream, warmup: int, generators=()):
+        self.body, self.stream, self.warmup = body, stream, warmup
+        self.generators = generators
+        self.graph = None
+        self.eager = 0      # calls run eagerly (the CPU, or the warm-up)
+        self.replays = 0    # replays of the captured body
+
+    def __call__(self):
+        if self.stream is None:
+            self.body()
+            self.eager += 1
+            return
+        if self.graph is None and self.eager < self.warmup:
+            current = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                self.body()
+            current.wait_stream(self.stream)
+            self.eager += 1
+            return
+        if self.graph is None:
+            self.capture()
+        self.graph.replay()
+        self.replays += 1
+
+    def capture(self):
+        """Capture the body now, on `stream` (the capture runs nothing); the
+        next call replays it."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for gen in self.generators:
+            if gen.device.type == "cuda":
+                graph.register_generator_state(gen)
+        self.stream.wait_stream(torch.cuda.current_stream(self.stream.device))
+        with torch.cuda.graph(graph, stream=self.stream):
+            self.body()
+        self.graph = graph
+
+    def kernels(self) -> list:
+        """The (mangled) names of the device kernels that each replay
+        launches; [] before the capture."""
+        return [] if self.graph is None else graph_kernels(self.graph)

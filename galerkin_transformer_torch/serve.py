@@ -2,23 +2,62 @@
 
 `Predictor` holds a model in eval mode on one device and answers numpy
 batches (1D: node (B, n, C), pos and grid (B, n, 1); 2D: node
-(B, n_f, n_f, C), pos (B, n_c², 2), grid (B, n_f, n_f, 2)) with numpy
-predictions.  The operator is discretization-invariant,
-so every input resolution is served by the same weights; there is nothing
-to compile per resolution.  The target normalizer is kept as data and
-handed to models whose forward takes it.  Floating inputs and normalizers
+(B, n_f, n_f, C), pos (B, n_c², 2), grid (B, n_f, n_f, 2); the ex4 step:
+node (B, n, n, T_in), pos (B, n², 2), grid (B, n, n, 2)) with numpy
+predictions.  The operator is discretization-invariant, so every input
+resolution is served by the same weights.  Floating inputs and normalizers
 are taken as float32, whatever their type.
+
+The JAX package compiles one executable per input shape; the port's
+counterpart on a CUDA device is one CUDA graph per request key (the
+shapes of node, pos and grid and their types as served), kept for the
+Predictor's lifetime.  The first request of a key runs eagerly on the
+Predictor's own stream (it builds the kernels, their ticket pools and
+occupancy, the cached DFT and interpolation matrices and the libraries'
+workspaces), then the forward is captured; every later request of the key
+copies its inputs into the key's static buffers, replays the graph and
+copies the output out.  A replay reads the weights and the normalizer
+where the capture found them:
+
+  * ``model.load_state_dict`` copies in place, so a replay sees the new
+    weights (replacing a parameter tensor is not seen);
+  * assigning ``normalizer`` drops the captured graphs, so every later
+    request serves the new one (each shape is captured anew).  (JAX bakes
+    the normalizer into each shape's trace, so a JAX Predictor serves the
+    one it held when the shape was first served.)
+
+One Predictor serves one request at a time; its graphs replay in turn on
+its stream, whose ticket pools they share.  On the CPU every request runs
+eagerly.
 """
 from __future__ import annotations
 
 import inspect
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .ops.cuda._graph import Replayed
 from .train.checkpoint import load_checkpoint
 from .utils.device import resolve_device
+
+KEYS = ("node", "pos", "grid")
+
+
+class _Captured:
+    """One request key's static input buffers, its replayed forward and the
+    output the forward last wrote."""
+
+    def __init__(self, predictor: "Predictor", key: tuple):
+        self.inputs = [torch.empty(shape, dtype=dtype, device=predictor.device)
+                       for shape, dtype in key]
+        self.out = None
+
+        def forward():
+            self.out = predictor._forward(*self.inputs)
+
+        self.forward = Replayed(forward, predictor._stream, warmup=1)
 
 
 class Predictor:
@@ -29,11 +68,24 @@ class Predictor:
         ``device="cpu"`` is passed."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        # (mean, std, eps) as numpy arrays or tensors; held on the device
-        self.normalizer = None if normalizer is None else tuple(
-            _as_input(x, self.device) for x in normalizer)
         self._takes_normalizer = (
             "normalizer" in inspect.signature(model.forward).parameters)
+        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._captured: Dict[tuple, _Captured] = {}
+        self._normalizer = None
+        self.normalizer = normalizer
+
+    @property
+    def normalizer(self) -> Optional[Tuple[torch.Tensor, ...]]:
+        """The target normalizer (mean, std, eps) as tensors on the device,
+        or None."""
+        return self._normalizer
+
+    @normalizer.setter
+    def normalizer(self, value: Optional[Tuple]):
+        self._normalizer = None if value is None else tuple(
+            _as_input(x, self.device) for x in value)
+        self._captured.clear()   # their graphs read the old tensors
 
     @classmethod
     def from_checkpoint(cls, model: torch.nn.Module, checkpoint_path: str,
@@ -48,17 +100,57 @@ class Predictor:
             normalizer = ckpt.get("normalizer")
         return cls(model, normalizer=normalizer, device=device)
 
+    def _forward(self, node, pos, grid) -> torch.Tensor:
+        kwargs = {"normalizer": self._normalizer} if self._takes_normalizer else {}
+        return self.model(node, None, pos, grid, **kwargs)["preds"]
+
     def __call__(self, batch: dict) -> np.ndarray:
-        kwargs = {"normalizer": self.normalizer} if self._takes_normalizer else {}
-        with torch.inference_mode():
-            node, pos, grid = (_as_input(batch[k], self.device)
-                               for k in ("node", "pos", "grid"))
-            out = self.model(node, None, pos, grid, **kwargs)["preds"]
-            return out.cpu().numpy()
+        if self._stream is None:
+            with torch.inference_mode():
+                node, pos, grid = (_as_input(batch[k], self.device) for k in KEYS)
+                return self._forward(node, pos, grid).cpu().numpy()
+        inputs = _inputs(batch)
+        key = _key(inputs)
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.inference_mode(), torch.cuda.stream(self._stream):
+            captured = self._captured.get(key)
+            if captured is None:
+                captured = self._captured[key] = _Captured(self, key)
+            for buf, x in zip(captured.inputs, inputs):
+                buf.copy_(x)
+            captured.forward()
+            out = captured.out.cpu().numpy()   # before a capture or replay rewrites it
+            if captured.forward.graph is None:
+                captured.forward.capture()
+        return out
+
+    def captured(self, batch: dict) -> Optional[Replayed]:
+        """The replayed forward of `batch`'s request key (its ``kernels()``,
+        ``eager`` calls and ``replays``), or None: never served, or on the
+        CPU."""
+        captured = self._captured.get(_key(_inputs(batch)))
+        return None if captured is None else captured.forward
 
     def warmup(self, batch: dict) -> "Predictor":
+        """Serve `batch` once: on a CUDA device its key's graph is then
+        captured, and the next request of the key is a replay."""
         self(batch)
         return self
+
+
+def _inputs(batch: dict) -> list:
+    """node, pos and grid as tensors where they lie (numpy arrays as CPU
+    tensors, without a copy)."""
+    return [x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+            for x in (batch[k] for k in KEYS)]
+
+
+def _key(inputs: list) -> tuple:
+    """The request key: each input's shape and the type it is served in
+    (floating types as float32, others as they are, as `_as_input` gives
+    them)."""
+    return tuple((tuple(t.shape), torch.float32 if t.is_floating_point() else t.dtype)
+                 for t in inputs)
 
 
 def _as_input(x, device: torch.device) -> torch.Tensor:

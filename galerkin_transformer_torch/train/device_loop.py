@@ -40,6 +40,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..ops.cuda._graph import Replayed
 from .schedule import AdamOneCycle
 
 # eager steps on the capture stream before the capture: they make what a
@@ -84,51 +85,6 @@ def ema_weights(model: torch.nn.Module, ema: Optional[list]):
 
 def _nbytes(data: Dict) -> int:
     return sum(v.nbytes for v in data.values() if v is not None)
-
-
-class _Replayed:
-    """`body` (a step on device state) run as the runner's steps run: on a
-    CUDA device `warmup` times eagerly on `stream`, then captured once in a
-    CUDA graph (the capture runs nothing) and replayed from then on, with
-    `generators` registered; elsewhere eagerly every time."""
-
-    def __init__(self, body: Callable, stream, warmup: int, generators=()):
-        self.body, self.stream, self.warmup = body, stream, warmup
-        self.generators = generators
-        self.graph = None
-        self.eager = 0      # calls run eagerly (the CPU, or the warm-up)
-        self.replays = 0    # replays of the captured body
-
-    def __call__(self):
-        if self.stream is None:
-            self.body()
-            self.eager += 1
-            return
-        current = torch.cuda.current_stream(self.stream.device)
-        if self.graph is None and self.eager < self.warmup:
-            self.stream.wait_stream(current)
-            with torch.cuda.stream(self.stream):
-                self.body()
-            current.wait_stream(self.stream)
-            self.eager += 1
-            return
-        if self.graph is None:
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            for gen in self.generators:
-                if gen.device.type == "cuda":
-                    graph.register_generator_state(gen)
-            self.stream.wait_stream(current)
-            with torch.cuda.graph(graph, stream=self.stream):
-                self.body()
-            self.graph = graph
-        self.graph.replay()
-        self.replays += 1
-
-    def kernels(self) -> list:
-        """The (mangled) names of the device kernels that each replay
-        launches (``ops/cuda/_graph.py``); [] before the capture."""
-        from ..ops.cuda._graph import graph_kernels
-        return [] if self.graph is None else graph_kernels(self.graph)
 
 
 class DeviceEpochRunner:
@@ -229,9 +185,9 @@ class DeviceEpochRunner:
                          for k, v in self.valid_full.items()} if n_full else None)
         self._metrics = torch.zeros(n_full, dtype=torch.float32, device=dev)
         stream = torch.cuda.Stream(dev) if self.graphed else None
-        self._train = _Replayed(self._step, stream, WARMUP_STEPS,
+        self._train = Replayed(self._step, stream, WARMUP_STEPS,
                                 getattr(train_step, "generators", ()))
-        self._eval = _Replayed(self._eval_step, stream, EVAL_WARMUP_STEPS)
+        self._eval = Replayed(self._eval_step, stream, EVAL_WARMUP_STEPS)
 
     @property
     def eager_steps(self) -> int:

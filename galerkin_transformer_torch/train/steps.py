@@ -1,15 +1,19 @@
-"""Train and eval steps for ex1 Burgers and ex2/ex3 Darcy (counterpart of
-``train/steps.py``; reference libs/utils_ft.py:593-711).
+"""Train and eval steps for ex1 Burgers, ex2/ex3 Darcy and the ex4
+Navier–Stokes rollout (counterpart of ``train/steps.py``; reference
+libs/utils_ft.py:593-711, libs/ns_lite.py:205-264).
 
 Each factory closes over (model, loss, metric, optimizer) and returns
 
   train_step(batch) -> losses     0-d tensors: Burgers (total, reg, ortho)
                                   with total = loss + reg + ortho, Darcy
-                                  (total, reg) with total = loss + reg
+                                  (total, reg) with total = loss + reg,
+                                  Navier–Stokes (total, reg) summed over
+                                  the rollout and divided by its length
   eval_step(batch)  -> metric     0-d tensor, under torch.no_grad()
 
 A batch is a dict of numpy arrays or tensors (``node``, ``pos``, ``grid``,
-``target``, for Darcy also ``coeff`` and ``target_grad``, and possibly
+``target``, for Darcy also ``coeff`` and ``target_grad``, for
+Navier–Stokes ``target_grad``, and possibly
 ``None`` leaves); each step moves it to the model's device.  Nothing here
 synchronizes with the device: the caller reads the returned tensors when it
 needs the numbers.
@@ -30,6 +34,11 @@ import torch
 
 class _DarcyLosses(NamedTuple):
     loss: torch.Tensor
+    reg: torch.Tensor
+
+
+class _RolloutLosses(NamedTuple):
+    total: torch.Tensor
     reg: torch.Tensor
 
 
@@ -188,3 +197,53 @@ def make_darcy_steps(model: torch.nn.Module, loss_fn, metric_fn,
 
     return train_step, eval_step
 
+
+
+def make_ns_steps(model: torch.nn.Module, loss_fn, metric_fn,
+                  optimizer: torch.optim.Optimizer, time_steps: int = 10,
+                  accum_steps: int = 1) -> Tuple[Callable, Callable]:
+    """Autoregressive rollout steps of the Navier–Stokes model
+    (steps.py:179-236): `time_steps` applications of the model, each
+    prediction fed back as the newest step of the input window.  Training
+    sums ``loss + reg`` over the rollout with one backward through all of
+    it; eval is the mean of the per-step metrics."""
+    device = next(model.parameters()).device
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def rollout(batch, per_step):
+        x, pos, grid = batch["node"], batch["pos"], batch["grid"]   # x: (B, n, n, T_in)
+        out = []
+        for t in range(time_steps):
+            u_pred = model(x, None, pos, grid)["preds"]               # (B, n, n, 1)
+            out.append(per_step(u_pred[..., 0], t))
+            x = torch.cat([x[..., 1:], u_pred], dim=-1)
+        return out
+
+    def rollout_loss(batch):
+        u, gradu = batch["target"], batch["target_grad"]   # (B, n, n, T), (B, n, n, 2, T)
+        res = rollout(batch, lambda pred, t: loss_fn(pred, u[..., t],
+                                                     targets_prime=gradu[..., t]))
+        total = torch.stack([r.loss + r.reg for r in res]).sum()
+        return total, _RolloutLosses(total, torch.stack([r.reg for r in res]).sum())
+
+    value_and_grad = microbatched_value_and_grad(rollout_loss, accum_steps)
+
+    def train_step(batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        model.train()
+        (_, (total, reg)), grads = value_and_grad(params, to_device(batch, device))
+        for p, g in zip(params, grads):
+            p.grad = g
+        optimizer.step()
+        return total / time_steps, reg / time_steps
+
+    train_step.generators = ()
+
+    @torch.no_grad()
+    def eval_step(batch: Dict) -> torch.Tensor:
+        model.eval()
+        batch = to_device(batch, device)
+        u = batch["target"]
+        metrics = rollout(batch, lambda pred, t: metric_fn(pred, u[..., t]).metric)
+        return torch.stack(metrics).mean()
+
+    return train_step, eval_step

@@ -137,8 +137,38 @@ EX3_DARCY_INV = {
     "decoder_dropout": 0.05,
 }
 
+# config.yml:121-146
+EX4_NAVIER_STOKES = {
+    "node_feats": 12,
+    "pos_dim": 2,
+    "n_targets": 1,
+    "n_hidden": 48,
+    "num_feat_layers": 0,
+    "num_encoder_layers": 4,
+    "n_head": 1,
+    "dim_feedforward": 96,
+    "attention_type": "galerkin",
+    "feat_extract_type": None,
+    "xavier_init": 0.01,
+    "diagonal_weight": 0.01,
+    "layer_norm": True,
+    "attn_norm": False,
+    "return_attn_weight": False,
+    "return_latent": False,
+    "decoder_type": "ifft",
+    "freq_dim": 20,
+    "num_regressor_layers": 2,
+    "fourier_modes": 12,
+    "spacial_dim": 2,
+    "spacial_fc": False,
+    "dropout": 0.0,
+    "encoder_dropout": 0.0,
+    "decoder_dropout": 0.0,
+    "ffn_dropout": 0.05,
+}
+
 CONFIGS = {"ex1_burgers": EX1_BURGERS, "ex2_darcy": EX2_DARCY,
-           "ex3_darcy_inv": EX3_DARCY_INV}
+           "ex3_darcy_inv": EX3_DARCY_INV, "ex4_navier_stokes": EX4_NAVIER_STOKES}
 
 
 def load_config(block: str) -> dict:

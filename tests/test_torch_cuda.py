@@ -16,7 +16,7 @@ import torch
 
 from galerkin_transformer_torch.ops.cuda import fourier as FC
 from galerkin_transformer_torch.ops.cuda import galerkin as GS
-from galerkin_transformer_torch.ops.cuda._graph import launched_kernels
+from galerkin_transformer_torch.ops.cuda._graph import launched_kernels, wrapper_launches
 
 pytestmark = pytest.mark.cuda
 
@@ -697,13 +697,265 @@ def test_2d_model_on_cuda_matches_cpu(dev, attention_type, dtype):
                ("fourier", torch.bfloat16): FC.fourier_chain_bf16}[attention_type, dtype]
     before = counter.launches
     got, want = gpu(batch), cpu(batch)
-    assert counter.launches == before + 2   # one launch per encoder layer
+    # one launch per encoder layer, counted by the eager first request and by
+    # the capture of its graph, whose kernel nodes hold the same two
+    assert counter.launches == before + 4
+    assert wrapper_launches(gpu.captured(batch).kernels()) == {counter.__name__: 2}
     assert got.shape == (bsz, n_f, n_f, 1) and not got[:, 0].any()   # Dirichlet ring
     # float32: sums in another order.  bfloat16: the encoder's products round
     # to bfloat16 after sums in another order, so activations differ by single
     # bfloat16 steps (2^-8) that add up over the layers
     tol = 1e-3 if dtype is None else 2.0 ** -6
     np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+
+
+# ------------------------------------------------------------ serving graphs
+
+def _ex1_served(dev, attention_type="galerkin", dtype=None, seed=3, n=300):
+    """A small ex1 model on the card and a batch builder for it."""
+    from galerkin_transformer_torch import SimpleTransformer, load_config
+    cfg = load_config("ex1_burgers")
+    cfg.update(n_hidden=32, num_encoder_layers=2, dim_feedforward=64,
+               freq_dim=16, fourier_modes=8, attention_type=attention_type)
+    model = SimpleTransformer.from_config(cfg, seed=seed, dtype=dtype)
+
+    def batch(seed, n=n, bsz=2):
+        pos = np.linspace(0, 1, n, dtype=np.float32)[None, :, None].repeat(bsz, 0)
+        node = np.random.default_rng(seed).standard_normal((bsz, n, 1)).astype(np.float32)
+        return dict(node=node, pos=pos, grid=pos)
+    return model, None, batch
+
+
+def _ex2_served(dev, seed=3):
+    from galerkin_transformer_torch import FourierTransformer2D, load_config
+    from galerkin_transformer_torch.data import darcy_grids, get_scaler_sizes
+    n_f, n_c = 29, 15
+    cfg = load_config("ex2_darcy")
+    cfg.update(n_hidden=32, num_encoder_layers=2, n_head=2, dim_feedforward=64,
+               freq_dim=8, fourier_modes=4)
+    cfg["downscaler_size"], cfg["upscaler_size"] = get_scaler_sizes(n_f, n_c)
+    model = FourierTransformer2D.from_config(cfg, seed=seed)
+    rng = np.random.default_rng(seed)
+    normalizer = (rng.standard_normal((n_f, n_f, 1)).astype(np.float32),
+                  rng.uniform(0.5, 1.5, (n_f, n_f, 1)).astype(np.float32), np.float32(1e-5))
+    pos, grid = darcy_grids(n_f, n_c)
+
+    def batch(seed, bsz=2):
+        node = np.random.default_rng(seed).standard_normal((bsz, n_f, n_f, 1))
+        return dict(node=node.astype(np.float32), pos=pos[None].repeat(bsz, 0),
+                    grid=grid[None].repeat(bsz, 0))
+    return model, normalizer, batch
+
+
+def _ex4_served(dev, seed=3, n=32):
+    from galerkin_transformer_torch import FourierTransformer2DLite, load_config
+    cfg = load_config("ex4_navier_stokes")
+    cfg.update(n_hidden=32, num_encoder_layers=2, dim_feedforward=64)
+    from galerkin_transformer_torch.data import ns_grids
+    model = FourierTransformer2DLite.from_config(cfg, seed=seed)
+    pos, grid = ns_grids(n)
+
+    def batch(seed, bsz=2):
+        node = np.random.default_rng(seed).standard_normal((bsz, n, n, 10))
+        return dict(node=node.astype(np.float32), pos=pos[None].repeat(bsz, 0),
+                    grid=grid[None].repeat(bsz, 0))
+    return model, None, batch
+
+
+SERVED = {"ex1-f32": _ex1_served,
+          "ex1-bf16": lambda dev: _ex1_served(dev, dtype=torch.bfloat16),
+          "ex1-fourier": lambda dev: _ex1_served(dev, attention_type="fourier"),
+          "ex2": _ex2_served, "ex4": _ex4_served}
+
+
+def _eager(model, normalizer, batch):
+    """The model called directly on the card, numpy in, numpy out."""
+    import inspect
+    kwargs = ({"normalizer": tuple(torch.as_tensor(x, device="cuda") for x in normalizer)}
+              if normalizer is not None
+              and "normalizer" in inspect.signature(model.forward).parameters else {})
+    with torch.inference_mode():
+        node, pos, grid = (torch.as_tensor(batch[k], device="cuda").float()
+                           for k in ("node", "pos", "grid"))
+        return model(node, None, pos, grid, **kwargs)["preds"].cpu().numpy()
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = old
+
+
+@pytest.mark.parametrize("which", list(SERVED))
+def test_replayed_request_equals_the_eager_call(dev, deterministic_cudnn, which):
+    """The first request of a shape runs eagerly and captures the forward;
+    every later one is a replay of that graph, bit-equal to the model
+    called eagerly on the same batch."""
+    from galerkin_transformer_torch import Predictor
+    model, normalizer, batch = SERVED[which](dev)
+    pred = Predictor(model, normalizer=normalizer)
+    first = pred(batch(0))
+    forward = pred.captured(batch(0))
+    assert forward.graph is not None and (forward.eager, forward.replays) == (1, 0)
+    assert np.array_equal(first, _eager(model, normalizer, batch(0)))
+    for seed in (1, 2):
+        got = pred(batch(seed))
+        assert np.array_equal(got, _eager(model, normalizer, batch(seed)))
+    assert forward.replays == 2 and np.isfinite(got).all()
+
+
+def test_each_shape_captures_its_own_graph(dev):
+    from galerkin_transformer_torch import Predictor
+    model, _, batch = _ex1_served(dev)
+    pred = Predictor(model)
+    shapes = [dict(n=300), dict(n=200), dict(n=300, bsz=3)]
+    for rnd in range(3):
+        for i, kw in enumerate(shapes):
+            b = batch(10 * rnd + i, **kw)
+            np.testing.assert_allclose(pred(b), _eager(model, None, b), rtol=0, atol=1e-6)
+    graphs = [pred.captured(batch(0, **kw)) for kw in shapes]
+    assert len({id(g.graph) for g in graphs}) == 3
+    assert [(g.eager, g.replays) for g in graphs] == [(1, 2)] * 3
+
+
+def test_replays_see_load_state_dict(dev):
+    from galerkin_transformer_torch import Predictor
+    model, _, batch = _ex1_served(dev)
+    other, _, _ = _ex1_served(dev, seed=9)
+    pred = Predictor(model)
+    before = pred(batch(0))
+    model.load_state_dict(other.state_dict())
+    after = pred(batch(0))
+    assert pred.captured(batch(0)).replays == 1 and not np.allclose(before, after)
+    np.testing.assert_allclose(after, _eager(other, None, batch(0)), rtol=0, atol=1e-6)
+
+
+def test_replays_see_a_new_normalizer(dev):
+    """Assigning a normalizer (of the same shapes, or of others) drops the
+    captured graphs: the next request serves it, captured anew."""
+    from galerkin_transformer_torch import Predictor
+    model, normalizer, batch = _ex2_served(dev)
+    pred = Predictor(model, normalizer=normalizer)
+    pred(batch(0))
+    forward = pred.captured(batch(0))
+    for new in ((normalizer[0] + 1.0, 2.0 * normalizer[1], normalizer[2]),
+                (np.float32(0.5), np.float32(3.0), np.float32(1e-5))):
+        pred.normalizer = new
+        assert pred.captured(batch(0)) is None
+        pred(batch(2))   # eager, then the capture
+        got = pred(batch(1))
+        np.testing.assert_allclose(got, _eager(model, new, batch(1)), rtol=0,
+                                   atol=1e-5 * np.abs(got).max())
+        assert pred.captured(batch(0)) is not forward
+        forward = pred.captured(batch(0))
+        assert (forward.eager, forward.replays) == (1, 1)
+
+
+def test_a_float64_batch_replays_the_float32_graph(dev):
+    from galerkin_transformer_torch import Predictor
+    model, _, batch = _ex1_served(dev)
+    pred = Predictor(model)
+    want = pred(batch(0))
+    b64 = {k: v.astype(np.float64) for k, v in batch(0).items()}
+    got = pred(b64)
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    assert pred.captured(b64) is pred.captured(batch(0))
+    assert pred.captured(b64).replays == 1
+
+
+def test_two_predictors_interleave(dev):
+    """Two Predictors of galerkin models, each with its own stream and
+    ticket pools, serve in turn and each gives its own model's answer."""
+    from galerkin_transformer_torch import Predictor
+    models = [_ex1_served(dev, seed=s)[0] for s in (3, 4)]
+    _, _, batch = _ex1_served(dev)
+    preds = [Predictor(m) for m in models]
+    for i in range(6):
+        k = i % 2
+        got = preds[k](batch(i))
+        np.testing.assert_allclose(got, _eager(models[k], None, batch(i)), rtol=0, atol=1e-6)
+    assert [p.captured(batch(0)).replays for p in preds] == [2, 2]
+
+
+def test_torch_ns_generator_on_the_card_matches_the_cpu(dev):
+    """The same normals (a CPU generator) through cuFFT and the CPU's FFT:
+    the same fields and rollouts in float32."""
+    from galerkin_transformer_torch.data.synthetic_torch import (grf_2d_torch,
+                                                                 navier_stokes_spectral_torch)
+    got = grf_2d_torch(torch.Generator().manual_seed(1), 3, 32, device=dev).cpu()
+    want = grf_2d_torch(torch.Generator().manual_seed(1), 3, 32, device="cpu")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+    kw = dict(n_steps_record=2, record_every=0.1, seed=2)
+    got = navier_stokes_spectral_torch(3, 32, device=dev, **kw)
+    want = navier_stokes_spectral_torch(3, 32, device="cpu", **kw)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+def _ns_steps(device, dropout=0.0, n=16, total=20):
+    from galerkin_transformer_torch import FourierTransformer2DLite, load_config
+    from galerkin_transformer_torch.train import AdamOneCycle, WeightedL2Loss2d, make_ns_steps
+    cfg = load_config("ex4_navier_stokes")
+    cfg.update(n_hidden=16, num_encoder_layers=1, dim_feedforward=32, freq_dim=8,
+               fourier_modes=4, node_feats=5, ffn_dropout=dropout)
+    model = FourierTransformer2DLite.from_config(cfg, device=device, seed=3)
+    opt = AdamOneCycle(model.parameters(), 1e-3 if dropout == 0 else 1e-30, total_steps=total,
+                       grad_clip=0.99)
+    return (model, opt) + make_ns_steps(
+        model, WeightedL2Loss2d(regularizer=True, h=1 / n, gamma=0.1),
+        WeightedL2Loss2d(h=1 / n), opt, time_steps=3)
+
+
+def _ns_samples(n_samples, n=16, same=False):
+    from galerkin_transformer_torch.data import ns_grids
+    rng = np.random.default_rng(0)
+    pos, grid = ns_grids(n)
+    out = []
+    for _ in range(n_samples):
+        if not (same and out):
+            sample = dict(node=rng.standard_normal((n, n, 3)).astype(np.float32), pos=pos,
+                          grid=grid, target=rng.standard_normal((n, n, 3)).astype(np.float32),
+                          target_grad=rng.standard_normal((n, n, 2, 3)).astype(np.float32))
+        out.append(sample)
+    return out
+
+
+def test_captured_ns_rollout_step_matches_the_eager_step(dev):
+    """The NS step (a 3-step rollout and one backward through it) in the
+    device loop against as many eager host-loop steps: the same losses and
+    weights, and no kernel of the port in the graph."""
+    from galerkin_transformer_torch.data import DataLoader
+    from galerkin_transformer_torch.train import DeviceEpochRunner
+    data = _ns_samples(12)
+    model, opt, train_step, eval_step = _ns_steps(dev)
+    runner = DeviceEpochRunner(model, train_step, eval_step, opt,
+                               DataLoader(data, 2, drop_last=True), DataLoader(data[:4], 2),
+                               verbose=False)
+    losses, val = runner.epoch(0)
+    assert (runner.eager_steps, runner.replays) == (2, 4) and np.isfinite(val)
+    assert runner.kernels() and not wrapper_launches(runner.kernels())
+    ref_model, _, ref_step, _ = _ns_steps(dev)
+    want = [[float(x) for x in ref_step(b)] for b in DataLoader(data, 2, drop_last=True)]
+    np.testing.assert_allclose(losses, want, rtol=1e-5)
+    for (key, p), q in zip(model.state_dict().items(), ref_model.state_dict().values()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6, msg=key)
+
+
+def test_ns_replays_draw_fresh_dropout(dev):
+    """Every sample alike and an lr of about zero: only fresh ffn dropout
+    masks make the replayed rollout steps' losses differ."""
+    from galerkin_transformer_torch.data import DataLoader
+    from galerkin_transformer_torch.train import DeviceEpochRunner
+    data = _ns_samples(16, same=True)
+    model, opt, train_step, eval_step = _ns_steps(dev, dropout=0.05)
+    runner = DeviceEpochRunner(model, train_step, eval_step, opt,
+                               DataLoader(data, 2, drop_last=True), DataLoader(data[:2], 2),
+                               verbose=False)
+    losses, _ = runner.epoch(0)
+    assert runner.replays == 6 and np.isfinite(losses).all()
+    replayed = losses[2:, 0]
+    assert len(set(replayed.tolist())) == len(replayed), losses
 
 
 # ------------------------------------------------------------- device loop

@@ -26,7 +26,8 @@ def test_port_modules_and_chip_smoke_import_no_jax():
     for name in ("ops.cuda.galerkin", "ops.interp", "models.conv", "models.scaler",
                  "models.transformer", "data.darcy", "data.normalizer", "ops.fem",
                  "data.synthetic", "train.steps", "train.losses", "examples._darcy",
-                 "examples.ex2_darcy", "examples.ex3_darcy_inv"):
+                 "examples.ex2_darcy", "examples.ex3_darcy_inv", "data.ns",
+                 "data.synthetic_torch", "examples.ex4_navier_stokes"):
         assert f"galerkin_transformer_torch.{name}" in modules
     code = "\n".join(
         [f"import {m}" for m in modules]

@@ -160,10 +160,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_config_dict_equals_config_yml():
-    for block in ("ex1_burgers", "ex2_darcy", "ex3_darcy_inv"):
+    for block in ("ex1_burgers", "ex2_darcy", "ex3_darcy_inv", "ex4_navier_stokes"):
         assert load_config(block) == dict(jax_load_config(block)), block
     with pytest.raises(KeyError, match="not ported"):
-        load_config("ex4_navier_stokes")
+        load_config("ex5_no_such_block")
     cfg = load_config("ex1_burgers")
     cfg["n_hidden"] = 1
     assert load_config("ex1_burgers")["n_hidden"] == 96

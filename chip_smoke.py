@@ -120,14 +120,28 @@
    printed); the median step time inside the loop (epoch wall over its
    steps), the eager step time, the device time of a step and the busy
    share; launches on this path are the graph's kernels times the replays;
+   recovery phase (``recovery_phase``): ``run_train`` of the full-width ex1
+   galerkin step (f32, batch 8, n = 2048, cuDNN deterministic) in the device
+   loop: the weights ×1e4 from the host between two blocks of 2 epochs, so
+   that the next block spikes and rolls back; right after the rollback the
+   Adam moments are zero, ``lr_scale`` is 0.5 and the graph is the one
+   captured before it, every later step a replay, the losses finite; the
+   run bit-equal to the same loop with eager steps, and with 1 epoch per
+   host read to the eager host loop with the same poisoning; a resume from
+   its best checkpoint for 2 epochs, and ``AdamPlateau`` with a controller
+   that cuts the lr inside the run, each bit-equal to the eager host loop;
+   then the step time in the loop for each optimizer, with the card;
 8. driver phase: ``examples/ex1_burgers.py``, ``examples/ex2_darcy.py``,
    ``examples/ex4_navier_stokes.py`` (2 epochs each; ex4 on 20 trajectories
    made afresh, the training set by the torch generator on the card, the
    validation set by the host solver, each timed) and
    ``examples/ex3_darcy_inv.py`` (1 epoch) of the port, in-process, on the
-   device loop (their default); their losses must be finite, and the ex1,
-   ex2 and ex4 best checkpoints must load into ``Predictor`` and serve a
-   batch (ex2 with the normalizer saved in the checkpoint);
+   device loop (their default); then ex1 with ``--attention-type galerkin
+   --rollback-on-spike 10 --scheduler plateau`` for 2 epochs and
+   ``--resume-epoch 2`` for a third, and ex4 with ``--scheduler plateau``;
+   their losses must be finite, and the ex1, ex2 and ex4 best checkpoints
+   must load into ``Predictor`` and serve a batch (ex2 with the normalizer
+   saved in the checkpoint);
 9. prints one {"kernels": [...]} line (launches summed over the main
    paths), then the result line {"ok": true, "device": {...}}.
 
@@ -142,10 +156,12 @@ import glob
 import importlib
 import importlib.util
 import inspect
+import io
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -167,10 +183,11 @@ from galerkin_transformer_torch.data import (BurgersDataset, DarcyDataset,  # no
                                              darcy_grids, get_scaler_sizes, ns_grids)
 from galerkin_transformer_torch.examples import (ex1_burgers, ex2_darcy,  # noqa: E402
                                                  ex3_darcy_inv, ex4_navier_stokes)
-from galerkin_transformer_torch.train import (AdamOneCycle, DeviceEpochRunner,  # noqa: E402
+from galerkin_transformer_torch.train import (AdamOneCycle, AdamPlateau,  # noqa: E402
+                                              DeviceEpochRunner, PlateauController,
                                               WeightedL2Loss, WeightedL2Loss2d,
                                               make_burgers_steps, make_darcy_steps,
-                                              make_ns_steps)
+                                              make_ns_steps, run_train)
 from galerkin_transformer_torch.utils import config as port_config  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import _build  # noqa: E402
 from galerkin_transformer_torch.ops.cuda._graph import (launched_kernels,  # noqa: E402
@@ -1908,6 +1925,261 @@ def device_loop_phase():
     return {name: counts[name] for name in COUNTERS}
 
 
+# recovery phase (the full-width ex1 galerkin step, f32, 4 steps an epoch): the
+# weights are multiplied by 1e4 from the host before epoch RECOVERY_SPIKE (the
+# first of a block of 2), so that it spikes; RECOVERY_EPOCHS leaves a block of
+# 2 after the rollback.  Then RESUME_EPOCHS more from the best checkpoint, and
+# PLATEAU_EPOCHS under the plateau scheduler, whose controller (patience 1, a
+# relative threshold of 1/2 that hardly an epoch meets) cuts the lr every
+# other epoch
+RECOVERY_EPOCHS = 7
+RECOVERY_SPIKE = 4
+RECOVERY_DISPATCH = 2
+RESUME_EPOCHS = 2
+PLATEAU_EPOCHS = 5
+PLATEAU_LR = 1e-4     # constant from the first step: 1e-3 drives this small set off
+TIMED_LOOP_EPOCHS = 3
+
+
+@contextlib.contextmanager
+def runner_hooks(before_epoch=None, eager=False):
+    """Record every `DeviceEpochRunner` made in the block; call
+    ``before_epoch(runner, epoch_idx)`` before each of its epochs; with
+    `eager` run its steps eagerly on the current stream (no capture): the
+    same loop, each step launched from the host, the reference that a
+    captured run is held to."""
+    made = []
+    init, train_epoch = DeviceEpochRunner.__init__, DeviceEpochRunner.train_epoch
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        if eager:
+            self.graphed = False
+            self._train.stream = self._eval.stream = None
+        made.append(self)
+
+    def hooked_train_epoch(self, epoch_idx):
+        if before_epoch is not None:
+            before_epoch(self, epoch_idx)
+        return train_epoch(self, epoch_idx)
+
+    DeviceEpochRunner.__init__ = recording_init
+    DeviceEpochRunner.train_epoch = hooked_train_epoch
+    try:
+        yield made
+    finally:
+        DeviceEpochRunner.__init__, DeviceEpochRunner.train_epoch = init, train_epoch
+
+
+def poison(model):
+    """Every weight ×1e4, in place, from the host."""
+    with torch.no_grad():
+        torch._foreach_mul_(list(model.parameters()), 1e4)
+
+
+def run_recorded(make, step_of=None, **kwargs):
+    """`run_train` of the model, optimizer and steps that ``make()`` builds
+    (``step_of(train_step, model)`` wraps the train step), with the
+    optimizer's schedule as the lr history, its printout kept and printed:
+    (best state_dict, TrainResult, model, optimizer, printout)."""
+    model, opt, train_step, eval_step = make()
+    if step_of is not None:
+        train_step = step_of(train_step, model)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        best, result = run_train(model, train_step, eval_step, opt,
+                                 lr_schedule=getattr(opt, "lr_schedule", None), **kwargs)
+    print(printed.getvalue(), end="")
+    return best, result, model, opt, printed.getvalue()
+
+
+def assert_same_run(tag, got, want):
+    """Two `run_recorded` results bit for bit: per-epoch losses, validation,
+    lr history, the best and the final weights."""
+    (best, res, model, _, _), (best_ref, res_ref, model_ref, _, _) = got, want
+    for name in ("loss_train", "loss_val", "lr_history"):
+        a, b = np.asarray(getattr(res, name)), np.asarray(getattr(res_ref, name))
+        if a.shape != b.shape or not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f"recovery {tag}: {name} differs: {a} vs {b}")
+    for what, sd, ref in (("best", best, best_ref),
+                          ("final", model.state_dict(), model_ref.state_dict())):
+        for key, w in sd.items():
+            if not torch.equal(w, ref[key]):
+                raise AssertionError(f"recovery {tag}: {what} weights differ at {key}")
+    print(f"recovery {tag}: bit-equal ({len(res.loss_train)} epochs: losses, validation, "
+          f"lr history, best and final weights)")
+
+
+def recovery_phase(smi: str):
+    """Training recovery in the device loop at full ex1 width (galerkin, f32,
+    batch 8, n = 2048, cuDNN deterministic), each captured run against the
+    same run with eager steps:
+
+      * rollback, 2 epochs per host read: the weights ×1e4 from the host
+        between two blocks, so that the next block spikes; right after the
+        rollback the Adam moments are zero, ``lr_scale`` is 0.5 and the
+        captured graph is the one from before the spike; every later step
+        is a replay of it (no capture after the warm-up); the losses after
+        the rollback are finite; bit-equal to the same loop with eager steps
+        (the spiked block's second epoch is thrown away and still counted,
+        as in JAX), and with 1 epoch per read bit-equal to the eager host
+        loop (`run_train(device_loop=False)`) with the same poisoning;
+      * resume from the rollback run's best checkpoint for RESUME_EPOCHS
+        epochs, in the loop and in the eager host loop: bit-equal;
+      * `AdamPlateau` with a controller that cuts the lr inside the run, in
+        the loop and in the eager host loop: bit-equal, a reduction before
+        the last epoch;
+      * the step time in the loop for each optimizer, with the card.
+
+    Returns the launch counts of the phase, the graph replays' included."""
+    reset_launches()
+    train = ex1_train_data()
+    loader = DataLoader(train, BATCH, drop_last=True)
+    valid = DataLoader([train[i] for i in range(BATCH)], BATCH)
+    n_batches = len(loader)
+    graphed = []
+
+    def make(optimizer="onecycle"):
+        model, opt, train_step, eval_step = ex1_step("cuda", None, "galerkin")
+        if optimizer == "plateau":
+            opt = AdamPlateau(model.parameters(), PLATEAU_LR, grad_clip=0.999)
+            train_step, eval_step = make_burgers_steps(
+                model, WeightedL2Loss(regularizer=True, h=1 / TRAIN_N, gamma=0.1),
+                WeightedL2Loss(h=1 / TRAIN_N), opt)
+        return model, opt, train_step, eval_step
+
+    def host_poisoned(train_step, model):
+        """The host loop's poisoning: before its first step of epoch
+        RECOVERY_SPIKE."""
+        calls = [0]
+
+        def step(batch):
+            if calls[0] == RECOVERY_SPIKE * n_batches:
+                poison(model)
+            calls[0] += 1
+            return train_step(batch)
+        step.generators = train_step.generators
+        return step
+
+    def rollback_run(path, k, eager):
+        """The rollback run with k epochs per host read: the captured loop,
+        the loop with eager steps (k > 1) or the eager host loop (k = 1).
+        Returns (run_recorded's result, what the hook saw, the runner)."""
+        seen = {}
+
+        def before(runner, epoch_idx):
+            opt = runner.optimizer
+            if epoch_idx == RECOVERY_SPIKE and "graph" not in seen:
+                seen["graph"] = runner._train.graph
+                poison(runner.model)
+            if opt.lr_scale != 1.0 and "after" not in seen:   # the first epoch after it
+                moments = [t for st in opt.state.values() for t in st.values()]
+                seen["after"] = dict(
+                    epoch=epoch_idx, zero=all(not t.any() for t in moments),
+                    scale=opt.lr_scale, graph=runner._train.graph,
+                    table=torch.equal(opt._table, opt._host_table().to(opt._table.device)))
+
+        kw = dict(train_loader=loader, valid_loader=valid, epochs=RECOVERY_EPOCHS,
+                  patience=None, rollback_on_spike=10.0, model_save_path=path)
+        if k == 1 and eager:
+            return run_recorded(make, host_poisoned, device_loop=False, **kw), seen, None
+        with runner_hooks(before, eager=eager) as made:
+            run = run_recorded(make, device_loop=True, epochs_per_dispatch=k, **kw)
+        return run, seen, made[0]
+
+    with tempfile.TemporaryDirectory() as tmp, deterministic_cudnn():
+        best_ckpt = {}
+        for k in (RECOVERY_DISPATCH, 1):
+            paths = {eager: os.path.join(tmp, f"rollback_k{k}_{eager}") for eager in (0, 1)}
+            run, seen, runner = rollback_run(paths[0], k, eager=False)
+            reference, _, _ = rollback_run(paths[1], k, eager=True)
+            graphed.append(runner)
+            best_ckpt[k] = os.path.join(paths[0], "model.ckpt")
+            _, res, _, opt, printed = run
+            after, spike = seen.get("after"), RECOVERY_SPIKE + 1
+            trained = RECOVERY_EPOCHS + (k - 1)    # the spiked block's thrown-away epoch
+            checks = {
+                "one rollback, at the poisoned epoch":
+                    printed.count("rolled back") == 1
+                    and f"loss spike at epoch {spike} " in printed,
+                "moments zero and lr_scale 0.5 right after it":
+                    after is not None and after["zero"] and after["scale"] == 0.5
+                    and after["table"] and opt.lr_scale == 0.5,
+                "the same captured graph after it":
+                    after is not None and seen["graph"] is not None
+                    and after["graph"] is seen["graph"] is runner._train.graph,
+                "every later step a replay":
+                    (runner.eager_steps, runner.replays) == (2, trained * n_batches - 2)
+                    and opt.count == trained * n_batches,
+                "finite losses after it": bool(np.isfinite(res.loss_train[spike:]).all()),
+            }
+            failed = [name for name, ok in checks.items() if not ok]
+            print(f"recovery rollback, {k} epoch(s) per host read: spike at epoch {spike}, "
+                  f"{runner.eager_steps} eager steps + {runner.replays} replays of one graph; "
+                  f"right after the rollback (epoch {after and after['epoch']}): moments "
+                  f"zero {after and after['zero']}, lr_scale {after and after['scale']}; "
+                  f"checks failed: {failed}")
+            if failed:
+                raise AssertionError(f"recovery rollback k={k}: {failed}")
+            assert_same_run(f"rollback, {k} epoch(s) per host read, against "
+                            + ("the loop with eager steps" if k > 1 else "the eager host loop"),
+                            run, reference)
+
+        resumed = {}
+        for device_loop in (True, False):
+            path = os.path.join(tmp, f"resume_{device_loop}")
+            os.makedirs(path)
+            shutil.copy(best_ckpt[RECOVERY_DISPATCH], os.path.join(path, "model.ckpt"))
+            with runner_hooks() as made:
+                resumed[device_loop] = run_recorded(
+                    make, train_loader=loader, valid_loader=valid,
+                    epochs=RECOVERY_EPOCHS + RESUME_EPOCHS, start_epoch=RECOVERY_EPOCHS,
+                    resume=True, patience=None, rollback_on_spike=10.0,
+                    model_save_path=path, device_loop=device_loop,
+                    epochs_per_dispatch=RECOVERY_DISPATCH if device_loop else 1)
+            graphed.extend(made)
+            if "resumed params + optimizer state" not in resumed[device_loop][4]:
+                raise AssertionError("recovery resume: the checkpoint was not read")
+        saved = torch.load(best_ckpt[RECOVERY_DISPATCH], weights_only=True)["optimizer"]
+        group = saved["param_groups"][0]
+        for opt in (resumed[True][3], resumed[False][3]):
+            if (opt.lr_scale, opt.count) != (group["lr_scale"],
+                                             group["count"] + RESUME_EPOCHS * n_batches):
+                raise AssertionError(f"recovery resume: lr_scale {opt.lr_scale}, count "
+                                     f"{opt.count}; the checkpoint's {group}")
+        assert_same_run(f"resume for {RESUME_EPOCHS} epochs against the eager host loop",
+                        resumed[True], resumed[False])
+
+        plateau_runs = {}
+        for device_loop in (True, False):
+            plateau = PlateauController(PLATEAU_LR, factor=0.5, patience=1, threshold=0.5)
+            path = os.path.join(tmp, f"plateau_{device_loop}")
+            with runner_hooks() as made:
+                plateau_runs[device_loop] = run_recorded(
+                    lambda: make("plateau"), train_loader=loader, valid_loader=valid,
+                    epochs=PLATEAU_EPOCHS, patience=None, plateau=plateau,
+                    model_save_path=path, device_loop=device_loop)
+            graphed.extend(made)
+            lrs = [json.loads(line)["lr"] for line in open(os.path.join(path, "result.jsonl"))]
+            if not min(lrs[:-1]) < lrs[0] or plateau_runs[device_loop][3].lr != plateau.lr:
+                raise AssertionError(f"recovery plateau: no reduction before the last "
+                                     f"epoch: {lrs}")
+        print(f"recovery plateau: lr after each epoch {lrs}")
+        assert_same_run("plateau against the eager host loop", plateau_runs[True],
+                        plateau_runs[False])
+
+    step_ms = {}
+    for name, runner in (("AdamOneCycle", graphed[0]), ("AdamPlateau", graphed[-1])):
+        _, loop_ms, _ = run_loop(runner, TIMED_LOOP_EPOCHS)
+        step_ms[name] = statistics.median(loop_ms)
+    print(f"recovery: median step in the loop (ex1 galerkin f32, batch {BATCH}, "
+          f"n={TRAIN_N}, {TIMED_LOOP_EPOCHS} epochs of {n_batches} replays), "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in step_ms.items()) + f"; card: {smi}")
+    counts = Counter(launches())
+    counts.update(runner_launches(graphed))
+    return {name: counts[name] for name in COUNTERS}
+
+
 @contextlib.contextmanager
 def fresh_data_dir():
     """An empty data directory for the block: the datasets made in it are
@@ -2008,7 +2280,7 @@ def driver_phase():
         DeviceEpochRunner.__init__ = init
     counts = Counter(counts)
     counts.update(forward_launches(served))
-    if len(runners) != 4 or any(r.replays == 0 for r in runners):
+    if len(runners) != 7 or any(r.replays == 0 for r in runners):
         raise AssertionError(f"driver: {len(runners)} device loops, replays "
                              f"{[r.replays for r in runners]}")
     counts.update(runner_launches(runners))
@@ -2034,6 +2306,23 @@ def _drive():
         raise AssertionError(f"driver: served checkpoint gave {out.shape}")
     print(f"driver ex1: 2 epochs, best validation metric {val:.4e}; the best checkpoint "
           f"served a batch of {out.shape}")
+    # the recovery flags: rollback on a spike and the plateau scheduler, then
+    # a resume from the run's checkpoint
+    flags = ["--n-samples", str(TRAIN_SAMPLES), "--attention-type", "galerkin",
+             "--rollback-on-spike", "10", "--scheduler", "plateau", "--lr", "1e-4"]
+    with tempfile.TemporaryDirectory() as tmp:
+        val = ex1_burgers.main(flags + ["--epochs", "2"], model_save_path=tmp)
+        _driver_outputs("ex1 plateau", tmp, val, 2)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            val = ex1_burgers.main(flags + ["--epochs", "3", "--resume-epoch", "2"],
+                                   model_save_path=tmp)
+        print(printed.getvalue(), end="")
+        _driver_outputs("ex1 plateau resumed", tmp, val, 3)
+    if "resumed params + optimizer state" not in printed.getvalue():
+        raise AssertionError("driver ex1 --resume-epoch: the checkpoint was not read")
+    print(f"driver ex1 (galerkin, --rollback-on-spike 10 --scheduler plateau --lr 1e-4): "
+          f"2 epochs, then --resume-epoch 2 for a third: best validation metric {val:.4e}")
 
     grid = ["--n-grid-fine", "61", "--subsample-nodes", "1", "--subsample-attn", "5",
             "--n-samples", "16"]
@@ -2077,6 +2366,10 @@ def _drive():
             load_config("ex4_navier_stokes"), seed=1), ckpt)
         valid = NavierStokesDatasetLite(train_data=False,
                                         n_samples_synthetic=max(EX4_SAMPLES // 4, 4))
+        path = os.path.join(tmp, "plateau")   # the same data, from the cache
+        val_plateau = ex4_navier_stokes.main(["--n-samples", str(EX4_SAMPLES), "--epochs", "2",
+                                              "--scheduler", "plateau"], model_save_path=path)
+        _driver_outputs("ex4 plateau", path, val_plateau, 2)
     batch = next(iter(DataLoader(valid, BATCH_2D)))
     outs = [pred(batch) for _ in range(3)]   # eager and capture, then two replays
     served.append(pred.captured(batch))
@@ -2086,7 +2379,8 @@ def _drive():
         raise AssertionError(f"driver ex4: served checkpoint gave {outs[0].shape}")
     print(f"driver ex4 (f32, {EX4_SAMPLES} trajectories at {EX4_GRID}^2): 2 epochs in "
           f"{run_s:.1f} s with the data, best validation metric {val:.4e}; the best "
-          f"checkpoint served a validation batch of {outs[0].shape} (2 replays)")
+          f"checkpoint served a validation batch of {outs[0].shape} (2 replays); "
+          f"--scheduler plateau: best validation metric {val_plateau:.4e}")
     return launches(), served
 
 
@@ -2150,9 +2444,9 @@ def main(argv=None) -> int:
     wide_phase(rng, dev)
     paths = [serving_phase(rng), serving_2d_phase(rng), serving_ex4_phase(rng),
              training_phase(), training_2d_phase(), ex4_phase(), device_loop_phase(),
-             driver_phase()]
+             recovery_phase(smi), driver_phase()]
     print(f"launches by main path (ex1 serving, ex2 serving, ex4 serving, ex1 training, "
-          f"ex2 training, ex4 training, device loop, drivers): {paths}")
+          f"ex2 training, ex4 training, device loop, recovery, drivers): {paths}")
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths)
         if k["launches"] == 0:

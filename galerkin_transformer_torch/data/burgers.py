@@ -3,12 +3,14 @@ reference libs/ft.py:24-371).
 
 The same split logic, uniform subsampling, periodic central-difference
 target derivatives and zero-shot super-resolution grid as the JAX
-package, over numpy arrays.  The data are exact synthetic Burgers
-solutions from `burgers_cole_hopf` (the JAX package's synthetic setup,
-viscosity 0.01), cached as ``.npz`` under ``DATA_PATH`` with the JAX
-package's cache name, so both packages read the same file.  Reading the
-published .mat file, FEM edge features (``return_edge=True``) and
-nonuniform meshes (``uniform=False``) are not ported; the last two raise.
+package, over numpy arrays.  The data are the published .mat file's
+(keys ``a`` and ``u``, read with ``scipy.io.loadmat``) when `data_path`
+names a file that exists; otherwise exact synthetic Burgers solutions
+from `burgers_cole_hopf` (the JAX package's synthetic setup, viscosity
+0.01), cached as ``.npz`` under ``DATA_PATH`` with the JAX package's cache
+name, so both packages read the same file.  FEM edge features
+(``return_edge=True``) and nonuniform meshes (``uniform=False``) are not
+ported and raise.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ class BurgersDataset:
                  train_portion: float = 0.9,
                  valid_portion: float = 0.1,
                  super_resolution: int = 1,
+                 data_path: str | None = None,
                  n_samples_synthetic: int = 256,
                  return_edge: bool = False,
                  random_state: int = 1127802):
@@ -49,6 +52,7 @@ class BurgersDataset:
         self.train_data = train_data
         self.train_portion = train_portion
         self.valid_portion = valid_portion
+        self.data_path = data_path
         self.n_samples_synthetic = n_samples_synthetic
         self.random_state = random_state
         self._initialize()
@@ -57,6 +61,10 @@ class BurgersDataset:
         return self.n_samples
 
     def _load(self):
+        if self.data_path is not None and os.path.exists(self.data_path):
+            from scipy.io import loadmat
+            data = loadmat(self.data_path)
+            return np.asarray(data["a"]), np.asarray(data["u"])
         cache = os.path.join(
             config.DATA_PATH, f"burgers_synth_n{self.n_grid_fine}"
             f"_s{self.n_samples_synthetic}_v{SYNTHETIC_VISCOSITY}"

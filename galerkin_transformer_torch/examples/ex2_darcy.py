@@ -23,8 +23,9 @@ import torch
 from ..data import DarcyDataset, get_scaler_sizes
 from ..models import FourierTransformer2D
 from ..train import WeightedL2Loss2d
-from ..utils import load_config, resolve_device
-from ._darcy import get_args_2d, merge_args, model_name, train_and_report
+from ..utils import get_model_name, load_config, merge_config, resolve_device
+from ..utils.args import get_args_2d, set_matmul_precision
+from ._darcy import train_and_report
 
 
 def main(argv=None, model_save_path: Optional[str] = None) -> float:
@@ -32,9 +33,7 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
     Checkpoints go to `model_save_path` (``MODEL_PATH`` by default)."""
     args = get_args_2d(argv=argv)
     device = resolve_device(args.device)
-    # full float32 products, as the JAX driver's default "highest" precision
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_matmul_precision(fast_matmul=args.fast_matmul)
 
     kw = dict(subsample_attn=args.subsample_attn, subsample_nodes=args.subsample_nodes,
               n_grid_fine=args.n_grid_fine)
@@ -56,7 +55,7 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
         config["norm_eps"] = 1e-7
     elif config["attention_type"] == "galerkin" and n_grid >= 211:
         config["norm_eps"] = 1e-5
-    config = merge_args(config, args)
+    config = merge_config(config, args)
     if args.score_dropout is not None:
         config["score_dropout"] = args.score_dropout
     model = FourierTransformer2D.from_config(
@@ -69,7 +68,11 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
         model, config, args, train_dataset, valid_dataset, lr,
         WeightedL2Loss2d(regularizer=True, h=h, gamma=args.gamma),
         WeightedL2Loss2d(regularizer=False, h=h),
-        model_name(config, n_grid, False, "32f"), model_save_path)
+        get_model_name(model="darcy", num_encoder_layers=config["num_encoder_layers"],
+                       n_hidden=config["n_hidden"], attention_type=config["attention_type"],
+                       layer_norm=config["layer_norm"], grid_size=n_grid,
+                       additional_str="32f"),
+        model_save_path)
 
 
 if __name__ == "__main__":

@@ -19,8 +19,9 @@ import torch
 from ..data import DarcyDataset, get_scaler_sizes
 from ..models import FourierTransformer2D
 from ..train import WeightedL2Loss2d
-from ..utils import load_config, resolve_device
-from ._darcy import get_args_2d, merge_args, model_name, train_and_report
+from ..utils import get_model_name, load_config, merge_config, resolve_device
+from ..utils.args import get_args_2d, set_matmul_precision
+from ._darcy import train_and_report
 
 
 def main(argv=None, model_save_path: Optional[str] = None) -> float:
@@ -29,8 +30,7 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
     args = get_args_2d(subsample_nodes=3, subsample_attn=12, gamma=0.0, noise=0.01,
                        inverse=True, argv=argv)
     device = resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_matmul_precision(fast_matmul=args.fast_matmul)
 
     kw = dict(inverse_problem=True, subsample_attn=args.subsample_attn,
               subsample_nodes=args.subsample_nodes, subsample_inverse=args.subsample_attn,
@@ -53,7 +53,7 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
     config["downscaler_size"] = get_scaler_sizes(n_grid, n_grid_c)[0]
     config["upscaler_size"] = ((n_grid_c, n_grid_c), (n_grid_c, n_grid_c))
     config["attn_norm"] = not args.layer_norm
-    config = merge_args(config, args)
+    config = merge_config(config, args)
     if args.score_dropout is not None:
         config["score_dropout"] = args.score_dropout
     model = FourierTransformer2D.from_config(
@@ -64,7 +64,11 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
     return train_and_report(
         model, config, args, train_dataset, valid_dataset, args.lr,
         WeightedL2Loss2d(regularizer=False, h=h), WeightedL2Loss2d(regularizer=False, h=h),
-        model_name(config, n_grid, True, f"{config['n_head']}h_{args.noise:.1e}"),
+        get_model_name(model="darcy", num_encoder_layers=config["num_encoder_layers"],
+                       n_hidden=config["n_hidden"], attention_type=config["attention_type"],
+                       layer_norm=config["layer_norm"], grid_size=n_grid,
+                       inverse_problem=True,
+                       additional_str=f"{config['n_head']}h_{args.noise:.1e}"),
         model_save_path)
 
 

@@ -3,7 +3,8 @@
 
 ``FourierTransformer2DLite`` trained autoregressively over a 10-step
 window (one backward through the whole rollout), with the H¹-regularized
-relative L2 and 1cycle Adam, clip 0.99.  Reads ``--data-path`` (an h5
+relative L2 and 1cycle Adam (or the plateau scheduler), clip 0.99, and the
+JAX driver's flags (``utils/args.py::get_args_ns``).  Reads ``--data-path`` (an h5
 ``.mat`` file) when given, otherwise makes synthetic trajectories on the
 64² grid: the training set (``--n-samples``, above 16 trajectories) with
 the torch generator on the run's device, the validation set (``max(n // 4,
@@ -19,56 +20,23 @@ graph replay on the GPU.
 """
 from __future__ import annotations
 
-import argparse
 from typing import Optional
-
-import torch
 
 from ..data import DataLoader, NavierStokesDatasetLite
 from ..models import FourierTransformer2DLite
-from ..train import (AdamOneCycle, WeightedL2Loss2d, make_ns_steps, run_train,
+from ..train import (AdamOneCycle, WeightedL2Loss2d, adam_plateau, make_ns_steps, run_train,
                      validate_epoch)
-from ..utils import load_config, resolve_device
+from ..utils import load_config, merge_config, resolve_device
+from ..utils.args import get_args_ns, set_matmul_precision
 from ..utils.config import MODEL_PATH
-from ._darcy import SEED, add_device_loop_args
-
-
-def get_args(argv=None) -> argparse.Namespace:
-    """The JAX driver's flags that the port carries, with the same
-    defaults, plus ``--device``.  ``--scheduler``, ``--rollback-on-spike``
-    and ``--resume-epoch`` are not ported, and argparse refuses them."""
-    p = argparse.ArgumentParser(description="Example 4: NS 2+1d rollout")
-    p.add_argument("--batch-size", type=int, default=4)
-    p.add_argument("--epochs", type=int, default=100)
-    p.add_argument("--lr", type=float, default=1e-3)
-    p.add_argument("--gamma", type=float, default=0.1)
-    p.add_argument("--seed", type=int, default=SEED)
-    p.add_argument("--data-path", type=str, default=None)
-    p.add_argument("--n-samples", type=int, default=64)
-    p.add_argument("--fast-matmul", action="store_true", default=False,
-                   help="TF32 products (the JAX driver's default precision); without "
-                        "it float32, as its 'highest'")
-    p.add_argument("--ema-decay", type=float, default=None)
-    p.add_argument("--cycle-momentum", action=argparse.BooleanOptionalAction,
-                   default=True,
-                   help="cycle Adam beta1 0.95->0.85->0.95 with the 1cycle lr; "
-                        "--no-cycle-momentum holds beta1=0.9")
-    p.add_argument("--accum-steps", type=int, default=1,
-                   help="gradient accumulation: split each batch into this many "
-                        "microbatches (the full-batch gradient)")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (default; raises without a GPU) or cpu")
-    add_device_loop_args(p)
-    return p.parse_args(argv)
 
 
 def main(argv=None, model_save_path: Optional[str] = None) -> float:
     """Train, then print and return the best model's validation metric.
     Checkpoints go to `model_save_path` (``MODEL_PATH`` by default)."""
-    args = get_args(argv)
+    args = get_args_ns(argv)
     device = resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = args.fast_matmul
-    torch.backends.cudnn.allow_tf32 = args.fast_matmul
+    set_matmul_precision(fast_matmul=args.fast_matmul)
 
     train_dataset = NavierStokesDatasetLite(
         data_path=args.data_path, train_data=True,
@@ -80,7 +48,7 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
                               drop_last=True, seed=args.seed)
     valid_loader = DataLoader(valid_dataset, args.batch_size)
 
-    config = load_config("ex4_navier_stokes")
+    config = merge_config(load_config("ex4_navier_stokes"), args)
     model = FourierTransformer2DLite.from_config(config, device=device, seed=args.seed)
 
     sample = next(iter(train_loader))
@@ -91,8 +59,14 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
           f"\t Number of params: {sum(p.numel() for p in model.parameters())}")
 
     h = 1 / train_dataset.n_grid
-    optimizer = AdamOneCycle(model.parameters(), args.lr, len(train_loader) * args.epochs,
-                             grad_clip=0.99, cycle_momentum=args.cycle_momentum)
+    plateau = lr_schedule = None
+    if args.scheduler == "plateau":
+        optimizer, plateau = adam_plateau(model.parameters(), args.lr, grad_clip=0.99)
+    else:
+        optimizer = AdamOneCycle(model.parameters(), args.lr,
+                                 len(train_loader) * args.epochs, grad_clip=0.99,
+                                 cycle_momentum=args.cycle_momentum)
+        lr_schedule = optimizer.lr_schedule
     loss_fn = WeightedL2Loss2d(regularizer=True, h=h, gamma=args.gamma)
     metric_fn = WeightedL2Loss2d(regularizer=False, h=h)
     train_step, eval_step = make_ns_steps(
@@ -101,10 +75,12 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
 
     best_params, _ = run_train(
         model, train_step, eval_step, optimizer, train_loader, valid_loader,
-        epochs=args.epochs, lr_schedule=optimizer.lr_schedule, patience=None,
+        epochs=args.epochs, lr_schedule=lr_schedule, plateau=plateau, patience=None,
         model_save_path=model_save_path or MODEL_PATH, model_name="ns_lite.ckpt",
         result_name="ns_lite_result.pkl", ema_decay=args.ema_decay,
-        device_loop=args.device_data, epochs_per_dispatch=args.epochs_per_dispatch)
+        device_loop=args.device_data, epochs_per_dispatch=args.epochs_per_dispatch,
+        rollback_on_spike=args.rollback_on_spike, resume=args.resume_epoch is not None,
+        start_epoch=args.resume_epoch or 0)
 
     model.load_state_dict(best_params)
     val = validate_epoch(eval_step, valid_loader)

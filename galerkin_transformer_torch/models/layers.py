@@ -135,7 +135,9 @@ class SimpleAttention(nn.Module):
       ``norm_type='instance'``, instance norm over the sequence.
     * pos is repeated per head and concatenated in front of q, k, v after
       the norm; ``fc`` projects (d_model + n_head·pos_dim) back to d_model.
-    * score dropout acts on the reduced score matrix.
+    * score dropout acts on the reduced score matrix; fourier attention in
+      training with a non-zero rate forms its dense n×n scores for it (as
+      JAX does), not the kernel.
 
     Kernels: galerkin with layer norm runs ``galerkin_scores``; fourier runs
     ``fourier_chain``, each where the head fits the kernel (d_k + pos_dim
@@ -146,8 +148,7 @@ class SimpleAttention(nn.Module):
     bfloat16 tensor-core ones), on CPU tensors their plain versions.  With
     a compute `dtype` the projections and ``fc`` run as `dense` does; the
     parameters stay float32.  The other attention
-    types, masks, the mass-weight hook and fourier score dropout in
-    training (the n×n scores are never formed) are not ported and raise.
+    types, masks and the mass-weight hook are not ported and raise.
     """
 
     def __init__(self, n_head: int, d_model: int, pos_dim: int = 1,
@@ -261,9 +262,9 @@ class SimpleAttention(nn.Module):
                 ph = pos_in[:, None].expand(bsz, h, n, self.pos_dim).to(q.dtype)
                 q, k, v = (torch.cat([ph, t], dim=-1) for t in (q, k, v))
             if self.training and self.score_rate > 0.0:
-                raise NotImplementedError("fourier score dropout in training "
-                                          "is not ported")
-            if d_k + p <= FOURIER_MAX_D:
+                # the dense n×n scores, as JAX forms them for score dropout
+                x, p_attn = A.fourier_attention(q, k, v, score_dropout=self._score_dropout)
+            elif d_k + p <= FOURIER_MAX_D:
                 x = fourier_attention_tiled(q.contiguous(), k.contiguous(),
                                             v.contiguous())
                 p_attn = None

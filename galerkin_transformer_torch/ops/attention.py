@@ -45,13 +45,16 @@ def galerkin_attention_pos_blocked(query, key, value, pos,
     return out, p_attn
 
 
-def fourier_attention(query, key, value):
+def fourier_attention(query, key, value, score_dropout=None):
     """``out = (Q Kᵀ / (√d · n)) V`` with d the final feature dim, the pos
-    columns included (reference layers.py:672-705)."""
+    columns included (reference layers.py:672-705); `score_dropout` acts on
+    the scaled scores before the product with V.  Returns (out, p_attn)."""
     d_k = query.shape[-1]
     n = key.shape[-2]
     scores = _mm(query, key.transpose(-2, -1)) / math.sqrt(d_k)
     p_attn = scores / n
+    if score_dropout is not None:
+        p_attn = score_dropout(p_attn)
     return _mm(p_attn, value), p_attn
 
 

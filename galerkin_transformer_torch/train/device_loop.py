@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda._graph import Replayed
-from .schedule import AdamOneCycle
+from .schedule import ClippedAdam
 
 # eager steps on the capture stream before the capture: they make what a
 # step builds or allocates on first use (the kernels, their ticket pools and
@@ -83,6 +83,20 @@ def ema_weights(model: torch.nn.Module, ema: Optional[list]):
             torch._foreach_copy_(params, raw)
 
 
+@torch.no_grad()
+def restore_weights(model: torch.nn.Module, ema: Optional[list],
+                    state: Dict[str, torch.Tensor]):
+    """Copy a state_dict of `model` (the best weights) into the model's
+    weights and, with EMA on, into the EMA list (aligned with
+    ``model.parameters()``), in place: a captured step goes on reading and
+    writing the same tensors."""
+    for key, value in model.state_dict().items():
+        value.copy_(state[key])
+    if ema is not None:
+        names = [name for name, _ in model.named_parameters()]
+        torch._foreach_copy_(ema, [state[name] for name in names])
+
+
 def _nbytes(data: Dict) -> int:
     return sum(v.nbytes for v in data.values() if v is not None)
 
@@ -92,9 +106,11 @@ class DeviceEpochRunner:
     and, on a CUDA device, each train step as a replay of one CUDA graph.
 
     Parameters mirror what `run_train` receives.  Construction puts both
-    datasets on the device.  On a CUDA device the optimizer must be an
-    `AdamOneCycle`, whose step values come from the device (a replayed
-    step of another optimizer would repeat the captured ones).
+    datasets on the device.  On a CUDA device the optimizer must be a
+    `ClippedAdam` (`AdamOneCycle`, `AdamPlateau`), whose step values come
+    from the device (a replayed step of another optimizer would repeat the
+    captured ones).  ``mode`` ("min" or "max") is the direction in which
+    `run_block` tracks the best validation metric.
     ``train_step.generators`` (see ``train.steps``) are registered with the
     graph, so that each replay draws fresh noise; dropout on the default
     generator is registered by ``torch.cuda.graph`` itself.
@@ -103,7 +119,7 @@ class DeviceEpochRunner:
     def __init__(self, model: torch.nn.Module, train_step: Callable, eval_step: Callable,
                  optimizer: torch.optim.Optimizer, train_loader, valid_loader,
                  ema_decay: Optional[float] = None, shuffle_seed: Optional[int] = None,
-                 epochs_per_dispatch: int = 1, verbose: bool = True):
+                 epochs_per_dispatch: int = 1, mode: str = "min", verbose: bool = True):
         if getattr(train_loader, "num_shards", 1) != 1:
             raise ValueError(
                 "DeviceEpochRunner is single-process; use the host "
@@ -112,10 +128,13 @@ class DeviceEpochRunner:
         self.train_step, self.eval_step = train_step, eval_step
         self.device = next(model.parameters()).device
         self.graphed = self.device.type == "cuda"
-        if self.graphed and not isinstance(optimizer, AdamOneCycle):
-            raise TypeError(f"a captured train step needs an AdamOneCycle optimizer "
-                            f"(step values read on the device), got "
+        if self.graphed and not isinstance(optimizer, ClippedAdam):
+            raise TypeError(f"a captured train step needs an AdamOneCycle or AdamPlateau "
+                            f"optimizer (step values read on the device), got "
                             f"{type(optimizer).__name__}")
+        if mode not in ("min", "max"):
+            raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
+        self.mode = mode
         self.batch_size = train_loader.batch_size
         self.shuffle = bool(getattr(train_loader, "shuffle", False))
         self.ema_decay = ema_decay
@@ -296,7 +315,8 @@ class DeviceEpochRunner:
         """Run epochs [start_epoch, start_epoch+k) with one host read.
 
         Best-val tracking runs on the device: after each epoch,
-        ``isfinite(val) & (val < best)`` replaces the best value and copies
+        ``isfinite(val) & (val < best)`` (``val > best`` with ``mode="max"``)
+        replaces the best value and copies
         the evaluated parameters (the EMA average with EMA on) into
         `best_params`, a state_dict of the model on its device that is
         updated in place (pass a snapshot, not the live weights): the exact
@@ -311,7 +331,7 @@ class DeviceEpochRunner:
             losses.append(self.train_epoch(epoch).clone())
             val = self.validate().float()
             vals.append(val)
-            better = torch.isfinite(val) & (val < best)
+            better = torch.isfinite(val) & (val > best if self.mode == "max" else val < best)
             best = torch.where(better, val, best)
             with ema_weights(self.model, self.ema), torch.no_grad():
                 for key, value in self.model.state_dict().items():

@@ -6,8 +6,10 @@ parser.  Each block here mirrors its block of ``config.yml`` key for key
 """
 from __future__ import annotations
 
+import argparse
 import copy
 import os
+from typing import Any, Mapping
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # the JAX package's default directories (both listed in .gitignore)
@@ -177,3 +179,21 @@ def load_config(block: str) -> dict:
         raise KeyError(f"config block {block!r} is not ported "
                        f"(ported: {sorted(CONFIGS)})")
     return copy.deepcopy(CONFIGS[block])
+
+
+def merge_config(base: Mapping[str, Any], *overlays: Any) -> dict:
+    """`base` with each overlay laid over it in turn (counterpart of
+    ``merge_config``).  An argparse namespace sets only keys that the
+    config already has, and never with ``None`` (a flag not given), as the
+    reference's copy-by-name loop does (ex1_burgers.py:54-57); a mapping
+    sets all its keys."""
+    out = dict(base)
+    for overlay in overlays:
+        if overlay is None:
+            continue
+        if isinstance(overlay, argparse.Namespace):
+            out.update((k, v) for k, v in vars(overlay).items()
+                       if k in out and v is not None)
+        else:
+            out.update(overlay)
+    return out

@@ -1089,3 +1089,115 @@ def test_tickets_survive_capture(dev):
     want_large = GS.galerkin_scores_reference(*large[:3], *large[3], 1e-5)
     torch.testing.assert_close(bigger, want_large, rtol=0,
                                atol=1e-4 * want_large.abs().max().item())
+
+
+# ---------------------------------------------------------------- recovery
+
+def _recovery_steps(dev, optimizer):
+    """The small ex1 galerkin model of `_ex1_steps` with `AdamOneCycle` or
+    `AdamPlateau`, and its steps."""
+    from galerkin_transformer_torch.train import AdamPlateau, WeightedL2Loss, make_burgers_steps
+    model, opt, train_step, eval_step = _ex1_steps(dev, "galerkin", None)
+    if optimizer == "plateau":
+        opt = AdamPlateau(model.parameters(), 1e-3)
+        train_step, eval_step = make_burgers_steps(
+            model, WeightedL2Loss(regularizer=True, h=1 / 256, gamma=0.1),
+            WeightedL2Loss(h=1 / 256), opt)
+    return model, opt, train_step, eval_step
+
+
+@pytest.mark.parametrize("change", ["rollback", "resume", "plateau"])
+def test_replayed_step_equals_the_eager_step_after_an_in_place_change(dev, tmp_path,
+                                                                      deterministic_cudnn,
+                                                                      change):
+    """One epoch of the device loop (warm-up, capture, replays) and as many
+    eager steps from the same weights; then, in both, what recovery does
+    between epochs: a rollback (the first weights back in place, the Adam
+    moments zeroed, ``lr_scale`` halved), a resume (another run's checkpoint
+    loaded into the model and the optimizer) or a plateau reduction of
+    `AdamPlateau`'s lr; then one more epoch.  The replays equal the eager
+    steps bit for bit, the optimizer keeps its tensors, and the graph is
+    the one captured before the change."""
+    from galerkin_transformer_torch.data import DataLoader
+    from galerkin_transformer_torch.train import (DeviceEpochRunner, PlateauController,
+                                                  load_checkpoint, restore_weights,
+                                                  save_checkpoint)
+    data = _ex1_samples(16)
+    loader = DataLoader(data, 4, drop_last=True)
+    optimizer = "plateau" if change == "plateau" else "onecycle"
+    model, opt, train_step, eval_step = _recovery_steps(dev, optimizer)
+    first = {k: v.clone() for k, v in model.state_dict().items()}
+    runner = DeviceEpochRunner(model, train_step, eval_step, opt, loader,
+                               DataLoader(data[:4], 4), verbose=False)
+    ref_model, ref_opt, ref_step, _ = _recovery_steps(dev, optimizer)
+    want = [[float(x) for x in ref_step(b)] for b in loader]
+    got, _ = runner.epoch(0)
+    graph = runner._train.graph
+    tensors = [opt._step] + [t for st in opt.state.values() for t in st.values()]
+    if change == "resume":
+        other, other_opt, other_step, _ = _recovery_steps(dev, optimizer)
+        for _ in range(2):
+            for b in loader:
+                other_step(b)
+        save_checkpoint(str(tmp_path / "m.ckpt"), other.state_dict(), other_opt.state_dict())
+    for m, o in ((model, opt), (ref_model, ref_opt)):
+        if change == "rollback":
+            restore_weights(m, None, first)
+            o.reset_moments()
+            o.lr_scale = 0.5
+        elif change == "resume":
+            state = load_checkpoint(str(tmp_path / "m.ckpt"), map_location=dev)
+            m.load_state_dict(state["params"])
+            o.load_state_dict(state["optimizer"])
+        else:
+            plateau = PlateauController(1e-3, patience=0, verbose=False)
+            for metric in (1.0, 1.0):
+                plateau.step(o, metric)
+            assert o.lr == 5e-4
+    now = [opt._step] + [t for st in opt.state.values() for t in st.values()]
+    assert len(now) == len(tensors) and all(a is b for a, b in zip(now, tensors))
+    after, _ = runner.epoch(1)
+    want += [[float(x) for x in ref_step(b)] for b in loader]
+    assert np.array_equal(np.concatenate([got, after]), np.asarray(want, np.float32))
+    for key, p in model.state_dict().items():
+        assert torch.equal(p, ref_model.state_dict()[key]), key
+    assert runner._train.graph is graph and (runner.eager_steps, runner.replays) == (2, 6)
+    assert opt.count == ref_opt.count == (12 if change == "resume" else 8)
+
+
+def test_async_checkpoint_taken_during_replays_holds_the_weights_of_its_call(
+        dev, tmp_path, monkeypatch):
+    """`AsyncCheckpointer.save` between replayed epochs: the write is held
+    back until a whole epoch of replays has rewritten the weights and
+    moments in place, and the file still holds those of the call."""
+    import threading
+    from galerkin_transformer_torch.data import DataLoader
+    from galerkin_transformer_torch.train import AsyncCheckpointer, DeviceEpochRunner
+    from galerkin_transformer_torch.train import checkpoint as checkpoint_module
+    data = _ex1_samples(16)
+    model, opt, train_step, eval_step = _recovery_steps(dev, "onecycle")
+    runner = DeviceEpochRunner(model, train_step, eval_step, opt,
+                               DataLoader(data, 4, drop_last=True), DataLoader(data[:4], 4),
+                               verbose=False)
+    runner.epoch(0)
+    release = threading.Event()
+    write = checkpoint_module._write
+
+    def held_write(path, payload):
+        assert release.wait(timeout=60)
+        write(path, payload)
+
+    monkeypatch.setattr(checkpoint_module, "_write", held_write)
+    ckpt = AsyncCheckpointer(str(tmp_path))
+    want = {k: v.clone() for k, v in model.state_dict().items()}   # queued, no wait
+    ckpt.save(0, model.state_dict(), opt.state_dict())
+    runner.train_epoch(1)     # replays rewrite the weights and moments in place
+    moved = {k: v.cpu() for k, v in model.state_dict().items()}
+    release.set()
+    saved = ckpt.restore(0)
+    ckpt.close()
+    assert runner.replays == 6
+    for key, value in saved["params"].items():
+        assert torch.equal(value, want[key].cpu()), key
+    assert any(not torch.equal(v, moved[k]) for k, v in saved["params"].items())
+    assert saved["optimizer"]["param_groups"][0]["count"] == 4

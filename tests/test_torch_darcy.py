@@ -27,7 +27,7 @@ from galerkin_transformer_torch.ops import fem
 from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss2d,
                                               load_checkpoint, make_darcy_steps, run_train)
 from galerkin_transformer_torch.utils import config as t_config
-from galerkin_transformer_torch.examples._darcy import SEED
+from galerkin_transformer_torch.utils.args import SEED, get_args_2d
 from galerkin_transformer_torch.utils.weights import params_from_jax
 
 NO_DROPOUT = dict(dropout=0.0, downscaler_dropout=0.0, upscaler_dropout=0.0,
@@ -480,7 +480,13 @@ def test_darcy_drivers_raise_without_a_gpu_and_on_unported_flags(monkeypatch, mo
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         driver.main(["--epochs", "1", "--n-samples", "8", "--n-grid-fine", "13"])
-    for flags in (["--scheduler", "plateau"], ["--rollback-on-spike", "10"],
-                  ["--resume-epoch", "1"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # the three flags that raised until they were ported parse to JAX's
+    # values (tests/test_torch_recovery.py trains with them); a value outside
+    # a flag's type or choices is refused, as JAX's parser refuses it
+    args = get_args_2d(argv=["--scheduler", "plateau", "--rollback-on-spike", "10",
+                             "--resume-epoch", "1"])
+    assert (args.scheduler, args.rollback_on_spike, args.resume_epoch) == ("plateau", 10.0, 1)
+    for flags in (["--scheduler", "cosine"], ["--rollback-on-spike", "often"],
+                  ["--resume-epoch", "1.5"]):
+        with pytest.raises(SystemExit):
             driver.main(["--device", "cpu"] + flags)

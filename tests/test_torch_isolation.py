@@ -27,7 +27,9 @@ def test_port_modules_and_chip_smoke_import_no_jax():
                  "models.transformer", "data.darcy", "data.normalizer", "ops.fem",
                  "data.synthetic", "train.steps", "train.losses", "examples._darcy",
                  "examples.ex2_darcy", "examples.ex3_darcy_inv", "data.ns",
-                 "data.synthetic_torch", "examples.ex4_navier_stokes"):
+                 "data.synthetic_torch", "examples.ex4_navier_stokes", "utils.args",
+                 "utils.naming", "train.checkpoint", "train.schedule", "train.trainer",
+                 "train.device_loop"):
         assert f"galerkin_transformer_torch.{name}" in modules
     code = "\n".join(
         [f"import {m}" for m in modules]

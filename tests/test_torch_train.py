@@ -22,7 +22,7 @@ from galerkin_transformer_tpu.train import schedule as j_schedule
 from galerkin_transformer_tpu.train.steps import make_burgers_steps as j_make_steps
 from galerkin_transformer_tpu.train.trainer import TrainResult as JaxTrainResult
 from galerkin_transformer_torch import Predictor, SimpleTransformer, load_config
-from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss,
+from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss, adam_plateau,
                                               load_checkpoint, make_burgers_steps,
                                               microbatched_value_and_grad,
                                               onecycle_momentum_schedule,
@@ -304,11 +304,28 @@ def test_run_train_stops_on_a_non_finite_loss(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("option", [
-    dict(plateau=object()), dict(resume=True), dict(async_checkpoint=True),
+    dict(plateau=True), dict(resume=True), dict(async_checkpoint=True),
     dict(rollback_on_spike=10.0)])
-def test_run_train_refuses_unported_options(option):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run_train(None, None, None, None, [], [], **option)
+def test_run_train_refuses_unported_options(tmp_path, option):
+    """These four options raised NotImplementedError until they were ported
+    (the name is kept from then): now run_train takes each, with
+    `AdamPlateau` and its controller, and trains 2 epochs, then 1 more in a
+    second call that resumes from what the first left."""
+    model = SimpleTransformer.from_config(_cfg("galerkin"), device="cpu", seed=2)
+    opt, plateau = adam_plateau(model.parameters(), 1e-3, patience=0)
+    train_step, eval_step = make_burgers_steps(
+        model, WeightedL2Loss(regularizer=True, h=1 / N, gamma=0.1), WeightedL2Loss(h=1 / N),
+        opt)
+    kw = dict(option, plateau=plateau if option.get("plateau") else None)
+    for start, epochs in ((0, 2), (2, 3)):
+        _, result = run_train(model, train_step, eval_step, opt, _loader(0, 2), _loader(10, 1),
+                              epochs=epochs, start_epoch=start, patience=None,
+                              model_save_path=str(tmp_path), **kw)
+        assert np.isfinite(result.loss_train).all() and np.isfinite(result.loss_val).all()
+    assert len(result.loss_train) == 1 and opt.count == 6
+    saved = (tmp_path / "model.ckpt.async") if option.get("async_checkpoint") else \
+        (tmp_path / "model.ckpt")
+    assert saved.exists()
 
 
 # ----------------------------------------------------------------- driver

@@ -111,8 +111,20 @@ def test_route_is_picked_by_shape(monkeypatch, attention_type, d_model, n_head, 
 
 
 def test_wide_fourier_score_dropout_in_training_still_raises():
+    """Fourier score dropout in training raised until it was ported (the
+    name is kept from then): a wide head now takes JAX's dense form for it,
+    as a narrow one does, the scores dropped out with torch's mask."""
     layer = SimpleAttention(n_head=1, d_model=128, pos_dim=2, attention_type="fourier",
                             dropout=0.1, norm=True).train()
-    x = torch.zeros(1, 8, 128)
-    with pytest.raises(NotImplementedError, match="score dropout"):
-        layer(x, x, x, torch.zeros(1, 8, 2))
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((1, 8, 128)).astype(np.float32))
+    pos = torch.from_numpy(rng.uniform(0, 1, (1, 8, 2)).astype(np.float32))
+    torch.manual_seed(0)
+    out, p_attn = layer(x, x, x, pos)
+    layer.eval()
+    with torch.no_grad():
+        _, scores = layer(x, x, x, pos)     # the wide head's dense scores, no dropout
+    torch.manual_seed(0)
+    want = torch.nn.functional.dropout(scores, 0.1, True)
+    assert out.shape == (1, 8, 128) and torch.isfinite(out).all()
+    torch.testing.assert_close(p_attn.detach(), want, rtol=0, atol=0)

@@ -17,6 +17,9 @@
     python3 chip_smoke.py --stage-sweep
         # the float32 galerkin forward with only its copies, only LN, only
         # the product and whole, at the ex1 width over n (stage_sweep_phase)
+    python3 chip_smoke.py --cosine-bf16
+        # bf16 cosine serving's distance from the float32 model on four
+        # seeds, the CPU's and the card's (cosine_bf16_phase)
 
 1. prints the card (nvidia-smi) and turns TF32 off;
 2. builds every CUDA kernel of the port from galerkin_transformer_torch/csrc
@@ -31,7 +34,8 @@
    timed with only its copies, only LayerNorm and only the product), and the
    bfloat16 tensor-core kernels ``galerkin_scores_bf16`` (ex1, ex2 serving
    and ex2 training shapes) and ``fourier_chain_bf16`` (ex1 serving shape,
-   and timed at the training shape); each galerkin forward exactly one device kernel per
+   and timed at the training shape); the galerkin kernels (forward and
+   backward) take a different pos for each sample; each galerkin forward exactly one device kernel per
    call, as a CUDA graph captured from the call holds them (``torch.profiler``
    has dropped short kernels); each kernel bit-equal on a
    second call, and each chain two device kernels per call (its layout
@@ -138,11 +142,28 @@
    ``examples/ex3_darcy_inv.py`` (1 epoch) of the port, in-process, on the
    device loop (their default); then ex1 with ``--attention-type galerkin
    --rollback-on-spike 10 --scheduler plateau`` for 2 epochs and
-   ``--resume-epoch 2`` for a third, and ex4 with ``--scheduler plateau``;
-   their losses must be finite, and the ex1, ex2 and ex4 best checkpoints
-   must load into ``Predictor`` and serve a batch (ex2 with the normalizer
-   saved in the checkpoint);
-9. prints one {"kernels": [...]} line (launches summed over the main
+   ``--resume-epoch 2`` for a third, ex1 with ``--attention-type softmax``
+   and with ``--nonuniform --attention-type galerkin`` (2 epochs each), and
+   ex4 with ``--scheduler plateau``; their losses must be finite, and the
+   ex1 (all three), ex2 and ex4 best checkpoints must load into
+   ``Predictor`` and serve a batch (ex2 with the normalizer saved in the
+   checkpoint);
+9. ex1 variants phase (``ex1_variants_phase``), the rest of the ex1 model
+   at full width (random weights): ``linear``, ``softmax``, ``cosine`` (f32
+   and bf16) and ``official`` (the vanilla softmax stack, f32) served
+   through ``Predictor`` at n = 8192 and 2048 as in item 5, with no kernel
+   in their graphs (bf16 cosine against the CPU's float32 model, to
+   ``TOL_SERVE_COSINE_BF16``); each one train step (dropout off) on the
+   card against the CPU and through ``DeviceEpochRunner`` against the
+   eager host loop, and so the galerkin step with its latents'
+   orthogonality penalty; the galerkin and fourier steps (f32, bf16) on
+   per-sample nonuniform meshes (``BurgersDataset(uniform=False)``), each
+   against the CPU and in the device loop, with exactly the uniform steps'
+   launches, and a nonuniform galerkin request served; masked
+   ``SimpleAttention`` calls (fourier, softmax, causal with its key mask)
+   on the card against the CPU, and causal with its norm against float64
+   on its well-conditioned rows (``causal_witness``);
+10. prints one {"kernels": [...]} line (launches summed over the main
    paths), then the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a GPU it exits 1 and
@@ -196,6 +217,7 @@ from galerkin_transformer_torch.ops.cuda import fourier as FC  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import galerkin as GS  # noqa: E402
 from galerkin_transformer_torch.ops.attention import per_head_layer_norm  # noqa: E402
 from galerkin_transformer_torch.models.layers import SimpleAttention  # noqa: E402
+from galerkin_transformer_torch.models.encoder import MultiHeadDotProductAttention  # noqa: E402
 
 SEED = 0
 BATCH = 8
@@ -245,6 +267,15 @@ TOL_SERVE = 1e-3
 # rounds to bfloat16, so activations differ by single bfloat16 steps (2^-8)
 # that add up over the layers: four steps of the largest output
 TOL_SERVE_BF16 = 2.0 ** -6
+# bfloat16 cosine serving vs the CPU's float32 model of the same weights, of
+# its largest output: cosine weights are not normalized over n, so each
+# output sums n signed products of weights rounded to bfloat16, and the bf16
+# model lies further from float32 than four steps.  Readings of
+# ``--cosine-bf16`` on an H100 (seeds 0-3, n = 8192 and 2048): the CPU's
+# bf16 model 1.22e-2 to 1.047e-1 from float32, the card's 1.21e-2 to
+# 1.063e-1, within 2.4e-3 of the CPU's on each input; the bound is the
+# largest reading ×1.25, rounded up to 1e-2
+TOL_SERVE_COSINE_BF16 = 0.14
 # one train step on the card vs the CPU: losses relative, gradients against
 # the largest entry of each (a forward and a backward through four layers)
 TOL_TRAIN_LOSS = 1e-4
@@ -450,14 +481,16 @@ def _tensor(a, dev, dtype=None):
 
 def galerkin_inputs(rng, dev, shape, dtype):
     """k, v (B, H, n, d_k) and pos (B, n, p) of `dtype`, and the four float32
-    LN parameters (H, d_k)."""
+    LN parameters (H, d_k).  Each sample has its own coordinates, as on a
+    nonuniform mesh, so a kernel that read one sample's pos for all fails."""
     b, h, n, d_k, p = shape
     k, v = (_tensor(rng.standard_normal((b, h, n, d_k)), dev, dtype) for _ in range(2))
-    if p == 1:
-        pos = np.linspace(0, 1, n)[None, :, None].repeat(b, 0)
-    else:   # the nodes of a square grid, as the 2D model passes them
+    if p == 1:   # sorted random nodes on [0, 1], both ends pinned
+        pos = np.sort(rng.random((b, n, 1)), axis=1)
+        pos[:, 0], pos[:, -1] = 0.0, 1.0
+    else:   # the nodes of a square grid, as the 2D model passes them, scaled per sample
         side = math.isqrt(n)
-        pos = darcy_grids(side, side)[0][None].repeat(b, 0)
+        pos = darcy_grids(side, side)[0][None] * (0.5 + rng.random((b, 1, 1)))
     params = [_tensor(1 + 0.1 * rng.standard_normal((h, d_k)), dev),
               _tensor(0.1 * rng.standard_normal((h, d_k)), dev),
               _tensor(1 + 0.1 * rng.standard_normal((h, d_k)), dev),
@@ -1556,11 +1589,12 @@ def serving_ex4_phase(rng):
     return {name: counts[name] for name in COUNTERS}
 
 
-def compare_step(tag, steps, models, batch, per_step, tol_loss, tol_grad):
+def compare_step(tag, steps, models, batch, per_step, tol_loss, tol_grad, floor=0.0):
     """One train step on the card and one on the CPU from the same weights
     and batch: the launch counts of the card's step are exactly `per_step`
     (and 0 for every other kernel), the losses agree to `tol_loss`
-    (relative) and every gradient to `tol_grad` of its largest entry."""
+    (relative) and every gradient to `tol_grad` of its largest entry, or of
+    `floor` times the model's largest gradient where that is more."""
     before = launches()
     got = [float(x) for x in steps["cuda"](batch)]
     after = launches()
@@ -1576,9 +1610,11 @@ def compare_step(tag, steps, models, batch, per_step, tol_loss, tol_grad):
         raise AssertionError(f"train {tag}: losses {got} vs CPU {want}")
     cpu_grads = dict(models["cpu"].named_parameters())
     grad_err, worst = 0.0, ""
+    g_floor = floor * max(float(p.grad.abs().max()) for p in cpu_grads.values())
     for key, p in models["cuda"].named_parameters():
         ref = cpu_grads[key].grad
         err, scale = max_err(p.grad.cpu(), ref)
+        scale = max(scale, g_floor)
         rel = err / scale if scale > 0 else err
         if rel > grad_err:
             grad_err, worst = rel, key
@@ -1612,16 +1648,33 @@ def ex1_train_data():
                           n_samples_synthetic=TRAIN_SAMPLES)
 
 
-def ex1_step(device, dtype, attention_type):
-    """A full-width ex1 SimpleTransformer, its optimizer and its steps."""
+def no_dropout(model):
+    """Every dropout rate of `model` set to 0: the ex1 config's rates are 0,
+    but the linear and softmax layers force 0.1 (encoder.py:56-58), and the
+    two devices draw different masks."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+        elif isinstance(m, SimpleAttention):
+            m.score_rate = 0.0
+        elif isinstance(m, MultiHeadDotProductAttention):
+            m.dropout = 0.0
+    return model
+
+
+def ex1_step(device, dtype, attention_type, latents=False):
+    """A full-width ex1 SimpleTransformer (dropout off), its optimizer and
+    its steps; with `latents` the model returns its latents and the loss
+    adds the orthogonality penalty on them."""
     cfg = load_config("ex1_burgers")
-    cfg["attention_type"] = attention_type
-    model = SimpleTransformer.from_config(cfg, device=device, seed=SEED, dtype=dtype)
+    cfg.update(attention_type=attention_type, return_latent=latents)
+    model = no_dropout(SimpleTransformer.from_config(cfg, device=device, seed=SEED,
+                                                     dtype=dtype))
     # 100 epochs of the training set's batches
     opt = AdamOneCycle(model.parameters(), 1e-3, 100 * (TRAIN_SAMPLES // 2 // BATCH))
     h = 1 / TRAIN_N
-    return (model, opt) + make_burgers_steps(
-        model, WeightedL2Loss(regularizer=True, h=h, gamma=0.1), WeightedL2Loss(h=h), opt)
+    loss = WeightedL2Loss(regularizer=True, h=h, gamma=0.1, orthogonal_reg=latents)
+    return (model, opt) + make_burgers_steps(model, loss, WeightedL2Loss(h=h), opt)
 
 
 def training_phase():
@@ -2259,28 +2312,19 @@ def _driver_outputs(tag, tmp, val, epochs):
 
 
 def driver_phase():
-    """The port's entry points: ex1, ex2 and ex4 for 2 epochs, each best
-    checkpoint served, and ex3 for 1 epoch.  The Darcy drivers run on a
+    """The port's entry points: ex1 (galerkin, softmax, and galerkin on
+    nonuniform meshes), ex2 and ex4 for 2 epochs, each best checkpoint
+    served, and ex3 for 1 epoch.  The Darcy drivers run on a
     small synthetic grid at the configs' widths, ex4 on a few trajectories
     at its own grid and width.  Returns the launch
     counts of the run, the device loop's graph replays included (the drivers
     run it by default)."""
     reset_launches()
-    runners = []
-    init = DeviceEpochRunner.__init__
-
-    def recording_init(self, *args, **kwargs):
-        init(self, *args, **kwargs)
-        runners.append(self)
-
-    DeviceEpochRunner.__init__ = recording_init
-    try:
+    with runner_hooks() as runners:
         counts, served = _drive()
-    finally:
-        DeviceEpochRunner.__init__ = init
     counts = Counter(counts)
     counts.update(forward_launches(served))
-    if len(runners) != 7 or any(r.replays == 0 for r in runners):
+    if len(runners) != 9 or any(r.replays == 0 for r in runners):
         raise AssertionError(f"driver: {len(runners)} device loops, replays "
                              f"{[r.replays for r in runners]}")
     counts.update(runner_launches(runners))
@@ -2306,6 +2350,25 @@ def _drive():
         raise AssertionError(f"driver: served checkpoint gave {out.shape}")
     print(f"driver ex1: 2 epochs, best validation metric {val:.4e}; the best checkpoint "
           f"served a batch of {out.shape}")
+    for flags in (["--attention-type", "softmax"],
+                  ["--nonuniform", "--attention-type", "galerkin"]):
+        with tempfile.TemporaryDirectory() as tmp:
+            val = ex1_burgers.main(["--n-samples", str(TRAIN_SAMPLES), "--epochs", "2"] + flags,
+                                   model_save_path=tmp)
+            ckpt = _driver_outputs(f"ex1 {' '.join(flags)}", tmp, val, 2)
+            cfg = {**load_config("ex1_burgers"), "attention_type": flags[-1]}
+            pred = Predictor.from_checkpoint(SimpleTransformer.from_config(cfg, seed=1), ckpt)
+        valid = BurgersDataset(subsample=SUBSAMPLE, train_data=False, valid_portion=100,
+                               n_samples_synthetic=TRAIN_SAMPLES,
+                               uniform="--nonuniform" not in flags)
+        batch = next(iter(DataLoader(valid, 4)))
+        outs = [pred(batch) for _ in range(3)]   # eager and capture, then two replays
+        served.append(pred.captured(batch))
+        if (any(o.shape != (4, TRAIN_N, 1) or not np.isfinite(o).all() for o in outs)
+                or not np.array_equal(outs[1], outs[2])):
+            raise AssertionError(f"driver ex1 {flags}: served checkpoint gave {outs[0].shape}")
+        print(f"driver ex1 {' '.join(flags)}: 2 epochs, best validation metric {val:.4e}; "
+              f"the best checkpoint served a batch of {outs[0].shape}")
     # the recovery flags: rollback on a spike and the plateau scheduler, then
     # a resume from the run's checkpoint
     flags = ["--n-samples", str(TRAIN_SAMPLES), "--attention-type", "galerkin",
@@ -2384,6 +2447,221 @@ def _drive():
     return launches(), served
 
 
+# the ex1 attention types without a kernel: served at both resolutions (the
+# SimpleAttention types in float32 and bfloat16, the vanilla `official` stack
+# in float32, as JAX gives it no compute type), trained for a step against the
+# CPU and in the device loop (float32)
+EX1_VARIANTS = ("linear", "softmax", "cosine", "official")
+VARIANT_LOOP_EPOCHS = 4
+# their gradients against the CPU: a softmax over the sequence (linear, softmax)
+# or over the keys (the vanilla stack) does not see a shift of K, so the
+# gradient of K's LN bias (or key bias) is zero in exact arithmetic, and the
+# softmax over nearly equal features leaves others at ~1e-7 of the model's
+# largest: float32 roundoff of terms of the largest size sets their error, so
+# each is held against at least 1e-3 of the model's largest gradient
+GRAD_FLOOR = 1e-3
+# masked SimpleAttention calls at the ex1 width: (B, n, n) score masks for
+# fourier and softmax, the (B, n) key mask for causal
+MASKED_TYPES = ("fourier", "softmax", "causal")
+# causal attention on layer-normalized features: the rows whose denominator
+# loses at most this many float32 steps to cancellation are held to float64
+CAUSAL_KAPPA = 1e2
+
+
+def masks_phase(rng, n=TRAIN_N):
+    """Masked `SimpleAttention` calls on the card against the CPU, to
+    TOL_SERVE of the largest output (no kernel: fourier with a mask forms
+    its dense scores).  Causal linear attention divides by q·Σk, which
+    passes near zero for signed features, so the layer runs as linear
+    attentions are meant to, on positive features: no norm, positive q and
+    k projections and inputs; `causal_witness` holds it on layer-normalized
+    features against float64."""
+    x = torch.from_numpy(rng.standard_normal((BATCH, n, 96)).astype(np.float32))
+    pos = torch.linspace(0, 1, n)[None, :, None].expand(BATCH, n, 1).contiguous()
+    scores = torch.from_numpy((rng.random((BATCH, n, n)) > 0.3).astype(np.float32))
+    keys = torch.ones(BATCH, n)
+    keys[:, -n // 8:] = 0.0
+    for atype in MASKED_TYPES:
+        causal = atype == "causal"
+        layer = SimpleAttention(n_head=1, d_model=96, attention_type=atype, norm=not causal,
+                                xavier_init=1e-2, diagonal_weight=1e-2, dropout=0.0).eval()
+        inputs = (x.abs() if causal else x, pos)
+        if causal:
+            with torch.no_grad():
+                for lin in layer.linears[:2]:
+                    lin.weight.abs_()
+        mask = keys if causal else scores
+        with torch.no_grad():
+            want, _ = layer(inputs[0], inputs[0], inputs[0], inputs[1], mask=mask)
+            before = launches()
+            xs, ps = (t.cuda() for t in inputs)
+            got, _ = layer.to("cuda")(xs, xs, xs, ps, mask=mask.cuda())
+            torch.cuda.synchronize()
+        if launches() != before:
+            raise AssertionError(f"masked {atype}: a kernel was launched")
+        got = got.cpu()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        print(f"masked {atype} SimpleAttention (d=96, n={n}, batch={BATCH}"
+              f"{', positive features' if causal else ''}): card vs CPU max_abs_err={err:.3e} "
+              f"scale={scale:.3e} tol={TOL_SERVE:.1e}; no kernel")
+        if not (err <= TOL_SERVE * scale and torch.isfinite(got).all()):
+            raise AssertionError(f"masked {atype}: the card and the CPU disagree")
+    causal_witness(x, pos, keys)
+
+
+def causal_witness(x, pos, keys):
+    """Causal `SimpleAttention` with its norm (layer-normalized q, k with
+    the pos column in front) on inputs `x`, `pos` and the key mask `keys`,
+    in float32 on the card and on the CPU, each against float64 on the CPU.
+    Its denominator q_t·Σ_{s<=t} k_s sums signed terms, so row t loses
+    about κ_t = Σ|q_t|·Σ|k_s| / |q_t·Σk_s| float32 steps: over the rows with
+    κ_t <= CAUSAL_KAPPA both must be within TOL_SERVE of the float64 output
+    there; over all rows both errors are printed."""
+    b, n, d = x.shape
+    layer = SimpleAttention(n_head=1, d_model=d, attention_type="causal", norm=True,
+                            xavier_init=1e-2, diagonal_weight=1e-2, dropout=0.0).eval()
+    outs = {}
+    with torch.no_grad():
+        # q and k as the float64 layer forms them
+        x64, pos64 = x.double(), pos.double()
+        layer.double()
+        q, k = (torch.cat([pos64[:, None],
+                           layer._head_norm(lin(x64).reshape(b, 1, n, d), name)], -1)
+                for lin, name in zip(layer.linears[:2], ("Q", "K")))
+        for side, dev, dtype in (("float64", "cpu", torch.float64), ("CPU", "cpu", torch.float32),
+                                 ("card", "cuda", torch.float32)):
+            xs, ps, ms = (t.to(dev, dtype) for t in (x, pos, keys))
+            outs[side] = layer.to(dev, dtype)(xs, xs, xs, ps, mask=ms)[0].cpu().double()
+    km = k * keys.double()[:, None, :, None] / n
+    den = torch.einsum("bhnd,bhnd->bhn", km.cumsum(2), q)
+    kappa = (torch.einsum("bhnd,bhnd->bhn", km.abs().cumsum(2), q.abs()) / den.abs())[:, 0]
+    well = kappa <= CAUSAL_KAPPA
+    ref, errs = outs["float64"], {}
+    for side in ("card", "CPU"):
+        if not torch.isfinite(outs[side]).all():
+            raise AssertionError(f"causal witness: the {side} output is not finite")
+        gap = (outs[side] - ref).abs().amax(-1)
+        errs[side] = (float(gap.max() / ref.abs().max()),
+                      float(gap[well].max() / ref[well].abs().max()))
+    print(f"causal SimpleAttention with its norm (d={d}, n={n}, batch={b}) vs float64, of "
+          f"the largest output: all rows card {errs['card'][0]:.3e}, CPU {errs['CPU'][0]:.3e}; "
+          f"the {100 * well.double().mean():.1f} % of rows with κ <= {CAUSAL_KAPPA:.0e} card "
+          f"{errs['card'][1]:.3e}, CPU {errs['CPU'][1]:.3e} (tol {TOL_SERVE:.1e}); largest κ "
+          f"{kappa.max():.3e}")
+    if not max(errs["card"][1], errs["CPU"][1]) <= TOL_SERVE:
+        raise AssertionError("causal witness: a well-conditioned row is off float64")
+
+
+def cosine_bf16_phase(seeds=range(4)) -> list:
+    """The readings behind TOL_SERVE_COSINE_BF16: on each seed (weights and
+    batch) and resolution, the CPU's and the card's bf16 cosine models
+    against the CPU's float32 model of the same weights, of its largest
+    output (and the card's float32 model, for scale)."""
+    cfg = {**load_config("ex1_burgers"), "attention_type": "cosine"}
+    rows = []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        preds = {(d, t): Predictor(SimpleTransformer.from_config(cfg, device=d, seed=seed,
+                                                                  dtype=t), device=d)
+                 for d in ("cpu", "cuda") for t in DTYPES}
+        for n in RESOLUTIONS:
+            batch = make_batch(rng, n)
+            ref = preds["cpu", None](batch)
+            row = {"seed": seed, "n": n}
+            for (d, t), pred in preds.items():
+                if (d, t) != ("cpu", None):
+                    row[f"{d}_{dtype_name(t)}"] = float(np.abs(pred(batch) - ref).max()
+                                                        / np.abs(ref).max())
+            print(f"cosine vs the CPU's float32 model: {row}")
+            rows.append(row)
+    return rows
+
+
+def ex1_variants_phase(rng):
+    """The rest of the ex1 model on the card (``SimpleTransformer`` at full
+    width, random weights): the types without a kernel served, trained
+    against the CPU and in the device loop; the galerkin step with its
+    latents' orthogonality penalty in the device loop; per-sample
+    nonuniform meshes (`BurgersDataset(uniform=False)`) through the galerkin
+    and fourier kernels, trained in the device loop in float32 and bfloat16
+    with the launches read from the graph, each step held against the CPU,
+    and served; masked attention.  (The ex1 driver with ``--attention-type
+    softmax`` and with ``--nonuniform`` runs in `driver_phase`.)  Returns
+    the launch counts of its run."""
+    reset_launches()
+    t0 = time.perf_counter()
+    replayed, runners = [], []
+    for atype in EX1_VARIANTS:
+        cfg = load_config("ex1_burgers")
+        cfg["attention_type"] = atype
+        for dtype in (None,) if atype == "official" else DTYPES:
+            gpu = Predictor(SimpleTransformer.from_config(cfg, device="cuda", seed=SEED,
+                                                          dtype=dtype))
+            tol, ref_dtype = (TOL_SERVE, None) if dtype is None else (TOL_SERVE_BF16, dtype)
+            if dtype is not None and atype == "cosine":   # against float32
+                tol, ref_dtype = TOL_SERVE_COSINE_BF16, None
+            cpu = Predictor(SimpleTransformer.from_config(cfg, device="cpu", seed=SEED,
+                                                          dtype=ref_dtype), device="cpu")
+            same_weights(gpu, cpu)
+            for n in RESOLUTIONS:
+                batches = [make_batch(rng, n) for _ in range(REQUESTS)]
+                serve_and_check(f"ex1 {atype} {dtype_name(dtype)} n={n} batch={BATCH}", gpu, cpu,
+                                batches, None, 0, BATCH * n, (BATCH, n, 1), tol, replayed)
+    print(f"ex1 variants: serving {time.perf_counter() - t0:.1f} s")
+
+    train = ex1_train_data()
+    batches = list(DataLoader(train, BATCH, shuffle=True, drop_last=True, seed=SEED))
+    for atype in EX1_VARIANTS:
+        steps, models = {}, {}
+        for device in ("cuda", "cpu"):
+            models[device], _, steps[device], _ = ex1_step(device, None, atype)
+        tag = f"ex1 {atype} f32 n={TRAIN_N} batch={BATCH}"
+        compare_step(tag, steps, models, batches[0], {}, TOL_TRAIN_LOSS, TOL_TRAIN_GRAD,
+                     GRAD_FLOOR)
+        runners.extend(loop_case(tag, lambda device: ex1_step(device, None, atype), train,
+                                 BATCH, {}, VARIANT_LOOP_EPOCHS, TOL_LOOP, TOL_LOOP,
+                                 BATCH * TRAIN_N))
+    tag = f"ex1 galerkin f32 latents+orthogonal_reg n={TRAIN_N} batch={BATCH}"
+    runners.extend(loop_case(tag, lambda device: ex1_step(device, None, "galerkin", True),
+                             train, BATCH, LAUNCHES_PER_STEP["galerkin", None],
+                             VARIANT_LOOP_EPOCHS, TOL_LOOP, TOL_LOOP, BATCH * TRAIN_N))
+    print(f"ex1 variants: + training {time.perf_counter() - t0:.1f} s")
+
+    mesh = BurgersDataset(subsample=SUBSAMPLE, train_data=True, train_portion=0.5,
+                          n_samples_synthetic=TRAIN_SAMPLES, uniform=False)
+    loader = list(DataLoader(mesh, BATCH, shuffle=True, drop_last=True, seed=SEED))
+    for dtype in DTYPES:
+        for atype in ATTENTION_TYPES:
+            tag = f"ex1 {atype} {dtype_name(dtype)} nonuniform n={TRAIN_N} batch={BATCH}"
+            steps, models = {}, {}
+            for device in ("cuda", "cpu"):
+                models[device], _, steps[device], _ = ex1_step(device, dtype, atype)
+            compare_step(tag, steps, models, loader[0], LAUNCHES_PER_STEP[atype, dtype],
+                         TOL_TRAIN_LOSS if dtype is None else TOL_TRAIN_LOSS_BF16,
+                         TOL_TRAIN_GRAD if dtype is None else TOL_TRAIN_GRAD_BF16)
+            runners.extend(loop_case(
+                tag, lambda device: ex1_step(device, dtype, atype), mesh, BATCH,
+                LAUNCHES_PER_STEP[atype, dtype], VARIANT_LOOP_EPOCHS,
+                TOL_LOOP if dtype is None else TOL_TRAIN_LOSS_BF16,
+                TOL_LOOP if dtype is None else TOL_TRAIN_GRAD_BF16, BATCH * TRAIN_N))
+    cfg = {**load_config("ex1_burgers"), "attention_type": "galerkin"}
+    gpu, cpu = (Predictor(SimpleTransformer.from_config(cfg, device=d, seed=SEED), device=d)
+                for d in ("cuda", "cpu"))
+    requests = [{k: b[k] for k in ("node", "pos", "grid")} for b in loader]
+    serve_and_check(f"ex1 galerkin f32 nonuniform n={TRAIN_N} batch={BATCH}", gpu, cpu,
+                    [requests[i % len(requests)] for i in range(REQUESTS)],
+                    "galerkin_scores", cfg["num_encoder_layers"], BATCH * TRAIN_N,
+                    (BATCH, TRAIN_N, 1), TOL_SERVE, replayed)
+    print(f"ex1 variants: + nonuniform meshes {time.perf_counter() - t0:.1f} s")
+    masks_phase(rng)
+
+    print(f"ex1 variants phase: {time.perf_counter() - t0:.1f} s")
+    counts = Counter(launches())
+    counts.update(forward_launches(replayed))
+    counts.update(runner_launches(runners))
+    return {name: counts[name] for name in COUNTERS}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Build, check and drive the port on one GPU.")
     parser.add_argument("--against", nargs="+", metavar="ROOT",
@@ -2392,6 +2670,10 @@ def main(argv=None) -> int:
                              "earlier commit unpacked with git archive)")
     parser.add_argument("--kernel", nargs="+", choices=tuple(AB_SHAPES),
                         help="with --against: time these kernels only")
+    parser.add_argument("--cosine-bf16", action="store_true",
+                        help="only print bf16 cosine serving's distance from the float32 "
+                             "model on four seeds (the readings behind "
+                             "TOL_SERVE_COSINE_BF16)")
     parser.add_argument("--stage-sweep", action="store_true",
                         help="only time the float32 galerkin forward's stages at the "
                              "ex1 width over n (stage_sweep_phase)")
@@ -2413,6 +2695,9 @@ def main(argv=None) -> int:
     if args.against:
         names = tuple(AB_SHAPES) if args.kernel is None else tuple(args.kernel)
         print(json.dumps({"card": smi, **against_phase(args.against, names)}))
+        return 0
+    if args.cosine_bf16:
+        print(json.dumps({"card": smi, "cosine_bf16": cosine_bf16_phase()}))
         return 0
     if args.stage_sweep:
         print(json.dumps({"card": smi, "stage_sweep": stage_sweep_phase()}))
@@ -2444,9 +2729,10 @@ def main(argv=None) -> int:
     wide_phase(rng, dev)
     paths = [serving_phase(rng), serving_2d_phase(rng), serving_ex4_phase(rng),
              training_phase(), training_2d_phase(), ex4_phase(), device_loop_phase(),
-             recovery_phase(smi), driver_phase()]
+             recovery_phase(smi), driver_phase(), ex1_variants_phase(rng)]
     print(f"launches by main path (ex1 serving, ex2 serving, ex4 serving, ex1 training, "
-          f"ex2 training, ex4 training, device loop, recovery, drivers): {paths}")
+          f"ex2 training, ex4 training, device loop, recovery, drivers, ex1 variants): "
+          f"{paths}")
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths)
         if k["launches"] == 0:

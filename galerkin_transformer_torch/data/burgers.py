@@ -1,16 +1,16 @@
-"""Burgers dataset, uniform grids (counterpart of ``data/burgers.py``;
-reference libs/ft.py:24-371).
+"""Burgers dataset (counterpart of ``data/burgers.py``; reference
+libs/ft.py:24-371).
 
 The same split logic, uniform subsampling, periodic central-difference
-target derivatives and zero-shot super-resolution grid as the JAX
-package, over numpy arrays.  The data are the published .mat file's
+target derivatives, zero-shot super-resolution grid and per-sample
+nonuniform meshes (``uniform=False``) as the JAX package, over numpy
+arrays.  The data are the published .mat file's
 (keys ``a`` and ``u``, read with ``scipy.io.loadmat``) when `data_path`
 names a file that exists; otherwise exact synthetic Burgers solutions
 from `burgers_cole_hopf` (the JAX package's synthetic setup, viscosity
 0.01), cached as ``.npz`` under ``DATA_PATH`` with the JAX package's cache
 name, so both packages read the same file.  FEM edge features
-(``return_edge=True``) and nonuniform meshes (``uniform=False``) are not
-ported and raise.
+(``return_edge=True``) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -22,6 +22,9 @@ from ..utils import config
 from .synthetic import burgers_cole_hopf
 
 SYNTHETIC_VISCOSITY = 0.01
+# the weight of |f''|² in the nonuniform meshes' node density (the JAX
+# dataset's `viscosity`, which no caller sets)
+DENSITY_VISCOSITY = 0.1
 
 
 class BurgersDataset:
@@ -35,9 +38,8 @@ class BurgersDataset:
                  data_path: str | None = None,
                  n_samples_synthetic: int = 256,
                  return_edge: bool = False,
+                 random_sampling: bool = False,
                  random_state: int = 1127802):
-        if not uniform:
-            raise NotImplementedError("BurgersDataset(uniform=False) is not ported")
         if return_edge:
             raise NotImplementedError("BurgersDataset(return_edge=True) (FEM edge "
                                       "features) is not ported")
@@ -49,6 +51,8 @@ class BurgersDataset:
         self.n_grid_fine = n_grid_fine
         self.n_grid = n_grid_fine // subsample
         self.h = 1.0 / n_grid_fine
+        self.uniform = uniform
+        self.random_sampling = random_sampling
         self.train_data = train_data
         self.train_portion = train_portion
         self.valid_portion = valid_portion
@@ -104,6 +108,10 @@ class BurgersDataset:
             x_data, y_data = x_data[-valid_len:], y_data[-valid_len:]
         self.n_samples = len(x_data)
 
+        if not self.uniform:
+            self._initialize_nonuniform(x_data, y_data)
+            return
+
         # uniform path (ft.py:138-156): subsample, periodic central diff
         targets = y_data
         targets_diff = self.central_diff(targets, self.h)
@@ -120,6 +128,55 @@ class BurgersDataset:
         self.pos_fine = grid_fine[..., None].astype(np.float32)
         self.target = targets.astype(np.float32)
 
+    def _initialize_nonuniform(self, x_data, y_data):
+        """Per-sample meshes whose node density follows the solution's
+        roughness sqrt(|f'|² + ν|f''|²) (the JAX package's working form of
+        the reference's dead branch, ft.py:207-287): k interior fine points
+        per sample drawn without replacement by that density (or uniformly
+        with `random_sampling`) through the Gumbel top-k trick, the
+        endpoints pinned; the coarse nodes every super_resolution-th of
+        them.  ``target_uniform`` keeps u, u' and a on the uniform grid."""
+        h, n_fine = self.h, self.n_grid_fine
+        sr = max(1, self.super_resolution)
+        rng = np.random.default_rng(self.random_state)
+
+        f_x = self.central_diff(x_data, h)
+        f_xx = np.zeros_like(x_data)
+        f_xx[:, 1:-1] = (x_data[:, :-2] - 2 * x_data[:, 1:-1] + x_data[:, 2:]) / h ** 2
+        density = np.sqrt(f_x ** 2 + DENSITY_VISCOSITY * f_xx ** 2)[:, 1:-1]
+        density /= density.sum(axis=1, keepdims=True)
+
+        k = sr * self.n_grid - 2
+        if self.random_sampling:
+            scores = rng.random(density.shape)
+        else:
+            scores = np.log(density + 1e-30) + rng.gumbel(size=density.shape)
+        idx = np.argpartition(-scores, k - 1, axis=1)[:, :k]
+        idx.sort(axis=1)
+        ones = np.ones((self.n_samples, 1), dtype=np.int64)
+        ix_fine = np.concatenate([0 * ones, idx + 1, (n_fine - 1) * ones], axis=1)
+
+        ix = ix_fine[:, ::sr]
+        ix = np.concatenate([0 * ones, ix[:, 1:-1], (n_fine - 1) * ones], axis=1)
+        grids = np.concatenate([np.zeros((self.n_samples, 1)), h * ix[:, 1:-1],
+                                np.ones((self.n_samples, 1))], axis=1)
+        grids_fine = np.concatenate([np.zeros((self.n_samples, 1)), h * ix_fine[:, 1:-1],
+                                     np.ones((self.n_samples, 1))], axis=1)
+
+        # derivatives on the uniform fine grid, then gathered at the nodes
+        y_diff = self.central_diff(y_data, h)
+        nodes = np.take_along_axis(x_data, ix, axis=1)
+        u_s = np.take_along_axis(y_data, ix_fine, axis=1)
+        du_s = np.take_along_axis(y_diff, ix_fine, axis=1)
+        s = self.supsample if sr >= 2 else self.subsample
+        self.target_uniform = np.stack([y_data[:, ::s], y_diff[:, ::s], x_data[:, ::s]],
+                                       axis=2).astype(np.float32)
+
+        self.node_features = nodes[..., None].astype(np.float32)
+        self.pos = grids[..., None].astype(np.float32)
+        self.pos_fine = grids_fine[..., None].astype(np.float32)
+        self.target = np.stack([u_s, du_s], axis=2).astype(np.float32)
+
     @staticmethod
     def central_diff(x: np.ndarray, h: float) -> np.ndarray:
         """Periodic central difference (ft.py:152-176)."""
@@ -129,9 +186,12 @@ class BurgersDataset:
 
     def __getitem__(self, index: int) -> dict:
         one = np.array([1.0], dtype=np.float32)   # no edge features
+        # uniform: one shared grid; nonuniform: a per-sample mesh
+        pos = self.pos if self.uniform else self.pos[index]
+        pos_fine = self.pos_fine if self.uniform else self.pos_fine[index]
         return dict(node=self.node_features[index],
-                    pos=self.pos,
-                    grid=self.pos if self.super_resolution < 2 else self.pos_fine,
+                    pos=pos,
+                    grid=pos if self.super_resolution < 2 else pos_fine,
                     edge=one,
                     mass=one,
                     target=self.target[index])

@@ -1,14 +1,17 @@
 """Example 1: viscous Burgers operator learning, trained by the port
 (counterpart of ``examples/ex1_burgers.py``).
 
-Trains the ex1 ``SimpleTransformer`` (fourier or galerkin encoder +
-spectral decoder) with the reference recipe: H¹-regularized relative L2,
+Trains the ex1 ``SimpleTransformer`` (any ``--attention-type``: fourier,
+galerkin, linear, softmax, cosine, ..., or any other name for the vanilla
+softmax encoder, e.g. ``official``; spectral decoder) with the reference
+recipe: H¹-regularized relative L2,
 Adam with the 1cycle lr and cycled β1 (or the per-epoch plateau scheduler),
 global-norm clip 0.999.  Reads the published ``burgers_data_R10.mat`` when
 ``--data-path`` (or ``--real-data``) names it, otherwise exact synthetic
 Cole–Hopf Burgers solutions.  Every flag of the JAX driver
-(``utils/args.py::get_args_1d``), with its default; ``--nonuniform`` and
-``--random-sampling`` raise (not ported).  Runs on the GPU unless
+(``utils/args.py::get_args_1d``), with its default; ``--nonuniform`` trains
+on per-sample nonuniform meshes (``--random-sampling``: nodes drawn
+uniformly), with the H¹ regularizer off as in JAX.  Runs on the GPU unless
 ``--device cpu`` is given; without a GPU that default raises.  With
 ``--device-data`` (the default, as in the JAX driver) the data stays on the
 device and each train step is a CUDA graph replay on the GPU
@@ -17,6 +20,9 @@ device and each train step is a CUDA graph replay on the GPU
     python -m galerkin_transformer_torch.examples.ex1_burgers --attention-type galerkin \\
         --no-cycle-momentum --epochs 500 --rollback-on-spike 10 --epochs-per-dispatch 5 \\
         --lr 4e-4 --batch-size 4
+    python -m galerkin_transformer_torch.examples.ex1_burgers --attention-type softmax
+    python -m galerkin_transformer_torch.examples.ex1_burgers --nonuniform \\
+        --attention-type galerkin
     python -m galerkin_transformer_torch.examples.ex1_burgers --device cpu \\
         --subsample 32 --n-samples 32 --epochs 2 --batch-size 4
 """
@@ -43,10 +49,6 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
     """Train, then print and return the best model's validation metric.
     Checkpoints go to `model_save_path` (``MODEL_PATH`` by default)."""
     args = get_args_1d(argv)
-    for flag in ("nonuniform", "random_sampling"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} (BurgersDataset("
-                                      f"uniform=False)) is not ported")
     device = resolve_device(args.device)
     set_matmul_precision(args.precision, args.fast_matmul)
 
@@ -62,6 +64,7 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
                 "'Real-data hook'.")
 
     kw = dict(subsample=args.subsample, data_path=args.data_path,
+              uniform=not args.nonuniform, random_sampling=args.random_sampling,
               n_samples_synthetic=args.n_samples)
     train_dataset = BurgersDataset(train_data=True, train_portion=0.5, **kw)
     valid_dataset = BurgersDataset(train_data=False, valid_portion=100, **kw)
@@ -102,7 +105,14 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
             grad_clip=0.999, cycle_momentum=args.cycle_momentum,
             **({"final_div_factor": args.final_div} if args.final_div else {}))
         lr_schedule = optimizer.lr_schedule
-    loss_fn = WeightedL2Loss(regularizer=True, h=h, gamma=args.gamma)
+    gamma = args.gamma
+    if args.nonuniform and gamma:
+        # the H1 regularizer's central difference assumes the uniform
+        # spacing h, which a nonuniform mesh does not have (JAX driver)
+        print(f"--nonuniform: disabling the uniform-spacing H1 regularizer "
+              f"(gamma {gamma} -> 0)")
+        gamma = 0.0
+    loss_fn = WeightedL2Loss(regularizer=True, h=h, gamma=gamma)
     metric_fn = WeightedL2Loss(regularizer=False, h=h)
     train_step, eval_step = make_burgers_steps(model, loss_fn, metric_fn, optimizer,
                                                accum_steps=args.accum_steps)

@@ -1,14 +1,20 @@
-"""Encoder block (counterpart of ``models/encoder.py``; reference
-libs/model.py:33-140)."""
+"""Encoder blocks (counterpart of ``models/encoder.py``; reference
+libs/model.py:33-322): the block around `SimpleAttention`, and the vanilla
+softmax block of the reference's baseline."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import skip_init
 
+from ..ops.init import lecun_normal
 from ..utils.misc import default
-from .layers import FeedForward, SimpleAttention, _generator
+from .layers import (FeedForward, PositionalEncoding, SimpleAttention, _generator,
+                     linear)
 
 
 def _layer_norm(norm: nn.LayerNorm, x, dtype):
@@ -31,6 +37,11 @@ class SimpleTransformerEncoderLayer(nn.Module):
         two norms is always on;
       * the residual is x ± dropout(attn) by residual_type.
 
+    With `pos_emb` a `PositionalEncoding` is added to the input first.
+    With `attn_weight` forward returns (x, the attention weights): fourier
+    then forms its dense scores (the chain kernel never does); galerkin
+    returns the kernel's d×d scores as they are.
+
     With a compute `dtype` (``torch.bfloat16``) the input is cast at entry
     and the attention, the feed-forward and the residuals run in it
     (encoder.py:54-55, 100-116); the parameters stay float32.
@@ -38,12 +49,12 @@ class SimpleTransformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model: int = 96, pos_dim: int = 1, n_head: int = 2,
                  dim_feedforward: Optional[int] = 512,
-                 attention_type: str = "fourier",
+                 attention_type: str = "fourier", pos_emb: bool = False,
                  layer_norm: bool = True, attn_norm: Optional[bool] = None,
                  norm_type: Optional[str] = "layer",
                  norm_eps: Optional[float] = None,
                  xavier_init: float = 1e-2, diagonal_weight: float = 1e-2,
-                 symmetric_init: bool = False,
+                 symmetric_init: bool = False, attn_weight: bool = False,
                  residual_type: Optional[str] = "add",
                  activation_type: Optional[str] = "relu",
                  dropout: Optional[float] = 0.1,
@@ -66,6 +77,8 @@ class SimpleTransformerEncoderLayer(nn.Module):
         dim_feedforward = default(dim_feedforward, 2 * d_model)
 
         self.subtract = residual_type not in ("add", "plus", None)
+        self.attn_weight = attn_weight
+        self.pos_emb = PositionalEncoding(d_model) if pos_emb else None
         self.attn = SimpleAttention(
             n_head=n_head, d_model=d_model, pos_dim=pos_dim,
             attention_type=attention_type, dropout=dropout,
@@ -85,7 +98,10 @@ class SimpleTransformerEncoderLayer(nn.Module):
     def forward(self, x, pos=None, weight=None):
         if self.dtype is not None:
             x = x.to(self.dtype)
-        att_output, _ = self.attn(x, x, x, pos=pos, weight=weight)
+        if self.pos_emb is not None:
+            x = self.pos_emb(x)
+        att_output, attn_weight = self.attn(x, x, x, pos=pos, weight=weight,
+                                            need_weights=self.attn_weight)
         att_output = self.dropout1(att_output)
         x = x - att_output if self.subtract else x + att_output
         if self.layer_norm1 is not None:
@@ -93,4 +109,68 @@ class SimpleTransformerEncoderLayer(nn.Module):
         x = x + self.dropout2(self.ff(x))
         if self.layer_norm2 is not None:
             x = _layer_norm(self.layer_norm2, x, self.dtype)
-        return x
+        return (x, attn_weight) if self.attn_weight else x
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """Self-attention as flax's ``MultiHeadDotProductAttention`` computes it
+    (the JAX package's vanilla block): ``query``, ``key``, ``value``
+    projections d → H·d_h and ``out`` H·d_h → d, lecun-normal weights and
+    zero biases; q scaled by 1/√d_h, softmax over the keys, dropout on the
+    weights, then the output projection.  Plain ``matmul`` and ``softmax``,
+    as JAX computes it in XLA."""
+
+    def __init__(self, d_model: int, n_head: int, dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if d_model % n_head:
+            raise ValueError(f"d_model={d_model} is not a multiple of n_head={n_head}")
+        g = _generator(generator)
+        self.n_head, self.head_dim = n_head, d_model // n_head
+        self.dropout = dropout
+        for name in ("query", "key", "value", "out"):
+            lin = skip_init(nn.Linear, d_model, d_model)
+            lecun_normal(lin.weight.data, g)
+            lin.bias.data.zero_()
+            setattr(self, name, lin)
+
+    def forward(self, x):
+        bsz, n, _ = x.shape
+        h, d_h = self.n_head, self.head_dim
+        q, k, v = (lin(x).reshape(bsz, n, h, d_h).transpose(1, 2)
+                   for lin in (self.query, self.key, self.value))
+        weights = torch.softmax(torch.matmul(q / math.sqrt(d_h), k.transpose(-2, -1)),
+                                dim=-1)
+        weights = F.dropout(weights, self.dropout, self.training)
+        out = torch.matmul(weights, v).transpose(1, 2).reshape(bsz, n, h * d_h)
+        return self.out(out)
+
+
+class VanillaTransformerEncoderLayer(nn.Module):
+    """The standard softmax encoder block of the reference's baseline
+    (encoder.py:193-228; reference model.py:244-322): self-attention
+    (`MultiHeadDotProductAttention`, ``self_attn``), dropout, the residual,
+    ``norm1``; ``linear1``, ReLU, dropout, ``linear2``, dropout, the
+    residual, ``norm2`` (post-LN; the norms only with `layer_norm`)."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 dropout: float = 0.1, layer_norm: bool = True, norm_eps: float = 1e-5,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = _generator(generator)
+        self.self_attn = MultiHeadDotProductAttention(d_model, nhead, dropout, generator=g)
+        self.dropout = nn.Dropout(dropout)
+        self.linear1 = linear(d_model, dim_feedforward, g)
+        self.linear2 = linear(dim_feedforward, d_model, g)
+        self.norm1 = nn.LayerNorm(d_model, eps=norm_eps) if layer_norm else None
+        self.norm2 = nn.LayerNorm(d_model, eps=norm_eps) if layer_norm else None
+
+    def forward(self, src):
+        src = src + self.dropout(self.self_attn(src))
+        if self.norm1 is not None:
+            src = self.norm1(src)
+        src2 = self.linear2(self.dropout(F.relu(self.linear1(src))))
+        src = src + self.dropout(src2)
+        if self.norm2 is not None:
+            src = self.norm2(src)
+        return src

@@ -22,7 +22,7 @@ from ..ops.cuda.fourier import MAX_D as FOURIER_MAX_D
 from ..ops.cuda.fourier import fourier_attention_tiled
 from ..ops.cuda.galerkin import MAX_D as GALERKIN_MAX_D
 from ..ops.cuda.galerkin import galerkin_attention_fused
-from ..ops.init import diagonal_dominant_init
+from ..ops.init import diagonal_dominant_init, lecun_normal
 from ..utils.misc import default
 
 ACTIVATIONS: Dict[str, Callable] = {
@@ -35,6 +35,10 @@ ACTIVATIONS: Dict[str, Callable] = {
 }
 
 FOURIER_TYPES = ("fourier", "integral", "local")
+GALERKIN_TYPES = ("galerkin", "linear", "global")
+# the attention types SimpleAttention knows; a model routes any other name to
+# its vanilla softmax encoder (transformer.py:137)
+ATTENTION_TYPES = FOURIER_TYPES + GALERKIN_TYPES + ("softmax", "cosine", "causal")
 
 
 def get_activation(name: Optional[str], fallback: str = "relu") -> Callable:
@@ -124,31 +128,62 @@ class FeedForward(nn.Module):
         return dense(self.lr2, x, self.dtype)
 
 
+class PositionalEncoding(nn.Module):
+    """Sin/cos positional encoding added to the features, then dropout
+    (layers.py:84-103; reference libs/layers.py:61-85).  The table is
+    float32 and cast to the input's type."""
+
+    def __init__(self, d_model: int, dropout: float = 0.1, max_len: int = 2 ** 13):
+        super().__init__()
+        pos = torch.arange(max_len, dtype=torch.float32)[:, None]
+        div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32)
+                        * (-math.log(2 ** 13) / d_model))
+        pe = torch.zeros(max_len, d_model)
+        pe[:, 0::2] = torch.sin(pos * div)
+        pe[:, 1::2] = torch.cos(pos * div)
+        self.register_buffer("pe", pe, persistent=False)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x):
+        return self.dropout(x + self.pe[None, : x.shape[1]].to(x.dtype))
+
+
 class SimpleAttention(nn.Module):
-    """Multi-head softmax-free attention with per-head pre-matmul norm
-    (layers.py:125-377; reference libs/layers.py:764-951).
+    """Multi-head attention with per-head pre-matmul norm (layers.py:125-377;
+    reference libs/layers.py:764-951).
 
     * Q, K, V: three d_model→d_model Linear layers (``linears.{0,1,2}``)
-      with diagonal-dominant init and zero bias.
-    * galerkin: per-head norm on K and V (``norm_K``, ``norm_V``); fourier:
-      on K and Q (``norm_K``, ``norm_Q``).  Layer norm or, with
-      ``norm_type='instance'``, instance norm over the sequence.
+      with diagonal-dominant init, or with ``xavier_init <= 0`` flax's
+      lecun-normal, and zero bias.
+    * galerkin, linear, global: per-head norm on K and V (``norm_K``,
+      ``norm_V``); every other type: on K and Q (``norm_K``, ``norm_Q``).
+      Layer norm or, with ``norm_type='instance'``, instance norm over the
+      sequence.
     * pos is repeated per head and concatenated in front of q, k, v after
       the norm; ``fc`` projects (d_model + n_head·pos_dim) back to d_model.
-    * score dropout acts on the reduced score matrix; fourier attention in
-      training with a non-zero rate forms its dense n×n scores for it (as
-      JAX does), not the kernel.
+    * `weight` (a mass matrix) multiplies the raw query and key first.
+    * score dropout acts on the reduced score matrix (galerkin, linear,
+      global, fourier) or the softmax weights (softmax); causal and cosine
+      have none, as in JAX.
+    * a `mask` zeroes fourier scores and sets softmax scores to -1e9 where
+      it is 0 (it is broadcast against (B, H, n, n) as ``mask[:, None]``);
+      causal needs one, the (B, n) key mask; galerkin, linear, global and
+      cosine ignore it, as in JAX.  Any type outside the nine named here
+      computes fourier attention, as JAX's layer does.
 
-    Kernels: galerkin with layer norm runs ``galerkin_scores``; fourier runs
-    ``fourier_chain``, each where the head fits the kernel (d_k + pos_dim
-    <= 128 columns; a wider head takes the JAX package's XLA route: per-head
-    LN and the block form, or the dense fourier scores).  On CUDA tensors
-    those launch the hand-written
-    kernels (the float32 ones, or with ``dtype=torch.bfloat16`` the
-    bfloat16 tensor-core ones), on CPU tensors their plain versions.  With
-    a compute `dtype` the projections and ``fc`` run as `dense` does; the
-    parameters stay float32.  The other attention
-    types, masks and the mass-weight hook are not ported and raise.
+    Kernels: galerkin with layer norm runs ``galerkin_scores``; fourier
+    without a mask runs ``fourier_chain``, each where the head fits the
+    kernel (d_k + pos_dim <= 128 columns; a wider head takes the JAX
+    package's XLA route: per-head LN and the block form, or the dense
+    fourier scores).  Fourier forms its dense n×n scores instead, as JAX
+    does, with a mask, with ``need_weights`` (the caller wants them back)
+    and in training with a non-zero score dropout.  On CUDA tensors the
+    kernels are the hand-written ones (the float32 ones, or with
+    ``dtype=torch.bfloat16`` the bfloat16 tensor-core ones), on CPU
+    tensors their plain versions.  linear, global, softmax, cosine and
+    causal run plain PyTorch, as JAX runs them in XLA.  With a compute
+    `dtype` the projections and ``fc`` run as `dense` does; the parameters
+    stay float32.
     """
 
     def __init__(self, n_head: int, d_model: int, pos_dim: int = 1,
@@ -163,13 +198,6 @@ class SimpleAttention(nn.Module):
         if d_model % n_head:
             raise ValueError(f"d_model={d_model} is not a multiple of "
                              f"n_head={n_head}")
-        if attention_type != "galerkin" and attention_type not in FOURIER_TYPES:
-            raise NotImplementedError(
-                f"attention_type={attention_type!r} is not ported "
-                f"(ported: galerkin, {', '.join(FOURIER_TYPES)})")
-        if xavier_init <= 0:
-            raise NotImplementedError("xavier_init <= 0 (lecun_normal init) "
-                                      "is not ported")
         if norm_type not in ("layer", "instance"):
             raise ValueError(f"norm_type must be 'layer' or 'instance', "
                              f"got {norm_type!r}")
@@ -177,7 +205,7 @@ class SimpleAttention(nn.Module):
         self.n_head, self.d_model, self.pos_dim = n_head, d_model, pos_dim
         self.d_k = d_model // n_head
         self.attention_type = attention_type
-        self.is_galerkin = attention_type == "galerkin"
+        self.is_galerkin = attention_type in GALERKIN_TYPES
         self.score_rate = default(score_dropout, dropout)
         self.norm, self.norm_type, self.eps = norm, norm_type, eps
         self.dtype = dtype
@@ -185,8 +213,11 @@ class SimpleAttention(nn.Module):
         self.linears = nn.ModuleList()
         for _ in range(3):
             lin = skip_init(nn.Linear, d_model, d_model)
-            diagonal_dominant_init(lin.weight.data, g, xavier_init,
-                                   diagonal_weight, symmetric_init)
+            if xavier_init > 0:
+                diagonal_dominant_init(lin.weight.data, g, xavier_init,
+                                       diagonal_weight, symmetric_init)
+            else:
+                lecun_normal(lin.weight.data, g)
             lin.bias.data.zero_()
             self.linears.append(lin)
 
@@ -214,13 +245,15 @@ class SimpleAttention(nn.Module):
     def _score_dropout(self, scores):
         return F.dropout(scores, self.score_rate, self.training)
 
-    def forward(self, query, key, value, pos=None, mask=None, weight=None):
-        if mask is not None:
-            raise NotImplementedError("attention masks are not ported")
+    def forward(self, query, key, value, pos=None, mask=None, weight=None,
+                need_weights: bool = False):
+        """Returns (out (B, n, d_model), p_attn).  `need_weights`: fourier
+        forms and returns its n×n scores (the chain kernel never does)."""
         if weight is not None:
-            raise NotImplementedError("the mass-weight hook is not ported")
+            query, key = weight * query, weight * key
         bsz, n = query.shape[0], query.shape[1]
         h, d_k = self.n_head, self.d_k
+        atype = self.attention_type
 
         def split_heads(x):   # (B, n, d_model) -> (B, H, n, d_k)
             return x.reshape(bsz, -1, h, d_k).transpose(1, 2)
@@ -233,43 +266,56 @@ class SimpleAttention(nn.Module):
                 raise ValueError(f"pos has {pos.shape[-1]} columns, the layer "
                                  f"was built for pos_dim={self.pos_dim}")
             pos_in = pos.contiguous()
+        score_mask = None if mask is None else mask[:, None]
 
         # the kernels take d_k + p <= 128 columns; a wider head takes the JAX
         # package's own route for it (XLA there): per-head LN and the block
         # form for galerkin, the dense scores for fourier.  Decided from the
         # shapes, before any launch.
         p = 0 if pos_in is None else self.pos_dim
-        if self.is_galerkin and self.norm and self.norm_type == "layer" \
+        if atype == "galerkin" and self.norm and self.norm_type == "layer" \
                 and d_k + p <= GALERKIN_MAX_D:
             sk, bk = self._affine("K")
             sv, bv = self._affine("V")
             x, p_attn = galerkin_attention_fused(
                 q, k.contiguous(), v.contiguous(), pos_in, sk, bk, sv, bv,
                 eps=self.eps, score_dropout=self._score_dropout)
-        elif self.is_galerkin:
+        elif atype == "galerkin" and pos_in is not None:
             if self.norm:
                 k, v = self._head_norm(k, "K"), self._head_norm(v, "V")
-            if pos_in is not None:
-                x, p_attn = A.galerkin_attention_pos_blocked(
-                    q, k, v, pos_in, score_dropout=self._score_dropout)
-            else:
-                p_attn = self._score_dropout(A.galerkin_attention(q, k, v)[1])
-                x = torch.matmul(q.float(), p_attn.float()).to(q.dtype)
+            x, p_attn = A.galerkin_attention_pos_blocked(
+                q, k, v, pos_in, score_dropout=self._score_dropout)
         else:
             if self.norm:
-                k, q = self._head_norm(k, "K"), self._head_norm(q, "Q")
+                if self.is_galerkin:
+                    k, v = self._head_norm(k, "K"), self._head_norm(v, "V")
+                else:
+                    k, q = self._head_norm(k, "K"), self._head_norm(q, "Q")
             if pos_in is not None:
                 ph = pos_in[:, None].expand(bsz, h, n, self.pos_dim).to(q.dtype)
                 q, k, v = (torch.cat([ph, t], dim=-1) for t in (q, k, v))
-            if self.training and self.score_rate > 0.0:
-                # the dense n×n scores, as JAX forms them for score dropout
-                x, p_attn = A.fourier_attention(q, k, v, score_dropout=self._score_dropout)
-            elif d_k + p <= FOURIER_MAX_D:
+            if self.is_galerkin:
+                x, p_attn = A.galerkin_attention(
+                    q, k, v, softmax_qk=atype != "galerkin",
+                    score_dropout=self._score_dropout)
+            elif atype == "causal":
+                if mask is None:
+                    raise ValueError("causal attention requires a mask")
+                x, p_attn = A.causal_linear_attention(q, k, v, kv_mask=mask)
+            elif atype == "cosine":
+                x, p_attn = A.cosine_attention(q, k, v)
+            elif atype == "softmax":
+                x, p_attn = A.softmax_attention(q, k, v, mask=score_mask,
+                                                score_dropout=self._score_dropout)
+            elif (mask is None and not need_weights
+                  and not (self.training and self.score_rate > 0.0)
+                  and d_k + p <= FOURIER_MAX_D):
                 x = fourier_attention_tiled(q.contiguous(), k.contiguous(),
                                             v.contiguous())
                 p_attn = None
-            else:
-                x, p_attn = A.fourier_attention(q, k, v)
+            else:   # the dense n×n scores, as JAX forms them
+                x, p_attn = A.fourier_attention(q, k, v, score_dropout=self._score_dropout,
+                                                mask=score_mask)
 
         out = x.transpose(1, 2).reshape(bsz, n, -1)
         if pos_in is not None:
@@ -348,3 +394,47 @@ class SpectralConv2d(nn.Module):
         out = S.spectral_conv_2d_dft(x.float(), w_pos, w_neg)
         out = self.act(out.to(res.dtype) + res)
         return out.reshape(bsz, n * n, self.out_dim) if flat else out
+
+
+class BatchedLinear(nn.Module):
+    """T independent Linear layers applied along dim 1 of (B, T, in): one
+    weight (T, out, in) and one bias (T, out), each layer with torch's
+    default init (flax's ``nn.vmap`` of ``Dense`` over that axis)."""
+
+    def __init__(self, n_stacks: int, in_features: int, out_features: int,
+                 g: torch.Generator):
+        super().__init__()
+        bound = float(in_features) ** -0.5
+        self.weight = nn.Parameter(torch.empty(n_stacks, out_features, in_features)
+                                   .uniform_(-bound, bound, generator=g))
+        self.bias = nn.Parameter(torch.empty(n_stacks, out_features)
+                                 .uniform_(-bound, bound, generator=g))
+
+    def forward(self, x):
+        return torch.einsum("bti,toi->bto", x, self.weight) + self.bias
+
+
+class BulkRegressor(nn.Module):
+    """Sequence -> per-target pred_len regressor (layers.py:479-510;
+    reference libs/layers.py:990-1037): ``linear`` maps the features of
+    each of the seq_len points to n_targets, then each target's sequence
+    goes through its own two-layer MLP (``freq_fc1``, leaky ReLU,
+    ``freq_fc2``); (B, seq_len, n_feats) -> (B, pred_len, n_targets)."""
+
+    def __init__(self, in_dim: int, n_feats: int, n_targets: int, pred_len: int,
+                 n_hidden: Optional[int] = None, sort_output: bool = False,
+                 dropout: float = 0.1, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = _generator(generator)
+        n_hidden = default(n_hidden, pred_len * 4)
+        self.sort_output = sort_output
+        self.linear = linear(n_feats, n_targets, g)
+        self.freq_fc1 = BatchedLinear(n_targets, in_dim, n_hidden, g)
+        self.freq_fc2 = BatchedLinear(n_targets, n_hidden, pred_len, g)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x):
+        x = self.linear(x).transpose(-2, -1)   # (B, n_targets, seq_len)
+        out = self.freq_fc2(F.leaky_relu(self.freq_fc1(x))).transpose(-2, -1)
+        out = self.dropout(out)
+        return torch.sort(out, dim=-1).values if self.sort_output else out

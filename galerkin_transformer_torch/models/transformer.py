@@ -18,8 +18,8 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from ..utils.misc import default
-from .encoder import SimpleTransformerEncoderLayer
-from .layers import Identity
+from .encoder import SimpleTransformerEncoderLayer, VanillaTransformerEncoderLayer
+from .layers import ATTENTION_TYPES, FOURIER_TYPES, BulkRegressor, Identity, linear
 from .regressor import PointwiseRegressor, SpectralRegressor
 from .scaler import DownScaler, UpScaler
 
@@ -36,8 +36,8 @@ class _ConfigurableModel(nn.Module):
     @classmethod
     def from_config(cls, config: dict, **overrides):
         """Build from a flat config dict, keeping the keys the constructor
-        declares (the rest of a config block, e.g. seq_len, does not shape
-        the model)."""
+        declares (the rest of a config block, e.g. a training key, does not
+        shape the model)."""
         fields = set(inspect.signature(cls.__init__).parameters) - {"self"}
         kwargs = {k: v for k, v in dict(config).items() if k in fields}
         kwargs.update(overrides)
@@ -52,20 +52,36 @@ def _raise_unported(model: str, unported: dict):
 
 class SimpleTransformer(_ConfigurableModel):
     """1D operator learner (ex1 Burgers): Identity lift, encoder stack,
-    spectral regressor.
+    spectral (or pointwise) regressor (transformer.py:57-240).
+
+    * `attention_type`: one of the nine that `SimpleAttention` knows builds
+      `SimpleTransformerEncoderLayer`s; any other name (e.g. ``official``)
+      the vanilla softmax stack (`VanillaTransformerEncoderLayer`).
+    * ``decoder_type``: ``ifft`` or ``attention`` (one more encoder layer)
+      for the `SpectralRegressor`, ``pointwise`` or ``convolution`` for a
+      `PointwiseRegressor` with every weight xavier-uniform at gain 1e-2.
+    * ``n_freq_targets > 0``: frequency targets (``preds_freq``), from a
+      `BulkRegressor` over `seq_len` points with ``bulk_regression`` or a
+      two-layer head, cut to `pred_len`.
+    * ``return_latent``: ``preds_latent`` holds the lift's output and each
+      layer's; ``return_attn_weight``: ``attn_weights`` each layer's
+      attention weights (SimpleAttention layers only).
 
     The model is built on the CPU from ``torch.Generator().manual_seed(seed)``
     and then moved to `device`: ``None`` means CUDA, and without a GPU the
     constructor raises unless ``device="cpu"`` is passed.  `dtype`
-    (``torch.bfloat16``) is the encoder's compute type: the parameters stay
-    float32 and the decoder runs in float32.  Options of the JAX model
-    that this port does not carry raise ``NotImplementedError``.
+    (``torch.bfloat16``) is the SimpleAttention layers' compute type: the
+    parameters stay float32 and the decoder runs in float32.  Options of
+    the JAX model that this port does not carry raise
+    ``NotImplementedError``: graph feature extractors, ``batch_norm`` (no
+    JAX train step carries its statistics) and a spectral regressor of
+    another dimension than 1.
     """
 
     def __init__(self, node_feats: int = 1,
                  pos_dim: int = 1, n_targets: int = 1, n_hidden: int = 96,
                  num_feat_layers: int = 0, num_encoder_layers: int = 4,
-                 n_head: int = 1, n_freq_targets: int = 0,
+                 n_head: int = 1, pred_len: int = 0, n_freq_targets: int = 0,
                  dim_feedforward: Optional[int] = None,
                  feat_extract_type: Optional[str] = None,
                  attention_type: str = "fourier", xavier_init: float = 1e-2,
@@ -77,6 +93,7 @@ class SimpleTransformer(_ConfigurableModel):
                  return_attn_weight: bool = False, return_latent: bool = False,
                  residual_type: Optional[str] = "add",
                  attn_activation: Optional[str] = None,
+                 seq_len: Optional[int] = None, bulk_regression: bool = False,
                  decoder_type: str = "ifft", freq_dim: int = 48,
                  num_regressor_layers: int = 2, fourier_modes: int = 16,
                  spacial_dim: Optional[int] = None, spacial_fc: bool = False,
@@ -89,58 +106,109 @@ class SimpleTransformer(_ConfigurableModel):
                  *, device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0):
         super().__init__()
-        unported = {
+        spacial_dim = default(spacial_dim, pos_dim)
+        spectral = decoder_type in ("ifft", "attention")
+        if not spectral and decoder_type not in ("pointwise", "convolution"):
+            raise NotImplementedError(f"decoder type {decoder_type!r} not implemented")
+        _raise_unported("SimpleTransformer", {
             "graph feature extractors (num_feat_layers > 0 with gcn/gat)":
                 num_feat_layers > 0 and feat_extract_type in ("gcn", "gat"),
-            "frequency targets (n_freq_targets > 0)": n_freq_targets > 0,
-            f"decoder_type={decoder_type!r}": decoder_type != "ifft",
             "a spectral regressor of another dimension than 1":
-                default(spacial_dim, pos_dim) != 1,
+                spectral and spacial_dim != 1,
             "batch_norm in the feed-forward": batch_norm,
-            "return_attn_weight": return_attn_weight,
-            "return_latent": return_latent,
-        }
-        _raise_unported("SimpleTransformer", unported)
+        })
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.spacial_residual = spacial_residual
+        self.return_latent, self.return_attn_weight = return_latent, return_attn_weight
+        self.pred_len = pred_len
         self.dtype = dtype
+        if decoder_type == "attention":
+            num_encoder_layers += 1
+        dim_feedforward = default(dim_feedforward, 2 * n_hidden)
 
         self.feat_extract = Identity(node_feats, n_hidden, generator=g)
-        self.encoder_layers = nn.ModuleList(
-            SimpleTransformerEncoderLayer(
-                d_model=n_hidden, n_head=n_head, attention_type=attention_type,
-                dim_feedforward=default(dim_feedforward, 2 * n_hidden),
-                layer_norm=layer_norm, attn_norm=attn_norm,
-                norm_type=norm_type, norm_eps=norm_eps,
-                pos_dim=pos_dim, xavier_init=xavier_init,
-                diagonal_weight=diagonal_weight,
-                symmetric_init=symmetric_init, residual_type=residual_type,
-                activation_type=attn_activation, dropout=encoder_dropout,
-                ffn_dropout=ffn_dropout, score_dropout=score_dropout,
-                dtype=dtype, generator=g)
-            for _ in range(num_encoder_layers))
+        self.vanilla = attention_type not in ATTENTION_TYPES
+        if self.vanilla:
+            # the softmax baseline (transformer.py:137-153)
+            self.encoder_layers = nn.ModuleList(
+                VanillaTransformerEncoderLayer(
+                    d_model=n_hidden, nhead=n_head, dim_feedforward=dim_feedforward,
+                    layer_norm=layer_norm, dropout=default(encoder_dropout, 0.1),
+                    generator=g)
+                for _ in range(num_encoder_layers))
+        else:
+            self.encoder_layers = nn.ModuleList(
+                SimpleTransformerEncoderLayer(
+                    d_model=n_hidden, n_head=n_head, attention_type=attention_type,
+                    dim_feedforward=dim_feedforward,
+                    layer_norm=layer_norm, attn_norm=attn_norm,
+                    norm_type=norm_type, norm_eps=norm_eps,
+                    pos_dim=pos_dim, xavier_init=xavier_init,
+                    diagonal_weight=diagonal_weight,
+                    symmetric_init=symmetric_init, attn_weight=return_attn_weight,
+                    residual_type=residual_type,
+                    activation_type=attn_activation, dropout=encoder_dropout,
+                    ffn_dropout=ffn_dropout, score_dropout=score_dropout,
+                    dtype=dtype, generator=g)
+                for _ in range(num_encoder_layers))
+
+        self.freq_regressor = self.freq_fc1 = self.freq_fc2 = None
+        if n_freq_targets > 0 and bulk_regression:
+            self.freq_regressor = BulkRegressor(
+                in_dim=seq_len, n_feats=n_hidden, n_targets=n_freq_targets,
+                pred_len=pred_len, generator=g)
+        elif n_freq_targets > 0:
+            self.freq_fc1 = linear(n_hidden, n_hidden, g)
+            self.freq_fc2 = linear(n_hidden, n_freq_targets, g)
         self.dropout = nn.Dropout(default(dropout, 0.05))
-        self.regressor = SpectralRegressor(
-            in_dim=n_hidden, n_hidden=n_hidden, freq_dim=freq_dim,
-            out_dim=n_targets, num_spectral_layers=num_regressor_layers,
-            modes=fourier_modes, spacial_dim=default(spacial_dim, pos_dim),
-            spacial_fc=spacial_fc, dim_feedforward=freq_dim,
-            activation=regressor_activation, dropout=decoder_dropout,
-            generator=g)
+        if spectral:
+            self.regressor = SpectralRegressor(
+                in_dim=n_hidden, n_hidden=n_hidden, freq_dim=freq_dim,
+                out_dim=n_targets, num_spectral_layers=num_regressor_layers,
+                modes=fourier_modes, spacial_dim=spacial_dim,
+                spacial_fc=spacial_fc, dim_feedforward=freq_dim,
+                activation=regressor_activation, dropout=decoder_dropout,
+                generator=g)
+        else:
+            self.regressor = PointwiseRegressor(
+                in_dim=n_hidden, n_hidden=n_hidden, out_dim=n_targets,
+                spacial_fc=spacial_fc, spacial_dim=spacial_dim,
+                activation=regressor_activation, dropout=decoder_dropout,
+                init_gain=1e-2, generator=g)
         self.to(device)
 
     def forward(self, node, edge=None, pos=None, grid=None, weight=None):
         x = self.feat_extract(node)
         res = x
+        # as in JAX, the lift's output is the first latent whenever the
+        # residual is kept, even without return_latent
+        x_latent = [res] if self.spacial_residual or self.return_latent else []
+        attn_weights = []
         for layer in self.encoder_layers:
-            x = layer(x, pos, weight)
+            if self.vanilla:
+                x = layer(x)
+            elif self.return_attn_weight:
+                x, attn_w = layer(x, pos, weight)
+                attn_weights.append(attn_w)
+            else:
+                x = layer(x, pos, weight)
+            if self.return_latent:
+                x_latent.append(x)
         if self.dtype is not None:
             x = x.float()   # the decoder stays float32
         if self.spacial_residual:
             x = res + x
+
+        x_freq = None
+        if self.freq_regressor is not None:
+            x_freq = self.freq_regressor(x)[:, : self.pred_len]
+        elif self.freq_fc1 is not None:
+            x_freq = self.freq_fc2(F.relu(self.freq_fc1(x)))[:, : self.pred_len]
+
         x = self.regressor(self.dropout(x), grid=grid)
-        return dict(preds=x, preds_freq=None, preds_latent=[], attn_weights=[])
+        return dict(preds=x, preds_freq=x_freq, preds_latent=x_latent,
+                    attn_weights=attn_weights)
 
 
 class FourierTransformer2D(_ConfigurableModel):
@@ -197,7 +265,9 @@ class FourierTransformer2D(_ConfigurableModel):
         _raise_unported("FourierTransformer2D", {
             "graph feature extractors (num_feat_layers > 0 with gcn/gat)":
                 num_feat_layers > 0 and feat_extract_type in ("gcn", "gat"),
-            "attention_type='official'": attention_type == "official",
+            # the 2D model keeps the types it had: galerkin and fourier
+            f"attention_type={attention_type!r}":
+                attention_type not in ("galerkin",) + FOURIER_TYPES,
             f"decoder_type={decoder_type!r}":
                 decoder_type not in ("ifft2", "pointwise"),
             "batch_norm in the feed-forward": batch_norm,

@@ -49,3 +49,14 @@ def diagonal_dominant_init(t: torch.Tensor, g: torch.Generator,
     if symmetric:
         t.copy_(t + t.T)
     return t
+
+
+@torch.no_grad()
+def lecun_normal(t: torch.Tensor, g: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal``: variance scaling with scale 1 over the fan
+    in, from a normal truncated to ±2 standard deviations and rescaled so
+    that the draw keeps the variance 1 / fan_in.  The fan in is the last
+    dim (torch's (out, in) Linear layout)."""
+    # the standard deviation of a unit normal truncated to [-2, 2]
+    std = (1.0 / t.shape[-1]) ** 0.5 / 0.87962566103423978
+    return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=g)

@@ -2,17 +2,17 @@
 reference libs/ft.py:848-1105).
 
 Relative weighted L2 plus an optional H¹-seminorm regularizer, in 1D and
-in 2D.  Every scalar returned is a 0-d tensor on the inputs' device, so a
+in 2D, and in 1D an optional orthogonality penalty on the encoder latents.
+Every scalar returned is a 0-d tensor on the inputs' device, so a
 training loop reads it without a device sync until it asks for the value.
 The NamedTuples keep the reference's order: 1D (loss, reg, ortho, metric),
-2D (loss, reg, metric, norms).  In 1D the orthogonality penalty on encoder
-latents and target noise are not ported (the port's models return no
-latents): ``ortho`` is always 0.
+2D (loss, reg, metric, norms).  Target noise is drawn from a
+``torch.Generator`` that the caller passes where JAX takes a ``noise_rng``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -43,15 +43,28 @@ def _metric(loss: torch.Tensor, reduction: str) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class WeightedL2Loss:
-    """1D relative L2 + H¹ regularizer (ft.py:848-980)."""
+    """1D relative L2 + H¹ regularizer + orthogonalizer (ft.py:848-980).
+
+    With `orthogonal_reg` and latents (B, n, d) the penalty is
+    delta·h·mean((M − diag)²) per latent, M = yᵀy (d × d; ``global``
+    mode) or y yᵀ (n × n; ``local`` and ``fourier``) and diag the
+    diagonal of M's squared norms, held constant (``detach``); reduced like
+    the loss.  With ``noise > 0`` and a `noise_generator` the targets are
+    scaled by 1 + noise·U(0, 1) drawn from it; without one they are left as
+    they are.
+    """
     dilation: int = 2
     regularizer: bool = False
     h: float = 1 / 512
     beta: float = 1.0
     gamma: float = 1e-1   # H¹ (scaled by h at call sites like the reference init)
     alpha: float = 0.0
+    delta: float = 1e-4
     metric_reduction: str = "L1"
     return_norm: bool = True
+    orthogonal_reg: bool = False
+    orthogonal_mode: str = "global"
+    noise: float = 0.0
 
     def __post_init__(self):
         if self.dilation % 2:
@@ -62,12 +75,19 @@ class WeightedL2Loss:
         d = self.dilation
         return (x[:, d:] - x[:, :-d]) / d / h
 
-    def __call__(self, preds, targets, preds_prime=None,
-                 targets_prime=None) -> LossResult1d:
+    def __call__(self, preds, targets, preds_prime=None, targets_prime=None,
+                 preds_latent: Sequence = (),
+                 noise_generator: Optional[torch.Generator] = None) -> LossResult1d:
         h = self.h
         gamma = self.gamma * h
         alpha = self.alpha * h
+        delta = self.delta * h
         zero = preds.new_zeros(())
+
+        if self.noise > 0 and noise_generator is not None:
+            u = torch.rand(targets.shape, generator=noise_generator,
+                           device=targets.device, dtype=targets.dtype)
+            targets = (targets * (1.0 + self.noise * u)).detach()
 
         target_norm = h * (targets ** 2).sum(dim=1)
         if targets_prime is not None:
@@ -92,7 +112,23 @@ class WeightedL2Loss:
         else:
             reg_out = zero
 
-        return LossResult1d(loss_out, reg_out, zero, metric)
+        if self.orthogonal_reg and len(preds_latent) > 0:
+            ortho = []
+            for y in preds_latent:
+                if self.orthogonal_mode in ("local", "fourier"):
+                    mm = torch.matmul(y.float(), y.float().transpose(-2, -1))
+                    tr = (y ** 2).sum(dim=-1)
+                else:   # global / galerkin / linear
+                    mm = torch.matmul(y.float().transpose(-2, -1), y.float())
+                    tr = (y ** 2).sum(dim=-2)
+                diag = torch.diag_embed(tr).detach()
+                ortho.append(delta * ((mm - diag) ** 2).mean(dim=(-1, -2)))
+            ortho = torch.stack(ortho, dim=-1)
+            ortho_out = torch.sqrt(ortho).mean() if self.return_norm else ortho.mean()
+        else:
+            ortho_out = zero
+
+        return LossResult1d(loss_out, reg_out, ortho_out, metric)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -108,10 +108,13 @@ def make_burgers_steps(model: torch.nn.Module, loss_fn, metric_fn,
         preds = out["preds"]
         target = batch["target"]
         u, up = target[..., 0], target[..., 1]
+        # the encoder latents for the loss's orthogonality penalty (no noise
+        # draw, as in JAX)
+        latent = out["preds_latent"]
         if preds.shape[-1] == 2:
-            res = loss_fn(preds[..., 0], u, preds[..., 1], up)
+            res = loss_fn(preds[..., 0], u, preds[..., 1], up, preds_latent=latent)
         else:
-            res = loss_fn(preds[..., 0], u, targets_prime=up)
+            res = loss_fn(preds[..., 0], u, targets_prime=up, preds_latent=latent)
         return res.loss + res.reg + res.ortho, res
 
     value_and_grad = microbatched_value_and_grad(forward_loss, accum_steps)

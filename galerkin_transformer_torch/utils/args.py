@@ -74,7 +74,8 @@ def get_args_1d(argv=None) -> argparse.Namespace:
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--val-batch-size", type=int, default=4)
     p.add_argument("--attention-type", type=str, default="fourier",
-                   help="fourier|galerkin (linear, softmax, cosine are not ported)")
+                   help="fourier|galerkin|linear|global|softmax|cosine|...; any other "
+                        "name (e.g. official) selects the vanilla softmax encoder")
     p.add_argument("--xavier-init", type=float, default=1e-2)
     p.add_argument("--diagonal-weight", type=float, default=1e-2)
     p.add_argument("--ffn-dropout", type=float, default=0.0)
@@ -122,9 +123,10 @@ def get_args_1d(argv=None) -> argparse.Namespace:
                         "from $DATA_PATH (exits with the expected location if the "
                         "file is not there)")
     p.add_argument("--nonuniform", action="store_true", default=False,
-                   help="per-sample nonuniform meshes (not ported: raises)")
+                   help="per-sample nonuniform meshes whose node density follows the "
+                        "solution's roughness (turns the H1 regularizer off)")
     p.add_argument("--random-sampling", action="store_true", default=False,
-                   help="with --nonuniform: random mesh nodes (not ported: raises)")
+                   help="with --nonuniform: sample mesh nodes uniformly at random")
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient accumulation: split each batch into this many "
                         "microbatches (the full-batch gradient)")

@@ -8,7 +8,11 @@ torch repo's.  A Dense ``kernel`` (in, out) becomes a ``Linear.weight``
 layout, and the 2D pair ``fourier_weight_pos`` / ``_neg`` becomes
 ``fourier_weight.0`` / ``.1``.  A convolution kernel (kh, kw, in, out)
 becomes a ``Conv2d.weight`` (out, in, kh, kw), a transposed-convolution
-kernel a ``ConvTranspose2d.weight`` (in, out, kh, kw).  The JAX package's
+kernel a ``ConvTranspose2d.weight`` (in, out, kh, kw).  A vmapped Dense
+stack (T, in, out) of the `BulkRegressor` becomes a `BatchedLinear` weight
+(T, out, in); the `DenseGeneral` kernels of flax's multi-head attention,
+(in, H, d_h) for query, key and value and (H, d_h, out) for out, become
+Linear weights (H·d_h, in) and (out, H·d_h).  The JAX package's
 ``utils/torch_compat.py::convert_state_dict`` is the inverse map for the
 module families it knows.
 """
@@ -44,6 +48,9 @@ _MODULE_RULES = [   # (JAX module path, port module name); \d groups carried
     (r"encoder_layer(\d+)/attn/fc", "encoder_layers.{0}.attn.fc"),
     (r"encoder_layer(\d+)/ff/lr([12])", "encoder_layers.{0}.ff.lr{1}"),
     (r"encoder_layer(\d+)/layer_norm([12])", "encoder_layers.{0}.layer_norm{1}"),
+    (r"encoder_layer(\d+)/(linear[12]|norm[12])", "encoder_layers.{0}.{1}"),
+    (r"(freq_fc[12])", "{0}"),
+    (r"freq_regressor/linear", "freq_regressor.linear"),
     (r"regressor/fc", "regressor.fc"),
     (r"regressor/spectral_conv(\d+)/linear", "regressor.spectral_conv.{0}.linear"),
     (r"regressor/regressor_fc1", "regressor.regressor.0"),
@@ -60,8 +67,8 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX SimpleTransformer or FourierTransformer2D params (nested dicts
-    of arrays) -> state_dict.
+    """JAX SimpleTransformer, FourierTransformer2D or
+    FourierTransformer2DLite params (nested dicts of arrays) -> state_dict.
 
     Raises KeyError on a parameter this port has no place for."""
     sd: Dict[str, torch.Tensor] = {}
@@ -81,6 +88,23 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
                 torch.from_numpy(np.array(val, dtype=np.float32))
             continue
         module, leaf = "/".join(path[:-1]), path[-1]
+        m = re.fullmatch(r"freq_regressor/(freq_fc[12])", module)
+        if m:   # a vmapped Dense stack: kernel (T, in, out), bias (T, out)
+            arr = val.transpose(0, 2, 1) if leaf == "kernel" else val
+            sd[f"freq_regressor.{m.group(1)}.{_LEAF[leaf]}"] = \
+                torch.from_numpy(np.array(arr, dtype=np.float32))
+            continue
+        m = re.fullmatch(r"encoder_layer(\d+)/self_attn/(query|key|value|out)", module)
+        if m:   # DenseGeneral: (in, H, d_h) or (H, d_h, out) kernels
+            if leaf == "kernel" and m.group(2) == "out":
+                arr = val.reshape(-1, val.shape[-1]).T
+            elif leaf == "kernel":
+                arr = val.reshape(val.shape[0], -1).T
+            else:
+                arr = val.reshape(-1)
+            sd[f"encoder_layers.{m.group(1)}.self_attn.{m.group(2)}.{_LEAF[leaf]}"] = \
+                torch.from_numpy(np.array(arr, dtype=np.float32))
+            continue
         conv = next((name.format(*m.groups()) for pattern, name in _CONV_RULES
                      for m in [re.fullmatch(pattern, module)] if m), None)
         if conv is not None and leaf == "kernel":   # (kh, kw, in, out) -> (out, in, kh, kw)

@@ -711,7 +711,15 @@ def test_2d_model_on_cuda_matches_cpu(dev, attention_type, dtype):
 
 # ------------------------------------------------------------ serving graphs
 
-def _ex1_served(dev, attention_type="galerkin", dtype=None, seed=3, n=300):
+def _nonuniform_pos(rng, bsz, n):
+    """Per-sample meshes: sorted interior points between the pinned ends."""
+    inner = np.sort(rng.random((bsz, n - 2)), axis=1)
+    pos = np.concatenate([np.zeros((bsz, 1)), inner, np.ones((bsz, 1))], axis=1)
+    return pos[..., None].astype(np.float32)
+
+
+def _ex1_served(dev, attention_type="galerkin", dtype=None, seed=3, n=300,
+                nonuniform=False):
     """A small ex1 model on the card and a batch builder for it."""
     from galerkin_transformer_torch import SimpleTransformer, load_config
     cfg = load_config("ex1_burgers")
@@ -720,8 +728,10 @@ def _ex1_served(dev, attention_type="galerkin", dtype=None, seed=3, n=300):
     model = SimpleTransformer.from_config(cfg, seed=seed, dtype=dtype)
 
     def batch(seed, n=n, bsz=2):
-        pos = np.linspace(0, 1, n, dtype=np.float32)[None, :, None].repeat(bsz, 0)
-        node = np.random.default_rng(seed).standard_normal((bsz, n, 1)).astype(np.float32)
+        rng = np.random.default_rng(seed)
+        pos = (_nonuniform_pos(rng, bsz, n) if nonuniform else
+               np.linspace(0, 1, n, dtype=np.float32)[None, :, None].repeat(bsz, 0))
+        node = rng.standard_normal((bsz, n, 1)).astype(np.float32)
         return dict(node=node, pos=pos, grid=pos)
     return model, None, batch
 
@@ -765,7 +775,17 @@ def _ex4_served(dev, seed=3, n=32):
 SERVED = {"ex1-f32": _ex1_served,
           "ex1-bf16": lambda dev: _ex1_served(dev, dtype=torch.bfloat16),
           "ex1-fourier": lambda dev: _ex1_served(dev, attention_type="fourier"),
-          "ex2": _ex2_served, "ex4": _ex4_served}
+          "ex2": _ex2_served, "ex4": _ex4_served,
+          # the types without a kernel, and per-sample meshes through the kernels
+          "ex1-linear": lambda dev: _ex1_served(dev, attention_type="linear"),
+          "ex1-softmax": lambda dev: _ex1_served(dev, attention_type="softmax"),
+          "ex1-softmax-bf16": lambda dev: _ex1_served(dev, attention_type="softmax",
+                                                      dtype=torch.bfloat16),
+          "ex1-cosine": lambda dev: _ex1_served(dev, attention_type="cosine"),
+          "ex1-official": lambda dev: _ex1_served(dev, attention_type="official"),
+          "ex1-nonuniform": lambda dev: _ex1_served(dev, nonuniform=True),
+          "ex1-fourier-nonuniform": lambda dev: _ex1_served(dev, attention_type="fourier",
+                                                            nonuniform=True)}
 
 
 def _eager(model, normalizer, batch):
@@ -960,25 +980,32 @@ def test_ns_replays_draw_fresh_dropout(dev):
 
 # ------------------------------------------------------------- device loop
 
-def _ex1_samples(n_samples, n=256, seed=0):
-    """A map-style dataset of `n_samples` random ex1 samples (a list)."""
+def _ex1_samples(n_samples, n=256, seed=0, nonuniform=False):
+    """A map-style dataset of `n_samples` random ex1 samples (a list); with
+    `nonuniform` each sample has its own mesh."""
     rng = np.random.default_rng(seed)
     pos = np.linspace(0, 1, n, dtype=np.float32)[:, None]
-    return [dict(node=rng.standard_normal((n, 1)).astype(np.float32), pos=pos, grid=pos,
-                 target=rng.standard_normal((n, 2)).astype(np.float32))
-            for _ in range(n_samples)]
+    samples = []
+    for _ in range(n_samples):
+        p = _nonuniform_pos(rng, 1, n)[0] if nonuniform else pos
+        samples.append(dict(node=rng.standard_normal((n, 1)).astype(np.float32), pos=p,
+                            grid=p, target=rng.standard_normal((n, 2)).astype(np.float32)))
+    return samples
 
 
-def _ex1_steps(device, attention_type, dtype, total=20):
+def _ex1_steps(device, attention_type, dtype, total=20, latents=False):
+    """With `latents` the model returns its latents and the loss adds the
+    orthogonality penalty on them."""
     from galerkin_transformer_torch import SimpleTransformer, load_config
     from galerkin_transformer_torch.train import (AdamOneCycle, WeightedL2Loss,
                                                   make_burgers_steps)
     cfg = load_config("ex1_burgers")
     cfg.update(n_hidden=32, num_encoder_layers=2, dim_feedforward=64,
-               freq_dim=16, fourier_modes=8, attention_type=attention_type)
+               freq_dim=16, fourier_modes=8, attention_type=attention_type,
+               return_latent=latents)
     model = SimpleTransformer.from_config(cfg, device=device, seed=3, dtype=dtype)
     opt = AdamOneCycle(model.parameters(), 1e-3, total_steps=total)
-    loss = WeightedL2Loss(regularizer=True, h=1 / 256, gamma=0.1)
+    loss = WeightedL2Loss(regularizer=True, h=1 / 256, gamma=0.1, orthogonal_reg=latents)
     return (model, opt) + make_burgers_steps(model, loss, WeightedL2Loss(h=1 / 256), opt)
 
 
@@ -989,14 +1016,29 @@ def test_captured_step_matches_the_eager_step(dev, attention_type, dtype):
     then replays) against five eager host-loop steps from the same weights
     and batches: the same losses and weights, and the captured graph holds
     exactly the kernel launches of one eager step."""
+    _check_captured_step(dev, _ex1_samples(20), attention_type, dtype)
+
+
+@pytest.mark.parametrize("case", ["galerkin", "galerkin-latents", "fourier"])
+def test_captured_nonuniform_step_matches_the_eager_step(dev, case):
+    """The same on per-sample meshes (each batch's pos through the galerkin
+    and fourier kernels), and for galerkin with the latents' orthogonality
+    penalty in the loss."""
+    attention_type = case.split("-")[0]
+    ortho = _check_captured_step(dev, _ex1_samples(20, nonuniform=True), attention_type,
+                                 None, latents=case.endswith("latents"))
+    assert (ortho > 0).all() if case.endswith("latents") else not ortho.any()
+
+
+def _check_captured_step(dev, data, attention_type, dtype, latents=False):
+    """The body of the captured-step tests; returns the loop's ortho losses."""
     from galerkin_transformer_torch.data import DataLoader
     from galerkin_transformer_torch.ops.cuda._graph import wrapper_launches
     from galerkin_transformer_torch.train import DeviceEpochRunner
     counters = [GS.galerkin_scores, GS.galerkin_scores_bf16, GS.galerkin_scores_bwd,
                 GS.galerkin_scores_bwd_bf16, FC.fourier_chain, FC.fourier_chain_bf16,
                 FC.fourier_chain_mixed]
-    data = _ex1_samples(20)
-    model, opt, train_step, eval_step = _ex1_steps(dev, attention_type, dtype)
+    model, opt, train_step, eval_step = _ex1_steps(dev, attention_type, dtype, latents=latents)
     valid = DataLoader(data[:8], 3)   # two full batches and a tail of 2
     runner = DeviceEpochRunner(model, train_step, eval_step, opt,
                                DataLoader(data, 4, drop_last=True), valid, verbose=False)
@@ -1007,7 +1049,7 @@ def test_captured_step_matches_the_eager_step(dev, attention_type, dtype):
     want_val = (3 * metrics[0] + 3 * metrics[1] + 2 * metrics[2]) / 8
     np.testing.assert_allclose(float(runner.validate()), want_val, rtol=1e-6)
     assert [r for _, r in runner.replayed()] == [3, 3]
-    ref_model, _, ref_step, _ = _ex1_steps(dev, attention_type, dtype)
+    ref_model, _, ref_step, _ = _ex1_steps(dev, attention_type, dtype, latents=latents)
     before = [c.launches for c in counters]
     want = []
     for i, batch in enumerate(DataLoader(data, 4, drop_last=True)):
@@ -1021,6 +1063,7 @@ def test_captured_step_matches_the_eager_step(dev, attention_type, dtype):
     atol = 1e-6 if dtype is None else 1e-4
     for (key, p), q in zip(model.state_dict().items(), ref_model.state_dict().values()):
         torch.testing.assert_close(p, q, rtol=rtol, atol=atol, msg=key)
+    return np.asarray(losses)[:, 2]
 
 
 @pytest.mark.parametrize("noise", ["dropout", "online-noise"])

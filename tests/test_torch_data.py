@@ -82,7 +82,7 @@ def test_loader_draws_the_jax_packages_batches(caches, shuffle, drop_last, batch
                 np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-@pytest.mark.parametrize("kwargs", [dict(uniform=False), dict(return_edge=True)])
+@pytest.mark.parametrize("kwargs", [dict(return_edge=True)])
 def test_unported_dataset_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         BurgersDataset(n_grid_fine=N_FINE, n_samples_synthetic=4, **kwargs)

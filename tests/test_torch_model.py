@@ -170,9 +170,8 @@ def test_config_dict_equals_config_yml():
 
 
 @pytest.mark.parametrize("override", [
-    dict(attention_type="softmax"), dict(attention_type="linear"),
-    dict(decoder_type="pointwise"), dict(n_freq_targets=2),
-    dict(spacial_dim=2),
+    dict(spacial_dim=2), dict(batch_norm=True),
+    dict(feat_extract_type="gcn", num_feat_layers=2),
 ])
 def test_unported_options_raise(override):
     cfg = _small_cfg("fourier")

@@ -695,13 +695,6 @@ def test_ex1_driver_takes_the_model_flags_and_names_the_checkpoint_as_jax(
     assert not any("norm_K" in key for key in state)
 
 
-@pytest.mark.parametrize("flag", ["--nonuniform", "--random-sampling"])
-def test_ex1_driver_refuses_the_nonuniform_mesh_by_name(flag):
-    from galerkin_transformer_torch.examples import ex1_burgers
-    with pytest.raises(NotImplementedError, match=flag):
-        ex1_burgers.main(["--device", "cpu", flag])
-
-
 def test_ex1_driver_real_data_names_the_missing_file(tmp_path, monkeypatch):
     from galerkin_transformer_torch.examples import ex1_burgers
     monkeypatch.setattr(t_config, "DATA_PATH", str(tmp_path))

@@ -19,7 +19,7 @@
         # the product and whole, at the ex1 width over n (stage_sweep_phase)
     python3 chip_smoke.py --cosine-bf16
         # bf16 cosine serving's distance from the float32 model on four
-        # seeds, the CPU's and the card's (cosine_bf16_phase)
+        # seeds, the CPU's and the card's, ex1 and ex2 (cosine_bf16_phase)
 
 1. prints the card (nvidia-smi) and turns TF32 off;
 2. builds every CUDA kernel of the port from galerkin_transformer_torch/csrc
@@ -144,10 +144,16 @@
    --rollback-on-spike 10 --scheduler plateau`` for 2 epochs and
    ``--resume-epoch 2`` for a third, ex1 with ``--attention-type softmax``
    and with ``--nonuniform --attention-type galerkin`` (2 epochs each), and
-   ex4 with ``--scheduler plateau``; their losses must be finite, and the
-   ex1 (all three), ex2 and ex4 best checkpoints must load into
-   ``Predictor`` and serve a batch (ex2 with the normalizer saved in the
-   checkpoint);
+   ex4 with ``--scheduler plateau``, and
+   ``examples/ex1_burgers_super_res.py`` forward (train n = 2048, validate
+   n = 8192) and in reverse, 2 epochs each; their losses must be finite,
+   the super-resolution runs must print their final line with the two
+   resolutions, and the ex1 (all three), ex2 and ex4 best checkpoints must
+   load into ``Predictor`` and serve a batch (ex2 with the normalizer saved
+   in the checkpoint); the first ex1 checkpoint, written again as a JAX
+   checkpoint, a reference ``torch.save`` file and a port checkpoint and
+   read back by ``Predictor.from_checkpoint`` (which tells the kind by
+   content), must serve bit for bit as it did;
 9. ex1 variants phase (``ex1_variants_phase``), the rest of the ex1 model
    at full width (random weights): ``linear``, ``softmax``, ``cosine`` (f32
    and bf16) and ``official`` (the vanilla softmax stack, f32) served
@@ -163,7 +169,23 @@
    ``SimpleAttention`` calls (fourier, softmax, causal with its key mask)
    on the card against the CPU, and causal with its norm against float64
    on its well-conditioned rows (``causal_witness``);
-10. prints one {"kernels": [...]} line (launches summed over the main
+10. 2D variants phase (``variants_2d_phase``), the rest of the 2D model at
+   the ex2 width (random weights): ``linear``, ``global``, ``softmax``,
+   ``cosine`` and ``official`` (f32) and ``linear``, ``softmax`` and
+   ``cosine`` (bf16) served at (n_f, n_c) = (141, 43) as in item 5 with no
+   kernel in their graphs (bf16 cosine against the CPU's float32 model, to
+   ``TOL_SERVE_COSINE_BF16_2D``), each one train step (dropout off) against the
+   CPU and through ``DeviceEpochRunner`` against the eager host loop at
+   (211, 43); galerkin and fourier (f32) with ``return_attn_weight`` and
+   ``return_latent``, served with exactly the plain request's 6 kernel
+   launches and its preds; ``causal`` raising on the card and the CPU (the
+   2D model passes no mask); the phase's wall time;
+11. checkpoints phase (``checkpoints_phase``): the reference's
+   ``eval/torch_anchor_500ep.ckpt`` through ``Predictor.from_checkpoint`` on
+   the card, its validation metric on the calibration's 100 validation
+   fields (n = 2048, batches of 16) within 1 % of the reference's
+   1.4932e-3, with ``galerkin_scores`` in every layer of its graphs;
+12. prints one {"kernels": [...]} line (launches summed over the main
    paths), then the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a GPU it exits 1 and
@@ -173,6 +195,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import glob
 import importlib
 import importlib.util
@@ -199,16 +222,19 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from galerkin_transformer_torch import (FourierTransformer2D,  # noqa: E402
                                         FourierTransformer2DLite, Predictor,
                                         SimpleTransformer, load_config)
+from galerkin_transformer_torch.serve import read_checkpoint  # noqa: E402
 from galerkin_transformer_torch.data import (BurgersDataset, DarcyDataset,  # noqa: E402
                                              DataLoader, NavierStokesDatasetLite,
                                              darcy_grids, get_scaler_sizes, ns_grids)
-from galerkin_transformer_torch.examples import (ex1_burgers, ex2_darcy,  # noqa: E402
+from galerkin_transformer_torch.examples import (ex1_burgers,  # noqa: E402
+                                                 ex1_burgers_super_res, ex2_darcy,
                                                  ex3_darcy_inv, ex4_navier_stokes)
 from galerkin_transformer_torch.train import (AdamOneCycle, AdamPlateau,  # noqa: E402
                                               DeviceEpochRunner, PlateauController,
                                               WeightedL2Loss, WeightedL2Loss2d,
-                                              make_burgers_steps, make_darcy_steps,
-                                              make_ns_steps, run_train)
+                                              load_checkpoint, make_burgers_steps,
+                                              make_darcy_steps, make_ns_steps, run_train,
+                                              save_checkpoint, save_jax_checkpoint)
 from galerkin_transformer_torch.utils import config as port_config  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import _build  # noqa: E402
 from galerkin_transformer_torch.ops.cuda._graph import (launched_kernels,  # noqa: E402
@@ -276,6 +302,13 @@ TOL_SERVE_BF16 = 2.0 ** -6
 # 1.063e-1, within 2.4e-3 of the CPU's on each input; the bound is the
 # largest reading ×1.25, rounded up to 1e-2
 TOL_SERVE_COSINE_BF16 = 0.14
+# the same for the 2D model (ex2 width at (141, 43)), of the largest entry of
+# the float32 model's own part: ``cosine_bf16_2d_readings`` on an H100 (seeds
+# 0-3): the CPU's bf16 model 1.75e-2 to 8.68e-2 from float32, the card's
+# 1.81e-2 to 8.28e-2, the card's 9.4e-3 to 3.88e-2 from the CPU's bf16 (too
+# far to hold it to TOL_SERVE_BF16); the smoke's own draw read 2.52e-1.  The
+# bound is the largest reading ×1.25, rounded up to 1e-2
+TOL_SERVE_COSINE_BF16_2D = 0.32
 # one train step on the card vs the CPU: losses relative, gradients against
 # the largest entry of each (a forward and a backward through four layers)
 TOL_TRAIN_LOSS = 1e-4
@@ -2324,7 +2357,7 @@ def driver_phase():
         counts, served = _drive()
     counts = Counter(counts)
     counts.update(forward_launches(served))
-    if len(runners) != 9 or any(r.replays == 0 for r in runners):
+    if len(runners) != 11 or any(r.replays == 0 for r in runners):
         raise AssertionError(f"driver: {len(runners)} device loops, replays "
                              f"{[r.replays for r in runners]}")
     counts.update(runner_launches(runners))
@@ -2335,21 +2368,22 @@ def _drive():
     """The four drivers, each best checkpoint checked; the wrappers' launch
     counts of the run, and the served checkpoints' replayed forwards."""
     served = []
+    valid = BurgersDataset(subsample=SUBSAMPLE, train_data=False, valid_portion=100,
+                           n_samples_synthetic=TRAIN_SAMPLES)
+    batch = next(iter(DataLoader(valid, 4)))
     with tempfile.TemporaryDirectory() as tmp:
         val = ex1_burgers.main(["--n-samples", str(TRAIN_SAMPLES), "--epochs", "2"],
                                model_save_path=tmp)
         ckpt = _driver_outputs("ex1", tmp, val, 2)
         cfg = load_config("ex1_burgers")
         pred = Predictor.from_checkpoint(SimpleTransformer.from_config(cfg, seed=1), ckpt)
-    valid = BurgersDataset(subsample=SUBSAMPLE, train_data=False, valid_portion=100,
-                           n_samples_synthetic=TRAIN_SAMPLES)
-    batch = next(iter(DataLoader(valid, 4)))
-    out = pred(batch)
-    served.append(pred.captured(batch))
-    if out.shape != (4, TRAIN_N, 1) or not np.isfinite(out).all():
-        raise AssertionError(f"driver: served checkpoint gave {out.shape}")
-    print(f"driver ex1: 2 epochs, best validation metric {val:.4e}; the best checkpoint "
-          f"served a batch of {out.shape}")
+        out = pred(batch)
+        served.append(pred.captured(batch))
+        if out.shape != (4, TRAIN_N, 1) or not np.isfinite(out).all():
+            raise AssertionError(f"driver: served checkpoint gave {out.shape}")
+        print(f"driver ex1: 2 epochs, best validation metric {val:.4e}; the best checkpoint "
+              f"served a batch of {out.shape}")
+        round_trip(ckpt, cfg, batch, out, served)
     for flags in (["--attention-type", "softmax"],
                   ["--nonuniform", "--attention-type", "galerkin"]):
         with tempfile.TemporaryDirectory() as tmp:
@@ -2386,6 +2420,25 @@ def _drive():
         raise AssertionError("driver ex1 --resume-epoch: the checkpoint was not read")
     print(f"driver ex1 (galerkin, --rollback-on-spike 10 --scheduler plateau --lr 1e-4): "
           f"2 epochs, then --resume-epoch 2 for a third: best validation metric {val:.4e}")
+
+    # zero-shot super-resolution: trained at n = 2048 and validated at 8192 (the
+    # validation batches a second graph shape in the device loop), and the reverse
+    for train_sub, eval_sub in ((SUBSAMPLE, 1), (1, SUBSAMPLE)):
+        flags = ["--n-samples", str(TRAIN_SAMPLES), "--epochs", "2", "--train-subsample",
+                 str(train_sub), "--eval-subsample", str(eval_sub)]
+        with tempfile.TemporaryDirectory() as tmp:
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                val = ex1_burgers_super_res.main(flags, model_save_path=tmp)
+            print(printed.getvalue(), end="")
+            _driver_outputs(f"ex1 super-res {train_sub}->{eval_sub}", tmp, val, 2)
+        n_train, n_eval = 8192 // train_sub, 8192 // eval_sub
+        line = (f"Zero-shot super-res validation metric (train n={n_train} -> eval "
+                f"n={n_eval}): {val:.4e}")
+        if line not in printed.getvalue():
+            raise AssertionError(f"driver super-res: no line {line!r}")
+        print(f"driver ex1 super-res (fourier f32, train n={n_train}, validate n={n_eval}): "
+              f"2 epochs in the device loop, metric {val:.4e}")
 
     grid = ["--n-grid-fine", "61", "--subsample-nodes", "1", "--subsample-attn", "5",
             "--n-samples", "16"]
@@ -2574,6 +2627,45 @@ def cosine_bf16_phase(seeds=range(4)) -> list:
                                                         / np.abs(ref).max())
             print(f"cosine vs the CPU's float32 model: {row}")
             rows.append(row)
+    return rows + cosine_bf16_2d_readings(seeds)
+
+
+def cosine_bf16_2d_readings(seeds) -> list:
+    """The same for the 2D model (ex2 width, (n_f, n_c) = GRIDS_2D[0], batch
+    4, a random normalizer), each distance of the largest entry of the CPU
+    float32 model's own part (the interior with the normalizer undone), and
+    the card's bf16 model against the CPU's bf16 model."""
+    n_f, n_c = GRIDS_2D[0]
+    cfg = {**ex2_config(n_f, n_c), "attention_type": "cosine"}
+    pos, grid = darcy_grids(n_f, n_c)
+    rows = []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        mean = (0.1 * rng.standard_normal((n_f, n_f, 1))).astype(np.float32)
+        std = rng.uniform(0.5, 1.5, (n_f, n_f, 1)).astype(np.float32)
+        normalizer = (mean, std, np.float32(1e-5))
+        batch = dict(node=rng.standard_normal((BATCH_2D, n_f, n_f, 1)).astype(np.float32),
+                     pos=pos[None].repeat(BATCH_2D, 0), grid=grid[None].repeat(BATCH_2D, 0))
+        outs = {(d, t): Predictor(FourierTransformer2D.from_config(cfg, device=d, seed=seed,
+                                                                   dtype=t),
+                                  normalizer=normalizer, device=d)(batch)
+                for d in ("cpu", "cuda") for t in DTYPES}
+
+        def part(out):
+            return ((out - mean) / (std + 1e-5))[:, 1:-1, 1:-1]
+
+        scale = float(np.abs(part(outs["cpu", None])).max())
+        row = {"model": "ex2", "seed": seed, "n_f": n_f}
+        for (d, t), out in outs.items():
+            if (d, t) != ("cpu", None):
+                row[f"{d}_{dtype_name(t)}"] = float(
+                    np.abs(part(out) - part(outs["cpu", None])).max() / scale)
+        row["cuda_bf16_vs_cpu_bf16"] = float(
+            np.abs(part(outs["cuda", torch.bfloat16]) - part(outs["cpu", torch.bfloat16])).max()
+            / scale)
+        print(f"ex2 cosine vs the CPU's float32 model: {row}")
+        rows.append(row)
+        release_graphs()
     return rows
 
 
@@ -2662,6 +2754,236 @@ def ex1_variants_phase(rng):
     return {name: counts[name] for name in COUNTERS}
 
 
+def release_graphs():
+    """Free what earlier work left on the card: a Predictor and its captured
+    requests refer to each other, so their graphs (and the memory pools they
+    hold) go only when the cycle collector runs."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+# the 2D model's other attention types (``FourierTransformer2D`` at the ex2
+# width): served at the first grid pair and trained for a step against the CPU
+# and in the device loop; float32 for all five, bfloat16 for the
+# SimpleAttention types JAX's bf16 path computes in plain XLA
+VARIANTS_2D = (("linear", None), ("global", None), ("softmax", None), ("cosine", None),
+               ("official", None), ("linear", torch.bfloat16), ("softmax", torch.bfloat16),
+               ("cosine", torch.bfloat16))
+VARIANTS_2D_REQUESTS = 3
+VARIANTS_2D_LOOP_EPOCHS = 4   # 2 steps an epoch: 2 eager, 6 replays
+
+
+def variants_2d_phase(rng):
+    """The rest of the 2D model on the card (ex2 width, random weights):
+    each type of `VARIANTS_2D` served through `Predictor` against the CPU
+    model of the same weights (no kernel in its graph), one train step
+    (dropout off) against the CPU and the step through `DeviceEpochRunner`
+    against the eager host loop (no kernel in its graph); galerkin and
+    fourier (f32) with ``return_attn_weight`` and ``return_latent``, whose
+    requests must equal the plain model's and launch its kernels exactly;
+    ``causal`` raising as on the CPU (the 2D model passes no mask).
+    Each type's graphs are counted and freed before the next type's (a 2D
+    request's graph holds ~0.9 GiB).  Returns the launch counts of its
+    run."""
+    reset_launches()
+    t0 = time.perf_counter()
+    replayed, runners, counts = [], [], Counter()
+
+    def count_and_free():
+        counts.update(forward_launches(replayed))
+        counts.update(runner_launches(runners))
+        replayed.clear()
+        runners.clear()
+        release_graphs()
+
+    n_f, n_c = GRIDS_2D[0]
+    cfg = ex2_config(n_f, n_c)
+    n_layers = cfg["num_encoder_layers"]
+    normalizer = ((0.1 * rng.standard_normal((n_f, n_f, 1))).astype(np.float32),
+                  rng.uniform(0.5, 1.5, (n_f, n_f, 1)).astype(np.float32), np.float32(1e-5))
+    pos, grid = darcy_grids(n_f, n_c)
+    batches = [dict(node=rng.standard_normal((BATCH_2D, n_f, n_f, 1)).astype(np.float32),
+                    pos=pos[None].repeat(BATCH_2D, 0), grid=grid[None].repeat(BATCH_2D, 0))
+               for _ in range(VARIANTS_2D_REQUESTS)]
+
+    def model_part(out):
+        """The interior with the normalizer undone: what the model computes."""
+        mean, std, eps = normalizer
+        return ((out - mean) / (std + eps))[:, 1:-1, 1:-1]
+
+    def variation(out):   # as in serving_2d_phase: the encoder shows in what varies
+        part = model_part(out)
+        return float(np.abs(part - part.mean()).max())
+
+    def largest(out):
+        return float(np.abs(model_part(out)).max())
+
+    def predictors(config, dtype, ref_dtype):
+        gpu = Predictor(FourierTransformer2D.from_config(config, seed=SEED, dtype=dtype),
+                        normalizer=normalizer)
+        cpu = Predictor(FourierTransformer2D.from_config(config, device="cpu", seed=SEED,
+                                                         dtype=ref_dtype),
+                        normalizer=normalizer, device="cpu")
+        same_weights(gpu, cpu)
+        return gpu, cpu
+
+    shape, points = (BATCH_2D, n_f, n_f, 1), BATCH_2D * n_f * n_f
+    for atype, dtype in VARIANTS_2D:
+        tol, ref_dtype = (TOL_SERVE, None) if dtype is None else (TOL_SERVE_BF16, dtype)
+        if dtype is not None and atype == "cosine":   # against float32, as in ex1
+            tol, ref_dtype = TOL_SERVE_COSINE_BF16_2D, None
+        gpu, cpu = predictors({**cfg, "attention_type": atype}, dtype, ref_dtype)
+        serve_and_check(f"ex2 {atype} {dtype_name(dtype)} (n_f,n_c)=({n_f},{n_c}) "
+                        f"batch={BATCH_2D}", gpu, cpu, batches, None, 0, points, shape, tol,
+                        replayed, scale_of=variation if dtype is None else largest)
+        del gpu, cpu
+        count_and_free()
+    for atype, kernel in (("galerkin", "galerkin_scores"), ("fourier", "fourier_chain")):
+        plain, _ = predictors({**cfg, "attention_type": atype}, None, None)
+        gpu, cpu = predictors({**cfg, "attention_type": atype, "return_attn_weight": True,
+                               "return_latent": True}, None, None)
+        tag = (f"ex2 {atype} f32 return_attn_weight+return_latent (n_f,n_c)=({n_f},{n_c}) "
+               f"batch={BATCH_2D}")
+        got = serve_and_check(tag, gpu, cpu, batches, kernel, n_layers, points, shape,
+                              TOL_SERVE, replayed, scale_of=variation)
+        want = plain.warmup(batches[0])(batches[0])
+        replayed.append(plain.captured(batches[0]))
+        if dict(wrapper_launches(plain.captured(batches[0]).kernels())) != {kernel: n_layers}:
+            raise AssertionError(f"{tag}: the plain request launches other kernels")
+        gap = float(np.abs(got - want).max())
+        print(f"  {tag}: preds vs the plain model's request max_abs_err={gap:.3e} "
+              f"({'bit-equal' if gap == 0 else 'not bit-equal'}), both {n_layers} {kernel} "
+              f"a request")
+        if gap > TOL_SERVE * variation(want):
+            raise AssertionError(f"{tag}: returning weights and latents moved the preds")
+        del plain, gpu, cpu
+        count_and_free()
+    causal = {**cfg, "attention_type": "causal"}
+    for device in ("cuda", "cpu"):
+        pred = Predictor(FourierTransformer2D.from_config(causal, device=device, seed=SEED),
+                         device=device)
+        try:
+            pred(batches[0])
+        except ValueError as e:
+            if "mask" not in str(e):
+                raise
+            print(f"ex2 causal on the {device}: raises as in JAX ({e})")
+        else:
+            raise AssertionError(f"ex2 causal on the {device}: served without a mask")
+    print(f"2D variants: serving {time.perf_counter() - t0:.1f} s")
+
+    train_2d, tbatches, tnormalizer, (tn_f, tn_c) = ex2_train_data()
+    tcfg = {**ex2_config(tn_f, tn_c), **NO_DROPOUT}
+    for atype, dtype in VARIANTS_2D:
+        config = {**tcfg, "attention_type": atype}
+
+        def make(device, dtype=dtype, config=config):
+            model, opt, train_step, eval_step = ex2_step(device, dtype, config, tbatches,
+                                                         tnormalizer, tn_f, steps=True)
+            return no_dropout(model), opt, train_step, eval_step
+
+        steps, models = {}, {}
+        for device in ("cuda", "cpu"):
+            models[device], _, steps[device], _ = make(device)
+        tag = f"ex2 {atype} {dtype_name(dtype)} (n_f,n_c)=({tn_f},{tn_c}) batch={BATCH_2D}"
+        compare_step(tag, steps, models, tbatches[0], {},
+                     TOL_TRAIN_LOSS if dtype is None else TOL_TRAIN_LOSS_BF16,
+                     TOL_TRAIN_GRAD if dtype is None else TOL_TRAIN_GRAD_BF16, GRAD_FLOOR)
+        del steps, models
+        runners.extend(loop_case(tag, make, train_2d, BATCH_2D, {}, VARIANTS_2D_LOOP_EPOCHS,
+                                 TOL_LOOP if dtype is None else TOL_TRAIN_LOSS_BF16,
+                                 TOL_LOOP if dtype is None else TOL_TRAIN_GRAD_BF16,
+                                 BATCH_2D * tn_f * tn_f))
+        count_and_free()
+    print(f"2D variants phase: {time.perf_counter() - t0:.1f} s")
+    counts.update(launches())
+    return {name: counts[name] for name in COUNTERS}
+
+
+# the reference's galerkin SimpleTransformer after 500 epochs
+# (eval/calibrate_reference_burgers.py, seed 1127802, subsample 4, 1074
+# training and 100 validation fields of 2148), the last entry of its
+# history_clean (the validation metric with its always-on score dropout off),
+# and how close the port's reading on the card must come to it
+ANCHOR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "eval",
+                      "torch_anchor_500ep.ckpt")
+ANCHOR_METRIC = 1.4932e-3
+ANCHOR_SAMPLES = 2148
+ANCHOR_VAL_BATCH = 16   # the calibration's validation loader
+TOL_ANCHOR = 1e-2       # relative
+
+
+def checkpoints_phase():
+    """The reference's checkpoint through `Predictor.from_checkpoint` on the
+    card: its validation metric (the calibration's metric, the mean over
+    batches of 16 of each batch's mean relative L2) on the calibration's
+    100 validation fields, against the reference's own reading; its graphs
+    must launch ``galerkin_scores`` in every encoder layer.  (The port's
+    driver checkpoint goes round the three loaders in `driver_phase`.)
+    Returns the launch counts of its run."""
+    reset_launches()
+    t0 = time.perf_counter()
+    cfg = {**load_config("ex1_burgers"), "attention_type": "galerkin"}
+    pred = Predictor.from_checkpoint(SimpleTransformer.from_config(cfg, seed=SEED), ANCHOR)
+    kind = read_checkpoint(ANCHOR)[0]
+    valid = BurgersDataset(subsample=SUBSAMPLE, train_data=False, valid_portion=100,
+                           n_samples_synthetic=ANCHOR_SAMPLES)
+    metric_fn = WeightedL2Loss(regularizer=False, h=1 / valid.n_grid)
+    metrics, shapes = [], {}
+    for batch in DataLoader(valid, ANCHOR_VAL_BATCH):
+        preds = torch.from_numpy(pred(batch))
+        metrics.append(float(metric_fn(preds[..., 0],
+                                       torch.from_numpy(batch["target"][..., 0])).metric))
+        shapes[batch["node"].shape] = batch
+    forwards = [pred.captured(b) for b in shapes.values()]
+    for forward in forwards:
+        got = dict(wrapper_launches(forward.kernels()))
+        if got != {"galerkin_scores": cfg["num_encoder_layers"]}:
+            raise AssertionError(f"reference checkpoint: a request holds {got}")
+    val = float(np.mean(metrics))
+    rel = abs(val - ANCHOR_METRIC) / ANCHOR_METRIC
+    print(f"reference checkpoint ({kind}, {os.path.basename(ANCHOR)}) served on the card: "
+          f"validation metric {val:.6e} on {len(valid)} fields at n={valid.n_grid} "
+          f"({len(metrics)} batches of {ANCHOR_VAL_BATCH}, {len(forwards)} request shapes) vs "
+          f"the reference's {ANCHOR_METRIC:.4e}: rel gap {rel:.3e} (tol {TOL_ANCHOR:.0e}); "
+          f"{cfg['num_encoder_layers']} galerkin_scores a request; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not rel <= TOL_ANCHOR:
+        raise AssertionError("reference checkpoint: the validation metric is off the "
+                             "reference's")
+    counts = Counter(launches())
+    counts.update(forward_launches(forwards))
+    return {name: counts[name] for name in COUNTERS}
+
+
+def round_trip(ckpt, cfg, batch, want, served):
+    """The port's checkpoint `ckpt` of the ex1 model of `cfg` written again
+    as the JAX package's checkpoint, as the original torch implementation's
+    and as the port's own, each read back by `Predictor.from_checkpoint`
+    (which tells the kind by content) into a fresh model: every request
+    equal to `want` bit for bit."""
+    params = load_checkpoint(ckpt)["params"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"jax": os.path.join(tmp, "as_jax.ckpt"),
+                 "reference": os.path.join(tmp, "as_reference.pt"),
+                 "port": os.path.join(tmp, "as_port.ckpt")}
+        save_jax_checkpoint(paths["jax"], params, n_head=cfg["n_head"])
+        torch.save({"model": params, "epochs_done": 2}, paths["reference"])
+        save_checkpoint(paths["port"], params)
+        for kind, path in paths.items():
+            if read_checkpoint(path)[0] != kind:
+                raise AssertionError(f"round trip: {path} read as {read_checkpoint(path)[0]}")
+            pred = Predictor.from_checkpoint(SimpleTransformer.from_config(cfg, seed=7), path)
+            outs = [pred(batch) for _ in range(2)]   # eager and capture, then a replay
+            served.append(pred.captured(batch))
+            if not all(np.array_equal(o, want) for o in outs):
+                raise AssertionError(f"round trip through the {kind} loader: the requests "
+                                     f"differ from the port checkpoint's")
+    print(f"driver ex1 checkpoint: written as a JAX, a reference and a port checkpoint and "
+          f"read back by content, each served bit-equal to the original")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Build, check and drive the port on one GPU.")
     parser.add_argument("--against", nargs="+", metavar="ROOT",
@@ -2672,8 +2994,8 @@ def main(argv=None) -> int:
                         help="with --against: time these kernels only")
     parser.add_argument("--cosine-bf16", action="store_true",
                         help="only print bf16 cosine serving's distance from the float32 "
-                             "model on four seeds (the readings behind "
-                             "TOL_SERVE_COSINE_BF16)")
+                             "model on four seeds, ex1 and ex2 (the readings behind "
+                             "TOL_SERVE_COSINE_BF16 and TOL_SERVE_COSINE_BF16_2D)")
     parser.add_argument("--stage-sweep", action="store_true",
                         help="only time the float32 galerkin forward's stages at the "
                              "ex1 width over n (stage_sweep_phase)")
@@ -2727,12 +3049,17 @@ def main(argv=None) -> int:
     galerkin_bwd_phase(rng, dev, peak, EX2_TRAIN_SHAPE, eps=1e-7)
     fourier_bwd_phase(rng, dev, peak)
     wide_phase(rng, dev)
-    paths = [serving_phase(rng), serving_2d_phase(rng), serving_ex4_phase(rng),
-             training_phase(), training_2d_phase(), ex4_phase(), device_loop_phase(),
-             recovery_phase(smi), driver_phase(), ex1_variants_phase(rng)]
+    paths = []
+    for phase in (lambda: serving_phase(rng), lambda: serving_2d_phase(rng),
+                  lambda: serving_ex4_phase(rng), training_phase, training_2d_phase,
+                  ex4_phase, device_loop_phase, lambda: recovery_phase(smi), driver_phase,
+                  lambda: ex1_variants_phase(rng), lambda: variants_2d_phase(rng),
+                  checkpoints_phase):
+        release_graphs()   # the graphs of the phases before
+        paths.append(phase())
     print(f"launches by main path (ex1 serving, ex2 serving, ex4 serving, ex1 training, "
-          f"ex2 training, ex4 training, device loop, recovery, drivers, ex1 variants): "
-          f"{paths}")
+          f"ex2 training, ex4 training, device loop, recovery, drivers, ex1 variants, "
+          f"2D variants, checkpoints): {paths}")
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths)
         if k["launches"] == 0:

@@ -243,6 +243,17 @@ class DarcyDataset:
         return grad_x / h, grad_y / h
 
     @staticmethod
+    def get_grid(n_grid, subsample=1, return_boundary=True):
+        """The module's `get_grid`, on the class as JAX's drivers call it
+        (darcy.py:243)."""
+        return get_grid(n_grid, subsample=subsample, return_boundary=return_boundary)
+
+    @staticmethod
+    def get_scaler_sizes(n_f: int, n_c: int, scale_factor: bool = True):
+        """The module's `get_scaler_sizes`, on the class (darcy.py:256)."""
+        return get_scaler_sizes(n_f, n_c, scale_factor=scale_factor)
+
+    @staticmethod
     def get_interp2d(x, n_f: int, n_c: int):
         """(N, n_f, n_f) -> (N, n_c, n_c) bilinear, align_corners grid."""
         m = interp_matrix(n_f, n_c).astype(np.float64)

@@ -2,7 +2,8 @@
 ``examples/ex2_darcy.py``).
 
 The dual-resolution ``FourierTransformer2D``: an interp-CNN downscaler to
-the coarse attention grid, galerkin encoders, an interp upscaler and a
+the coarse attention grid, encoders of ``--attention-type`` (galerkin by
+default; every type of JAX's 2D model), an interp upscaler and a
 ``SpectralConv2d`` decoder with the Dirichlet boundary, trained with the
 coefficient-weighted H¹-regularized relative L2 and 1cycle Adam.  Reads
 ``piececonst_r421_*.mat`` when paths are given, otherwise makes synthetic
@@ -11,6 +12,8 @@ generator is a sparse direct solve per sample).  Runs on the GPU unless
 ``--device cpu`` is given; without a GPU that default raises.
 
     python -m galerkin_transformer_torch.examples.ex2_darcy --n-grid-fine 141 --bf16
+    python -m galerkin_transformer_torch.examples.ex2_darcy --n-grid-fine 141 \
+        --attention-type softmax
     python -m galerkin_transformer_torch.examples.ex2_darcy --device cpu \\
         --n-grid-fine 61 --n-samples 16 --epochs 2
 """

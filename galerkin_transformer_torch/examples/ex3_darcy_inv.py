@@ -3,8 +3,8 @@ by the port (counterpart of ``examples/ex3_darcy_inv.py``).
 
 The solution u (optionally noisy) goes in, the coefficient a on the coarse
 grid comes out: ``FourierTransformer2D`` with a pointwise decoder, no H¹
-regularizer, the loss's mesh size h = 1/n_grid_coarse.  Data and device as
-in ``ex2_darcy``.
+regularizer, the loss's mesh size h = 1/n_grid_coarse.  Data, device and
+``--attention-type`` as in ``ex2_darcy``.
 
     python -m galerkin_transformer_torch.examples.ex3_darcy_inv --n-grid-fine 141
     python -m galerkin_transformer_torch.examples.ex3_darcy_inv --device cpu \\

@@ -39,8 +39,8 @@ class SimpleTransformerEncoderLayer(nn.Module):
 
     With `pos_emb` a `PositionalEncoding` is added to the input first.
     With `attn_weight` forward returns (x, the attention weights): fourier
-    then forms its dense scores (the chain kernel never does); galerkin
-    returns the kernel's d×d scores as they are.
+    forms its dense n×n weights beside the chain kernel's output; galerkin
+    returns the kernel's d×d scores as they are (`SimpleAttention`).
 
     With a compute `dtype` (``torch.bfloat16``) the input is cast at entry
     and the attention, the feed-forward and the residuals run in it

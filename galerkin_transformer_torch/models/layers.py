@@ -176,8 +176,12 @@ class SimpleAttention(nn.Module):
     kernel (d_k + pos_dim <= 128 columns; a wider head takes the JAX
     package's XLA route: per-head LN and the block form, or the dense
     fourier scores).  Fourier forms its dense n×n scores instead, as JAX
-    does, with a mask, with ``need_weights`` (the caller wants them back)
-    and in training with a non-zero score dropout.  On CUDA tensors the
+    does, with a mask and in training with a non-zero score dropout.  The
+    weights that ``need_weights`` returns: galerkin's kernel gives its
+    d×d scores as they are; fourier keeps its chain kernel for the output
+    and forms the dense n×n weights ``Q Kᵀ / (√d · n)`` beside it (what
+    JAX's dense route returns), so a request for weights launches the
+    kernels of one without.  On CUDA tensors the
     kernels are the hand-written ones (the float32 ones, or with
     ``dtype=torch.bfloat16`` the bfloat16 tensor-core ones), on CPU
     tensors their plain versions.  linear, global, softmax, cosine and
@@ -248,7 +252,7 @@ class SimpleAttention(nn.Module):
     def forward(self, query, key, value, pos=None, mask=None, weight=None,
                 need_weights: bool = False):
         """Returns (out (B, n, d_model), p_attn).  `need_weights`: fourier
-        forms and returns its n×n scores (the chain kernel never does)."""
+        forms and returns its n×n weights beside the chain kernel's output."""
         if weight is not None:
             query, key = weight * query, weight * key
         bsz, n = query.shape[0], query.shape[1]
@@ -307,12 +311,11 @@ class SimpleAttention(nn.Module):
             elif atype == "softmax":
                 x, p_attn = A.softmax_attention(q, k, v, mask=score_mask,
                                                 score_dropout=self._score_dropout)
-            elif (mask is None and not need_weights
-                  and not (self.training and self.score_rate > 0.0)
+            elif (mask is None and not (self.training and self.score_rate > 0.0)
                   and d_k + p <= FOURIER_MAX_D):
                 x = fourier_attention_tiled(q.contiguous(), k.contiguous(),
                                             v.contiguous())
-                p_attn = None
+                p_attn = A.fourier_scores(q, k) if need_weights else None
             else:   # the dense n×n scores, as JAX forms them
                 x, p_attn = A.fourier_attention(q, k, v, score_dropout=self._score_dropout,
                                                 mask=score_mask)
@@ -329,15 +332,20 @@ class SpectralConv1d(nn.Module):
 
     ``fourier_weight`` is stored as real pairs (in, out, modes, 2), the
     reference's layout, with torch ``xavier_normal_(gain=1/(in·out))``
-    statistics on that tensor.  The transform is the DFT-as-products form
-    (norm='ortho'); ``ops.spectral.spectral_conv_1d`` is its FFT cross-check.
+    statistics on that tensor.  ``impl="dft"`` (the default) is the
+    DFT-as-products form (norm='ortho'); ``impl="fft"`` goes through
+    ``ops.spectral.spectral_conv_1d`` with `norm`.  With `return_freq`
+    forward returns (out, the truncated spectrum times the weight,
+    (B, modes, out)), recomputed from the rfft with `norm` as JAX does.
     """
 
     def __init__(self, in_dim: int, out_dim: int, modes: int,
                  dropout: float = 0.1, activation: Optional[str] = "silu",
+                 return_freq: bool = False, norm: str = "ortho", impl: str = "dft",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = _generator(generator)
+        self.modes, self.return_freq, self.norm, self.impl = modes, return_freq, norm, impl
         self.act = get_activation(activation, "silu")
         self.linear = linear(in_dim, out_dim, g)
         self.dropout = nn.Dropout(dropout)
@@ -350,8 +358,15 @@ class SpectralConv1d(nn.Module):
         res = self.linear(x)
         x = self.dropout(x)
         w = torch.complex(self.fourier_weight[..., 0], self.fourier_weight[..., 1])
-        out = S.spectral_conv_1d_dft(x.float(), w)
-        return self.act(out.to(res.dtype) + res)
+        if self.impl == "dft":
+            out = S.spectral_conv_1d_dft(x.float(), w)
+        else:
+            out = S.spectral_conv_1d(x.float(), w, norm=self.norm)
+        out = self.act(out.to(res.dtype) + res)
+        if self.return_freq:
+            x_ft = torch.fft.rfft(x.float(), dim=1, norm=self.norm)
+            return out, S.complex_einsum("bxi,iox->bxo", x_ft[:, : self.modes], w)
+        return out
 
 
 class SpectralConv2d(nn.Module):
@@ -361,17 +376,20 @@ class SpectralConv2d(nn.Module):
     Accepts (B, n², C) or (B, n, n, C).  ``fourier_weight`` holds the two
     corners' weights (positive, then negative frequencies of the first
     axis) as real pairs (in, out, modes, modes, 2), with torch
-    ``xavier_normal_(gain=1/(in·out)·√(in+out))`` statistics.  The
-    transform is the DFT-as-products form; ``ops.spectral.spectral_conv_2d``
-    is its FFT cross-check.
+    ``xavier_normal_(gain=1/(in·out)·√(in+out))`` statistics.
+    ``impl="dft"`` (the default) is the DFT-as-products form; ``impl="fft"``
+    goes through ``ops.spectral.spectral_conv_2d`` with `norm`.
+    `return_freq` is declared and changes nothing, as in JAX (layers.py:440).
     """
 
     def __init__(self, in_dim: int, out_dim: int, modes: int,
-                 dropout: float = 0.1, activation: Optional[str] = "silu",
-                 generator: Optional[torch.Generator] = None):
+                 dropout: float = 0.1, norm: str = "ortho",
+                 activation: Optional[str] = "silu", return_freq: bool = False,
+                 impl: str = "dft", generator: Optional[torch.Generator] = None):
         super().__init__()
         g = _generator(generator)
         self.in_dim, self.out_dim = in_dim, out_dim
+        self.norm, self.impl = norm, impl
         self.act = get_activation(activation, "silu")
         self.linear = linear(in_dim, out_dim, g)
         self.dropout = nn.Dropout(dropout)
@@ -391,7 +409,10 @@ class SpectralConv2d(nn.Module):
         x = self.dropout(x)
         w_pos, w_neg = (torch.complex(w[..., 0], w[..., 1])
                         for w in self.fourier_weight)
-        out = S.spectral_conv_2d_dft(x.float(), w_pos, w_neg)
+        if self.impl == "dft":
+            out = S.spectral_conv_2d_dft(x.float(), w_pos, w_neg)
+        else:
+            out = S.spectral_conv_2d(x.float(), w_pos, w_neg, norm=self.norm)
         out = self.act(out.to(res.dtype) + res)
         return out.reshape(bsz, n * n, self.out_dim) if flat else out
 

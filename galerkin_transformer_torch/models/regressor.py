@@ -18,17 +18,20 @@ class PointwiseRegressor(nn.Module):
     """Optional ``fc`` on [x, grid] → N × (Linear + activation) + dropout →
     ``out`` (regressor.py:13-60).  With `init_gain` every weight is
     xavier-uniform with that gain and every bias zero, as the owning 1D
-    model re-initializes it.  Keys: ``fc``, ``ff.{i}.0``, ``out``.
+    model re-initializes it.  With `return_latent` forward returns
+    (x, None), as JAX's does (regressor.py:58-59).  Keys: ``fc``,
+    ``ff.{i}.0``, ``out``.
     """
 
     def __init__(self, in_dim: int, n_hidden: int, out_dim: int,
                  num_layers: int = 2, spacial_fc: bool = False,
                  spacial_dim: int = 1, dropout: Optional[float] = 0.1,
-                 activation: Optional[str] = "silu",
+                 activation: Optional[str] = "silu", return_latent: bool = False,
                  init_gain: Optional[float] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = _generator(generator)
+        self.return_latent = return_latent
 
         def lin(fan_in, fan_out):
             if init_gain is None:
@@ -52,14 +55,18 @@ class PointwiseRegressor(nn.Module):
             x = self.fc(torch.cat([x, grid.to(x.dtype)], dim=-1))
         for layer in self.ff:
             x = self.dropout(layer(x))
-        return self.out(x)
+        x = self.out(x)
+        return (x, None) if self.return_latent else x
 
 
 class SpectralRegressor(nn.Module):
     """Stack of spectral convolutions + a two-layer head
     (regressor.py:63-125).  `spacial_dim` selects `SpectralConv1d` or
     `SpectralConv2d`; ``last_activation=False`` takes the activation off the
-    last spectral layer.
+    last spectral layer.  With `return_latent` or `return_freq` forward
+    returns (x, dict(preds_freq=None, preds_latent=[each spectral layer's
+    output with `return_latent`, else none])), as JAX's does
+    (regressor.py:112-125).
 
     Keys: ``fc`` (with spacial_fc), ``spectral_conv.{i}``,
     ``regressor.{0,2}``.
@@ -69,11 +76,13 @@ class SpectralRegressor(nn.Module):
                  out_dim: int, modes: int, num_spectral_layers: int = 2,
                  dim_feedforward: Optional[int] = None,
                  spacial_fc: bool = False, spacial_dim: int = 2,
+                 return_freq: bool = False, return_latent: bool = False,
                  activation: Optional[str] = "silu",
                  last_activation: bool = True,
                  dropout: Optional[float] = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.return_freq, self.return_latent = return_freq, return_latent
         if spacial_dim not in (1, 2):
             raise NotImplementedError("3D spectral regressor not implemented")
         conv_cls = SpectralConv2d if spacial_dim == 2 else SpectralConv1d
@@ -97,6 +106,12 @@ class SpectralRegressor(nn.Module):
     def forward(self, x, grid=None):
         if self.fc is not None:
             x = self.fc(torch.cat([x, grid.to(x.dtype)], dim=-1))
+        x_latent = []
         for conv in self.spectral_conv:
             x = conv(x)
-        return self.regressor(x)
+            if self.return_latent:
+                x_latent.append(x)
+        x = self.regressor(x)
+        if self.return_freq or self.return_latent:
+            return x, dict(preds_freq=None, preds_latent=x_latent)
+        return x

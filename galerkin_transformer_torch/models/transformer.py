@@ -19,7 +19,7 @@ from torch import nn
 from ..utils.device import resolve_device
 from ..utils.misc import default
 from .encoder import SimpleTransformerEncoderLayer, VanillaTransformerEncoderLayer
-from .layers import ATTENTION_TYPES, FOURIER_TYPES, BulkRegressor, Identity, linear
+from .layers import ATTENTION_TYPES, BulkRegressor, Identity, linear
 from .regressor import PointwiseRegressor, SpectralRegressor
 from .scaler import DownScaler, UpScaler
 
@@ -224,6 +224,28 @@ class FourierTransformer2D(_ConfigurableModel):
     linear lift.  With ``boundary_condition='dirichlet'`` the boundary ring
     of the prediction is zero (plus `boundary_value`).
 
+    * `attention_type`: any name but ``official`` builds
+      `SimpleTransformerEncoderLayer`s (`SimpleAttention` computes fourier
+      attention for a name it does not know, as JAX's layer does).  The 2D
+      model passes no mask, so ``causal`` fails at its first forward, as
+      JAX's assert does (layers.py:331).
+    * ``official``: the raw coordinates go in front of each head's
+      features, then `num_encoder_layers` `VanillaTransformerEncoderLayer`s
+      of width n_hidden + n_head·pos_dim and ``official_proj`` back to
+      n_hidden (transformer.py:346-372); they run in float32, as flax
+      promotes a bfloat16 input against float32 parameters.
+    * ``return_latent``: ``preds_latent`` holds each encoder layer's output,
+      the (upscaled) field before the decoder and the regressor's second
+      output (the `SpectralRegressor`'s dict, or None for the pointwise
+      one), in JAX's order; ``return_attn_weight``: ``attn_weights`` holds
+      each `SimpleAttention` layer's weights (what `SimpleAttention`
+      returns with ``need_weights``: galerkin's d×d scores from its
+      kernel, fourier's dense n×n weights beside its chain kernel).
+    * ``decoder_type``: ``ifft2`` or ``pointwise``; any other (JAX's
+      ``attention`` too, transformer.py:448-451) raises
+      ``NotImplementedError``, as do graph feature extractors and
+      ``batch_norm``.
+
     Built and placed as `SimpleTransformer` is; `dtype` is the compute type
     of the scalers and the encoder (float32 parameters, float32 decoder).
     """
@@ -262,22 +284,19 @@ class FourierTransformer2D(_ConfigurableModel):
                  *, device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0):
         super().__init__()
+        if decoder_type not in ("ifft2", "pointwise"):
+            raise NotImplementedError(f"decoder type {decoder_type!r} not implemented")
         _raise_unported("FourierTransformer2D", {
             "graph feature extractors (num_feat_layers > 0 with gcn/gat)":
                 num_feat_layers > 0 and feat_extract_type in ("gcn", "gat"),
-            # the 2D model keeps the types it had: galerkin and fourier
-            f"attention_type={attention_type!r}":
-                attention_type not in ("galerkin",) + FOURIER_TYPES,
-            f"decoder_type={decoder_type!r}":
-                decoder_type not in ("ifft2", "pointwise"),
             "batch_norm in the feed-forward": batch_norm,
-            "return_attn_weight": return_attn_weight,
-            "return_latent": return_latent,
         })
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
-        self.n_hidden, self.dtype = n_hidden, dtype
+        self.n_hidden, self.n_head, self.pos_dim = n_hidden, n_head, pos_dim
+        self.dtype = dtype
         self.boundary_condition = boundary_condition
+        self.return_latent, self.return_attn_weight = return_latent, return_attn_weight
 
         if downscaler_size:
             self.downscaler = DownScaler(
@@ -290,19 +309,33 @@ class FourierTransformer2D(_ConfigurableModel):
                                        generator=g)
         self.concat_pos = not downscaler_size
         self.dropout = nn.Dropout(default(dropout, 0.05))
-        self.encoder_layers = nn.ModuleList(
-            SimpleTransformerEncoderLayer(
-                d_model=n_hidden, n_head=n_head, attention_type=attention_type,
-                dim_feedforward=default(dim_feedforward, 2 * n_hidden),
-                layer_norm=layer_norm, attn_norm=attn_norm,
-                norm_type=norm_type, norm_eps=norm_eps,
-                pos_dim=pos_dim, xavier_init=xavier_init,
-                diagonal_weight=diagonal_weight,
-                symmetric_init=symmetric_init, residual_type=residual_type,
-                activation_type=attn_activation, dropout=encoder_dropout,
-                ffn_dropout=ffn_dropout, score_dropout=score_dropout,
-                dtype=dtype, generator=g)
-            for _ in range(num_encoder_layers))
+        dim_feedforward = default(dim_feedforward, 2 * n_hidden)
+        self.official = attention_type == "official"
+        self.official_proj = None
+        if self.official:
+            width = n_hidden + pos_dim * n_head
+            self.encoder_layers = nn.ModuleList(
+                VanillaTransformerEncoderLayer(
+                    d_model=width, nhead=n_head, dim_feedforward=dim_feedforward,
+                    dropout=default(encoder_dropout, 0.1),
+                    norm_eps=default(norm_eps, 1e-5), generator=g)
+                for _ in range(num_encoder_layers))
+            self.official_proj = linear(width, n_hidden, g)
+        else:
+            self.encoder_layers = nn.ModuleList(
+                SimpleTransformerEncoderLayer(
+                    d_model=n_hidden, n_head=n_head, attention_type=attention_type,
+                    dim_feedforward=dim_feedforward,
+                    layer_norm=layer_norm, attn_norm=attn_norm,
+                    norm_type=norm_type, norm_eps=norm_eps,
+                    pos_dim=pos_dim, xavier_init=xavier_init,
+                    diagonal_weight=diagonal_weight,
+                    symmetric_init=symmetric_init, attn_weight=return_attn_weight,
+                    residual_type=residual_type,
+                    activation_type=attn_activation, dropout=encoder_dropout,
+                    ffn_dropout=ffn_dropout, score_dropout=score_dropout,
+                    dtype=dtype, generator=g)
+                for _ in range(num_encoder_layers))
         self.upscaler = (UpScaler(
             in_dim=n_hidden, out_dim=n_hidden, upsample_mode=upsample_mode,
             interp_size=upscaler_size, dropout=default(upscaler_dropout, 0.0),
@@ -313,16 +346,32 @@ class FourierTransformer2D(_ConfigurableModel):
                 in_dim=n_hidden, n_hidden=n_hidden, out_dim=n_targets,
                 num_layers=num_regressor_layers, spacial_fc=spacial_fc,
                 spacial_dim=spacial_dim, activation=regressor_activation,
-                dropout=decoder_dropout, generator=g)
+                dropout=decoder_dropout, return_latent=return_latent, generator=g)
         else:
             self.regressor = SpectralRegressor(
                 in_dim=n_hidden, n_hidden=freq_dim, freq_dim=freq_dim,
                 out_dim=n_targets, num_spectral_layers=num_regressor_layers,
                 modes=fourier_modes, spacial_dim=spacial_dim,
-                spacial_fc=spacial_fc, activation=regressor_activation,
+                spacial_fc=spacial_fc, return_latent=return_latent,
+                activation=regressor_activation,
                 last_activation=last_activation, dropout=decoder_dropout,
                 generator=g)
         self.to(device)
+
+    def _official(self, x, pos):
+        """Per-head raw coordinates in front of each head's features, the
+        vanilla stack, ``official_proj`` (transformer.py:346-372); returns
+        (x, each layer's output)."""
+        bsz, n, _ = x.shape
+        h, d_k = self.n_head, self.n_hidden // self.n_head
+        xh = x.reshape(bsz, n, h, d_k).transpose(1, 2)
+        ph = pos[:, None].expand(bsz, h, n, self.pos_dim).to(x.dtype)
+        x = torch.cat([ph, xh], dim=-1).transpose(1, 2).reshape(bsz, n, -1).float()
+        latents = []
+        for layer in self.encoder_layers:
+            x = layer(x)
+            latents.append(x)
+        return self.official_proj(x), latents
 
     def forward(self, node, edge=None, pos=None, grid=None, weight=None,
                 boundary_value=None, normalizer: Optional[Tuple] = None):
@@ -333,21 +382,40 @@ class FourierTransformer2D(_ConfigurableModel):
                              dim=-1)
         x = self.downscaler(node).reshape(bsz, -1, self.n_hidden)
         x = self.dropout(x)
-        for layer in self.encoder_layers:
-            x = layer(x, pos, weight)
+        x_latent, attn_weights = [], []
+        if self.official:
+            x, latents = self._official(x, pos)
+            if self.return_latent:
+                x_latent += latents
+        else:
+            for layer in self.encoder_layers:
+                if self.return_attn_weight:
+                    x, attn_w = layer(x, pos, weight)
+                    attn_weights.append(attn_w)
+                else:
+                    x = layer(x, pos, weight)
+                if self.return_latent:
+                    x_latent.append(x)
         x = x.reshape(bsz, n_s, n_s, self.n_hidden)
         if self.upscaler is not None:
             x = self.upscaler(x)
+        if self.return_latent:
+            x_latent.append(x)
         x = self.dropout(x)
         if self.dtype is not None:
             x = x.float()   # the decoder stays float32
-        x = inverse_transform(self.regressor(x, grid=grid), normalizer)
+        x = self.regressor(x, grid=grid)
+        if self.return_latent:
+            x, regressor_latent = x
+            x_latent.append(regressor_latent)
+        x = inverse_transform(x, normalizer)
         if self.boundary_condition == "dirichlet":
             # zero the boundary ring, keep the interior
             x = F.pad(x[:, 1:-1, 1:-1], (0, 0, 1, 1, 1, 1))
             if boundary_value is not None:
                 x = x + boundary_value
-        return dict(preds=x, preds_freq=None, preds_latent=[], attn_weights=[])
+        return dict(preds=x, preds_freq=None, preds_latent=x_latent,
+                    attn_weights=attn_weights)
 
 
 class FourierTransformer2DLite(_ConfigurableModel):
@@ -359,18 +427,29 @@ class FourierTransformer2DLite(_ConfigurableModel):
     (B, n, n, n_targets).
 
     Built and placed as `SimpleTransformer` is; `dtype` is the encoder's
-    compute type (float32 parameters, float32 lift and decoder).  Options
-    of the JAX model that this port does not carry raise
+    compute type (float32 parameters, float32 lift and decoder).  As in
+    JAX (transformer.py:474-566), ``num_feat_layers``,
+    ``feat_extract_type``, ``symmetric_init``, ``batch_norm``,
+    ``residual_type``, ``attn_activation`` and ``decoder_type`` are
+    declared and ignored, and ``return_attn_weight`` and ``return_latent``
+    change nothing: ``preds_latent`` and ``attn_weights`` are None.
+    ``seq_mesh`` (sequence-parallel attention) raises
     ``NotImplementedError``.
     """
 
     def __init__(self, node_feats: int = 12, pos_dim: int = 2, n_targets: int = 1,
-                 n_hidden: int = 48, num_encoder_layers: int = 4, n_head: int = 1,
+                 n_hidden: int = 48, num_feat_layers: int = 0,
+                 num_encoder_layers: int = 4, n_head: int = 1,
                  dim_feedforward: Optional[int] = 96, attention_type: str = "galerkin",
+                 feat_extract_type: Optional[str] = None,
                  xavier_init: float = 1e-2, diagonal_weight: float = 1e-2,
+                 symmetric_init: bool = False,
                  layer_norm: bool = True, attn_norm: Optional[bool] = False,
                  norm_type: Optional[str] = "layer", norm_eps: Optional[float] = None,
+                 batch_norm: bool = False,
                  return_attn_weight: bool = False, return_latent: bool = False,
+                 residual_type: Optional[str] = "add",
+                 attn_activation: Optional[str] = None, decoder_type: str = "ifft",
                  freq_dim: int = 20, num_regressor_layers: int = 2,
                  fourier_modes: int = 12, spacial_dim: int = 2, spacial_fc: bool = False,
                  regressor_activation: Optional[str] = None,
@@ -383,8 +462,6 @@ class FourierTransformer2DLite(_ConfigurableModel):
         super().__init__()
         _raise_unported("FourierTransformer2DLite", {
             "seq_mesh (sequence-parallel attention)": seq_mesh is not None,
-            "return_attn_weight": return_attn_weight,
-            "return_latent": return_latent,
         })
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)

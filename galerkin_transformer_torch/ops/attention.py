@@ -57,17 +57,21 @@ def galerkin_attention_pos_blocked(query, key, value, pos,
     return out, p_attn
 
 
-def fourier_attention(query, key, value, score_dropout=None, mask=None):
-    """``out = (Q Kᵀ / (√d · n)) V`` with d the final feature dim, the pos
-    columns included (reference layers.py:672-705); scores are zero where
-    `mask` (broadcast against them) is 0; `score_dropout` acts on the
-    scaled scores before the product with V.  Returns (out, p_attn)."""
-    d_k = query.shape[-1]
-    n = key.shape[-2]
-    scores = _mm(query, key.transpose(-2, -1)) / math.sqrt(d_k)
+def fourier_scores(query, key, mask=None):
+    """The fourier weights ``Q Kᵀ / (√d · n)``, d the final feature dim (the
+    pos columns included), zero where `mask` (broadcast against them) is 0
+    (reference layers.py:672-705)."""
+    scores = _mm(query, key.transpose(-2, -1)) / math.sqrt(query.shape[-1])
     if mask is not None:
         scores = scores.masked_fill(mask == 0, 0.0)
-    p_attn = scores / n
+    return scores / key.shape[-2]
+
+
+def fourier_attention(query, key, value, score_dropout=None, mask=None):
+    """``out = (Q Kᵀ / (√d · n)) V`` (`fourier_scores`); `score_dropout`
+    acts on the scaled scores before the product with V.  Returns (out,
+    p_attn)."""
+    p_attn = fourier_scores(query, key, mask)
     if score_dropout is not None:
         p_attn = score_dropout(p_attn)
     return _mm(p_attn, value), p_attn

@@ -33,14 +33,16 @@ eagerly.
 from __future__ import annotations
 
 import inspect
+import zipfile
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .ops.cuda._graph import Replayed
-from .train.checkpoint import load_checkpoint
+from .train.checkpoint import load_jax_checkpoint, read_jax_payload
 from .utils.device import resolve_device
+from .utils.torch_compat import check_state_dict, load_torch_file, state_dict_of
 
 KEYS = ("node", "pos", "grid")
 
@@ -91,14 +93,20 @@ class Predictor:
     def from_checkpoint(cls, model: torch.nn.Module, checkpoint_path: str,
                         normalizer: Optional[Tuple] = None,
                         device: Optional[Union[str, torch.device]] = None):
-        """Load the weights of a training checkpoint
-        (``train.checkpoint.save_checkpoint``) into `model`, and the target
-        normalizer saved with them unless one is passed."""
-        ckpt = load_checkpoint(checkpoint_path)
-        model.load_state_dict(ckpt["params"])
-        if normalizer is None:
-            normalizer = ckpt.get("normalizer")
-        return cls(model, normalizer=normalizer, device=device)
+        """Load the weights of a checkpoint into `model` and serve it.  The
+        file is one of three kinds, told apart by what it holds, never by
+        its name (`read_checkpoint`): the port's own
+        (``train.checkpoint.save_checkpoint``; its target normalizer is
+        used unless one is passed), the JAX package's (a pickle of flax
+        msgpack bytes) or the original torch implementation's (a
+        ``torch.save`` dict with ``'model'``, or a bare state_dict).  The
+        weights must fit `model` key for key and shape for shape; a file of
+        none of these kinds raises ``ValueError``."""
+        kind, state_dict, saved = read_checkpoint(checkpoint_path)
+        check_state_dict(model, state_dict)
+        model.load_state_dict(state_dict, strict=True)
+        return cls(model, normalizer=saved if normalizer is None else normalizer,
+                   device=device)
 
     def _forward(self, node, pos, grid) -> torch.Tensor:
         kwargs = {"normalizer": self._normalizer} if self._takes_normalizer else {}
@@ -136,6 +144,25 @@ class Predictor:
         captured, and the next request of the key is a replay."""
         self(batch)
         return self
+
+
+def read_checkpoint(path: str) -> Tuple[str, Dict[str, torch.Tensor], Optional[Tuple]]:
+    """(kind, the port's state_dict, the saved target normalizer or None) of
+    a checkpoint file: kind ``"port"``, ``"jax"`` or ``"reference"``, told
+    by content: a pickled dict whose ``"params"`` are bytes is JAX's; a
+    ``torch.save`` file whose ``"params"`` are a state_dict is the port's,
+    one with a ``'model'`` state_dict (or a bare state_dict) the
+    reference's.  Anything else raises ``ValueError``."""
+    if not zipfile.is_zipfile(path) and read_jax_payload(path) is not None:
+        return "jax", load_jax_checkpoint(path)["params"], None
+    try:
+        obj = load_torch_file(path)
+    except Exception as e:
+        raise ValueError(f"{path} is not a checkpoint of the port, of the JAX package or "
+                         f"of the original torch implementation: {e}") from e
+    if isinstance(obj, dict) and isinstance(obj.get("params"), dict):
+        return "port", obj["params"], obj.get("normalizer")
+    return "reference", state_dict_of(obj), None
 
 
 def _inputs(batch: dict) -> list:

@@ -16,15 +16,23 @@ back with ``torch.load(weights_only=True)`` (no pickled code):
 step into a directory from a background thread (the counterpart of the
 JAX package's orbax manager).  `save_pickle` and `load_pickle` write and
 read the trainer's per-epoch result dict, as the JAX package's do.
+
+`load_jax_checkpoint` reads the JAX package's checkpoint file, a pickled
+dict of flax msgpack bytes (checkpoint.py:19-39), with `msgpack_restore`,
+a pure-Python reader of the part of msgpack that flax writes;
+`save_jax_checkpoint` writes a port model's weights in that format.
 """
 from __future__ import annotations
 
+import io
 import os
 import pickle
 import re
+import struct
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -161,3 +169,196 @@ def load_pickle(path: str) -> Any:
     unpickling runs code)."""
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+# ------------------------------------------------------------ JAX checkpoints
+
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3   # flax's ext type codes
+
+
+class _Reader:
+    """A msgpack decoder of nil, bool, ints, floats, str, bin, arrays, maps
+    and ext; ext payloads are handed to `ext(code, data)`."""
+
+    def __init__(self, data: bytes, ext):
+        self.data, self.pos, self.ext = memoryview(data), 0, ext
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise ValueError("msgpack data ends early")
+        out = self.data[self.pos:self.pos + n].tobytes()
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(">" + fmt, self.take(struct.calcsize(">" + fmt)))[0]
+
+    def read(self):
+        b = self.take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return [self.read() for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return self.take(b & 0x1F).decode("utf-8")
+        fixed = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in fixed:
+            return fixed[b]
+        sized = {0xC4: "B", 0xC5: "H", 0xC6: "I"}          # bin 8/16/32
+        if b in sized:
+            return self.take(self.unpack(sized[b]))
+        sized = {0xD9: "B", 0xDA: "H", 0xDB: "I"}          # str 8/16/32
+        if b in sized:
+            return self.take(self.unpack(sized[b])).decode("utf-8")
+        numbers = {0xCA: "f", 0xCB: "d", 0xCC: "B", 0xCD: "H", 0xCE: "I", 0xCF: "Q",
+                   0xD0: "b", 0xD1: "h", 0xD2: "i", 0xD3: "q"}
+        if b in numbers:
+            return self.unpack(numbers[b])
+        if b in (0xDC, 0xDD):
+            return [self.read() for _ in range(self.unpack("H" if b == 0xDC else "I"))]
+        if b in (0xDE, 0xDF):
+            return self._map(self.unpack("H" if b == 0xDE else "I"))
+        if 0xD4 <= b <= 0xD8:                              # fixext 1/2/4/8/16
+            code = self.unpack("b")
+            return self.ext(code, self.take(1 << (b - 0xD4)))
+        sized = {0xC7: "B", 0xC8: "H", 0xC9: "I"}          # ext 8/16/32
+        if b in sized:
+            n = self.unpack(sized[b])
+            code = self.unpack("b")
+            return self.ext(code, self.take(n))
+        raise ValueError(f"msgpack type byte 0x{b:02x} is not read here")
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.read()
+            out[key] = self.read()
+        return out
+
+
+def _unpackb(data: bytes):
+    reader = _Reader(data, _ext)
+    out = reader.read()
+    if reader.pos != len(reader.data):
+        raise ValueError("trailing bytes after the msgpack object")
+    return out
+
+
+def _ndarray(data: bytes) -> np.ndarray:
+    """flax's ndarray encoding: msgpack (shape, dtype name, C-order bytes).
+    bfloat16, which numpy lacks, comes back as float32 (exact)."""
+    shape, name, buf = _unpackb(data)
+    name = name.decode() if isinstance(name, bytes) else name
+    if name == "bfloat16":
+        bits = np.frombuffer(buf, dtype="<u2").astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape).copy()
+
+
+def _ext(code: int, data: bytes):
+    if code == _EXT_NDARRAY:
+        return _ndarray(data)
+    if code == _EXT_COMPLEX:
+        real, imag = _unpackb(data)
+        return complex(real, imag)
+    if code == _EXT_NPSCALAR:
+        return _ndarray(data)[()]
+    raise ValueError(f"msgpack ext type {code} is not one that flax writes")
+
+
+def msgpack_restore(data: bytes):
+    """What ``flax.serialization.msgpack_restore`` returns for `data`, in pure
+    Python: nested dicts (flax writes tuples and lists as dicts keyed
+    ``'0'``, ``'1'``, ...) of numpy arrays, numpy scalars and Python
+    numbers, strings, bytes, None and bools.  (flax splits an array above
+    2**30 bytes into chunks; no model here has one, and such a file reads
+    back as the chunks' dict.)"""
+    return _unpackb(data)
+
+
+class _BytesOnly(pickle.Unpickler):
+    """Unpickles dicts, strings, bytes and numbers; any global (code the
+    pickle would run) raises."""
+
+    def find_class(self, module, name):
+        raise pickle.UnpicklingError(f"{module}.{name} is not read from a checkpoint")
+
+
+def read_jax_payload(path: str) -> Optional[dict]:
+    """The pickled payload of a JAX checkpoint (``"params"`` and optionally
+    ``"opt_state"`` and ``"train_params"``, each flax msgpack bytes), or
+    None when `path` holds something else."""
+    with open(path, "rb") as f:
+        try:
+            payload = _BytesOnly(io.BytesIO(f.read())).load()
+        except Exception:   # not a pickle of plain data: not a JAX checkpoint
+            return None
+    if isinstance(payload, dict) and isinstance(payload.get("params"), bytes):
+        return payload
+    return None
+
+
+def load_jax_checkpoint(path: str) -> dict:
+    """A JAX checkpoint as the port uses it: ``"params"`` the port's
+    state_dict of its params (``utils.weights.params_from_jax``),
+    ``"jax_params"`` the params tree itself (nested dicts of numpy arrays),
+    and, when saved, ``"opt_state"`` (the optax state tree as flax writes it)
+    and ``"train_params"`` (the raw training weights, a state_dict).  No
+    msgpack or flax is needed."""
+    from ..utils.weights import params_from_jax
+    payload = read_jax_payload(path)
+    if payload is None:
+        raise ValueError(f"{path} is not a JAX checkpoint (a pickled dict of msgpack bytes)")
+    tree = msgpack_restore(payload["params"])
+    out = {"params": params_from_jax(tree), "jax_params": tree}
+    if "opt_state" in payload:
+        out["opt_state"] = msgpack_restore(payload["opt_state"])
+    if payload.get("train_params") is not None:
+        out["train_params"] = params_from_jax(msgpack_restore(payload["train_params"]))
+    return out
+
+
+def msgpack_serialize(obj) -> bytes:
+    """flax msgpack bytes of a parameter tree (nested dicts with string keys
+    of numpy arrays, each written as flax's ext 1: its shape, dtype name and
+    C-order bytes), which ``flax.serialization.msgpack_restore`` and
+    `msgpack_restore` read back."""
+    if isinstance(obj, dict):
+        return b"\xdf" + struct.pack(">I", len(obj)) + b"".join(
+            msgpack_serialize(str(k)) + msgpack_serialize(v) for k, v in obj.items())
+    if isinstance(obj, np.ndarray):
+        data = msgpack_serialize([list(obj.shape), obj.dtype.name,
+                                  np.ascontiguousarray(obj).tobytes()])
+        return b"\xc9" + struct.pack(">Ib", len(data), _EXT_NDARRAY) + data
+    if isinstance(obj, list):
+        return b"\xdd" + struct.pack(">I", len(obj)) + b"".join(map(msgpack_serialize, obj))
+    if isinstance(obj, int):   # an array's dimension
+        return b"\xcf" + struct.pack(">Q", obj)
+    if isinstance(obj, str):
+        data = obj.encode("utf-8")
+        return b"\xdb" + struct.pack(">I", len(data)) + data
+    if isinstance(obj, bytes):
+        return b"\xc6" + struct.pack(">I", len(obj)) + obj
+    raise TypeError(f"{type(obj).__name__} is not written to a JAX checkpoint")
+
+
+def save_jax_checkpoint(path: str, params: Dict[str, torch.Tensor], n_head=None,
+                        train_params: Optional[Dict[str, torch.Tensor]] = None):
+    """Write a state_dict of the port's model as a checkpoint of the JAX
+    package (a pickled dict of flax msgpack bytes of its parameter tree,
+    ``utils.weights.params_to_jax``), which JAX's ``load_checkpoint`` and
+    `load_jax_checkpoint` read.  `n_head` splits the vanilla blocks'
+    attention kernels.  No optimizer state is written."""
+    from ..utils.weights import params_to_jax
+    payload = {"params": msgpack_serialize(params_to_jax(params, n_head))}
+    if train_params is not None:
+        payload["train_params"] = msgpack_serialize(params_to_jax(train_params, n_head))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f)
+    os.replace(tmp, path)

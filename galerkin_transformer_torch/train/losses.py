@@ -51,7 +51,9 @@ class WeightedL2Loss:
     diagonal of M's squared norms, held constant (``detach``); reduced like
     the loss.  With ``noise > 0`` and a `noise_generator` the targets are
     scaled by 1 + noise·U(0, 1) drawn from it; without one they are left as
-    they are.
+    they are.  `K` scales the target derivative in the alpha term,
+    preds' − K·targets' (1 when None; losses.py:88-92); `periodic` is
+    declared and read by nothing, as in JAX (:57).
     """
     dilation: int = 2
     regularizer: bool = False
@@ -61,6 +63,7 @@ class WeightedL2Loss:
     alpha: float = 0.0
     delta: float = 1e-4
     metric_reduction: str = "L1"
+    periodic: bool = False
     return_norm: bool = True
     orthogonal_reg: bool = False
     orthogonal_mode: str = "global"
@@ -76,7 +79,7 @@ class WeightedL2Loss:
         return (x[:, d:] - x[:, :-d]) / d / h
 
     def __call__(self, preds, targets, preds_prime=None, targets_prime=None,
-                 preds_latent: Sequence = (),
+                 preds_latent: Sequence = (), K=None,
                  noise_generator: Optional[torch.Generator] = None) -> LossResult1d:
         h = self.h
         gamma = self.gamma * h
@@ -97,7 +100,8 @@ class WeightedL2Loss:
 
         loss = self.beta * (h * ((preds - targets) ** 2).sum(dim=1)) / target_norm
         if preds_prime is not None and alpha > 0:
-            grad_diff = h * (preds_prime - targets_prime) ** 2
+            k = 1.0 if K is None else K
+            grad_diff = h * (preds_prime - k * targets_prime) ** 2
             loss = loss + alpha * grad_diff.sum(dim=1) / targets_prime_norm
 
         metric = _metric(loss, self.metric_reduction)
@@ -139,7 +143,8 @@ class WeightedL2Loss2d:
     K: the coefficient field (B, n, n, 1) or None.  With ``noise > 0`` and
     a `noise_generator` the targets are scaled by 1 + noise·U(0, 1) drawn
     from that generator (on the targets' device); without one they are
-    left as they are.
+    left as they are.  `delta` is declared and read by nothing, as in JAX
+    (losses.py:142).
     """
     dim: int = 2
     dilation: int = 2
@@ -148,6 +153,7 @@ class WeightedL2Loss2d:
     beta: float = 1.0
     gamma: float = 1e-1
     alpha: float = 0.0
+    delta: float = 0.0
     metric_reduction: str = "L1"
     return_norm: bool = True
     noise: float = 0.0

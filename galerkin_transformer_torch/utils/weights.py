@@ -12,7 +12,9 @@ kernel a ``ConvTranspose2d.weight`` (in, out, kh, kw).  A vmapped Dense
 stack (T, in, out) of the `BulkRegressor` becomes a `BatchedLinear` weight
 (T, out, in); the `DenseGeneral` kernels of flax's multi-head attention,
 (in, H, d_h) for query, key and value and (H, d_h, out) for out, become
-Linear weights (H·d_h, in) and (out, H·d_h).  The JAX package's
+Linear weights (H·d_h, in) and (out, H·d_h); the 2D ``official`` branch's
+vanilla blocks map as the 1D ones do, and ``official_proj`` keeps its
+name.  The JAX package's
 ``utils/torch_compat.py::convert_state_dict`` is the inverse map for the
 module families it knows.
 """
@@ -50,6 +52,7 @@ _MODULE_RULES = [   # (JAX module path, port module name); \d groups carried
     (r"encoder_layer(\d+)/layer_norm([12])", "encoder_layers.{0}.layer_norm{1}"),
     (r"encoder_layer(\d+)/(linear[12]|norm[12])", "encoder_layers.{0}.{1}"),
     (r"(freq_fc[12])", "{0}"),
+    (r"official_proj", "official_proj"),
     (r"freq_regressor/linear", "freq_regressor.linear"),
     (r"regressor/fc", "regressor.fc"),
     (r"regressor/spectral_conv(\d+)/linear", "regressor.spectral_conv.{0}.linear"),
@@ -124,3 +127,97 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"no port parameter for JAX parameter {key!r}")
     return sd
+
+
+_GROUP = re.compile(r"\(([^()]*)\)")
+
+
+def _reversed(rules):
+    """(port regex, JAX path template) for each (JAX regex, port template):
+    the k-th group of the JAX pattern is the port name's ``{k}``."""
+    out = []
+    for pattern, name in rules:
+        groups = _GROUP.findall(pattern)
+        regex = re.escape(name)
+        for k, group in enumerate(groups):
+            regex = regex.replace(re.escape("{%d}" % k), f"({group})")
+        counter = iter(range(len(groups)))
+        out.append((regex, _GROUP.sub(lambda m: "{%d}" % next(counter), pattern)))
+    return out
+
+
+_MODULE_RULES_BACK = _reversed(_MODULE_RULES)
+_CONV_RULES_BACK = _reversed(_CONV_RULES)
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor], n_head=None) -> dict:
+    """The inverse of `params_from_jax`: a state_dict of the port's models
+    -> the JAX parameter tree (nested dicts of float32 numpy arrays).  A
+    1-D ``weight`` is a LayerNorm ``scale``; `n_head` splits the flax
+    multi-head attention kernels of the vanilla blocks (H, d_h) and is
+    needed only where they are.  Raises KeyError on a key that has no JAX
+    parameter."""
+    tree: dict = {}
+
+    def put(path: str, value):
+        node = tree
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(value, dtype=np.float32)
+
+    heads: Dict[tuple, dict] = {}
+    for key, tensor in state_dict.items():
+        val = tensor.detach().float().cpu().numpy()
+        m = re.fullmatch(r"encoder_layers\.(\d+)\.attn\.norm_([KQV])\.(\d+)\.(weight|bias)", key)
+        if m:
+            heads.setdefault((m.group(1), m.group(2), m.group(4)), {})[int(m.group(3))] = val
+            continue
+        m = re.fullmatch(r"regressor\.spectral_conv\.(\d+)\.fourier_weight(\.[01])?", key)
+        if m:
+            corner = {None: "", ".0": "_pos", ".1": "_neg"}[m.group(2)]
+            put(f"regressor/spectral_conv{m.group(1)}/fourier_weight{corner}", val)
+            continue
+        module, leaf = key.rsplit(".", 1)
+        m = re.fullmatch(r"freq_regressor\.(freq_fc[12])", module)
+        if m:
+            put(f"freq_regressor/{m.group(1)}/{'kernel' if leaf == 'weight' else 'bias'}",
+                val.transpose(0, 2, 1) if leaf == "weight" else val)
+            continue
+        m = re.fullmatch(r"encoder_layers\.(\d+)\.self_attn\.(query|key|value|out)", module)
+        if m:
+            if n_head is None:
+                raise ValueError(f"{key}: n_head is needed to split the multi-head kernels")
+            path = f"encoder_layer{m.group(1)}/self_attn/{m.group(2)}"
+            if m.group(2) == "out":
+                put(f"{path}/{'kernel' if leaf == 'weight' else 'bias'}",
+                    val.T.reshape(n_head, -1, val.shape[0]) if leaf == "weight" else val)
+            else:
+                put(f"{path}/{'kernel' if leaf == 'weight' else 'bias'}",
+                    val.T.reshape(val.shape[1], n_head, -1) if leaf == "weight"
+                    else val.reshape(n_head, -1))
+            continue
+        conv = next((path.format(*m.groups()) for regex, path in _CONV_RULES_BACK
+                     for m in [re.fullmatch(regex, module)] if m), None)
+        if conv is not None and leaf == "weight":   # (out, in, kh, kw) -> (kh, kw, in, out)
+            put(f"{conv}/kernel", val.transpose(2, 3, 1, 0))
+            continue
+        for regex, path in _MODULE_RULES_BACK:
+            m = re.fullmatch(regex, module)
+            if m and leaf in ("weight", "bias"):
+                if leaf == "bias":
+                    name, arr = "bias", val
+                elif val.ndim == 1:
+                    name, arr = "scale", val
+                elif val.ndim == 4:   # transposed conv: (in, out, kh, kw) -> (kh, kw, in, out)
+                    name, arr = "kernel", val.transpose(2, 3, 0, 1)
+                else:
+                    name, arr = "kernel", val.T
+                put(f"{path.format(*m.groups())}/{name}", arr)
+                break
+        else:
+            raise KeyError(f"no JAX parameter for port parameter {key!r}")
+    for (layer, which, leaf), rows in heads.items():
+        put(f"encoder_layer{layer}/attn/norm_{which}_{'scale' if leaf == 'weight' else 'bias'}",
+            np.stack([rows[h] for h in range(len(rows))]))
+    return tree

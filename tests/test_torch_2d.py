@@ -595,9 +595,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    dict(attention_type="official"), dict(attention_type="softmax"),
-    dict(decoder_type="attention"), dict(return_latent=True),
-    dict(return_attn_weight=True), dict(feat_extract_type="gcn", num_feat_layers=2),
+    dict(decoder_type="attention"), dict(feat_extract_type="gcn", num_feat_layers=2),
     dict(batch_norm=True),
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(override):

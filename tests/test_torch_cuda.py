@@ -1244,3 +1244,125 @@ def test_async_checkpoint_taken_during_replays_holds_the_weights_of_its_call(
         assert torch.equal(value, want[key].cpu()), key
     assert any(not torch.equal(v, moved[k]) for k, v in saved["params"].items())
     assert saved["optimizer"]["param_groups"][0]["count"] == 4
+
+
+# ------------------------------------------------ 2D types and checkpoints
+
+TYPES_2D = [("linear", None), ("global", None), ("softmax", None), ("cosine", None),
+            ("official", None), ("linear", torch.bfloat16), ("softmax", torch.bfloat16),
+            ("cosine", torch.bfloat16)]
+
+
+def _ex2_pair(attention_type, dtype=None, ref_dtype=None, **extra):
+    """A small ex2 model of `attention_type` on the card and the same weights
+    on the CPU (`ref_dtype` its compute type), each behind a Predictor, and
+    a batch."""
+    from galerkin_transformer_torch import FourierTransformer2D, Predictor, load_config
+    from galerkin_transformer_torch.data import darcy_grids, get_scaler_sizes
+    n_f, n_c, bsz = 29, 15, 2
+    cfg = load_config("ex2_darcy")
+    cfg.update(n_hidden=32, num_encoder_layers=2, n_head=2, dim_feedforward=64,
+               freq_dim=8, fourier_modes=4, attention_type=attention_type, **extra)
+    cfg["downscaler_size"], cfg["upscaler_size"] = get_scaler_sizes(n_f, n_c)
+    rng = np.random.default_rng(4)
+    pos, grid = darcy_grids(n_f, n_c)
+    batch = dict(node=rng.standard_normal((bsz, n_f, n_f, 1)).astype(np.float32),
+                 pos=pos[None].repeat(bsz, 0), grid=grid[None].repeat(bsz, 0))
+    gpu = Predictor(FourierTransformer2D.from_config(cfg, seed=3, dtype=dtype))
+    cpu = Predictor(FourierTransformer2D.from_config(cfg, device="cpu", seed=3,
+                                                     dtype=ref_dtype), device="cpu")
+    return gpu, cpu, batch
+
+
+@pytest.mark.parametrize("attention_type,dtype", TYPES_2D,
+                         ids=[f"{a}-{'bf16' if d else 'f32'}" for a, d in TYPES_2D])
+def test_2d_type_on_cuda_matches_cpu_without_a_kernel(dev, attention_type, dtype):
+    """The plain types launch no kernel of the port; bfloat16 cosine is held
+    to the CPU's float32 model, as in chip_smoke.py (TOL_SERVE_COSINE_BF16)."""
+    cosine_bf16 = dtype is not None and attention_type == "cosine"
+    gpu, cpu, batch = _ex2_pair(attention_type, dtype, None if cosine_bf16 else dtype)
+    got, want = gpu(batch), cpu(batch)
+    assert dict(wrapper_launches(gpu.captured(batch).kernels())) == {}
+    tol = 1e-3 if dtype is None else (0.14 if cosine_bf16 else 2.0 ** -6)
+    assert got.shape == want.shape and not got[:, 0].any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+    np.testing.assert_array_equal(gpu(batch), got)   # a replay
+
+
+@pytest.mark.parametrize("attention_type,kernel", [("galerkin", "galerkin_scores"),
+                                                   ("fourier", "fourier_chain")])
+def test_2d_returned_weights_keep_the_kernels(dev, attention_type, kernel):
+    """With return_attn_weight and return_latent the request launches the
+    plain request's kernels and gives its preds; the weights and latents
+    agree with the CPU's."""
+    from galerkin_transformer_torch import FourierTransformer2D
+    plain, _, batch = _ex2_pair(attention_type)
+    gpu, cpu, _ = _ex2_pair(attention_type, return_attn_weight=True, return_latent=True)
+    got = gpu(batch)
+    assert dict(wrapper_launches(gpu.captured(batch).kernels())) == {kernel: 2}
+    assert dict(wrapper_launches(plain.warmup(batch).captured(batch).kernels())) == {kernel: 2}
+    np.testing.assert_allclose(got, plain(batch), rtol=0, atol=1e-5 * np.abs(got).max())
+    args = [torch.as_tensor(batch[k]) if k else None for k in ("node", None, "pos", "grid")]
+    with torch.inference_mode():
+        out = gpu.model(*[a if a is None else a.cuda() for a in args])
+        ref = cpu.model(*args)
+    assert isinstance(gpu.model, FourierTransformer2D)
+    assert len(out["attn_weights"]) == len(ref["attn_weights"]) == 2
+    assert len(out["preds_latent"]) == len(ref["preds_latent"]) == 4
+    for g, w in zip(out["attn_weights"] + out["preds_latent"][:3],
+                    ref["attn_weights"] + ref["preds_latent"][:3]):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-3 * w.abs().max().item())
+
+
+def test_2d_causal_raises_on_cuda(dev):
+    gpu, cpu, batch = _ex2_pair("causal")
+    for pred in (gpu, cpu):
+        with pytest.raises(ValueError, match="mask"):
+            pred(batch)
+
+
+def _anchor_path():
+    import os
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "eval",
+                        "torch_anchor_500ep.ckpt")
+
+
+def test_reference_checkpoint_serves_on_cuda_like_cpu(dev):
+    from galerkin_transformer_torch import Predictor, SimpleTransformer, load_config
+    cfg = {**load_config("ex1_burgers"), "attention_type": "galerkin"}
+    gpu = Predictor.from_checkpoint(SimpleTransformer.from_config(cfg), _anchor_path())
+    cpu = Predictor.from_checkpoint(SimpleTransformer.from_config(cfg, device="cpu"),
+                                    _anchor_path(), device="cpu")
+    n = 2048
+    x = np.linspace(0, 1, n, dtype=np.float32)
+    node = np.sin(2 * np.pi * (x[None] + np.array([[0.1], [0.6]]))).astype(np.float32)
+    pos = x[None, :, None].repeat(2, 0)
+    batch = dict(node=node[..., None], pos=pos, grid=pos)
+    got, want = gpu(batch), cpu(batch)
+    assert dict(wrapper_launches(gpu.captured(batch).kernels())) == {"galerkin_scores": 4}
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.abs(want).max())
+
+
+def test_checkpoint_kinds_serve_the_same_on_cuda(dev, tmp_path):
+    """One model's weights written as the port's, the JAX package's and the
+    original torch implementation's checkpoint, each read back by content
+    and served on the card bit for bit alike."""
+    from galerkin_transformer_torch import Predictor, SimpleTransformer, load_config
+    from galerkin_transformer_torch.serve import read_checkpoint
+    from galerkin_transformer_torch.train import save_checkpoint, save_jax_checkpoint
+    cfg = load_config("ex1_burgers")
+    cfg.update(n_hidden=32, num_encoder_layers=2, dim_feedforward=64, freq_dim=16,
+               fourier_modes=8, attention_type="galerkin")
+    params = SimpleTransformer.from_config(cfg, device="cpu", seed=11).state_dict()
+    paths = {"port": str(tmp_path / "a.jax"), "jax": str(tmp_path / "b.pt"),
+             "reference": str(tmp_path / "c.ckpt")}
+    save_checkpoint(paths["port"], params)
+    save_jax_checkpoint(paths["jax"], params)
+    torch.save({"model": params}, paths["reference"])
+    batch = _ex1_served(dev, "galerkin")[2](5)
+    outs = []
+    for kind, path in paths.items():
+        assert read_checkpoint(path)[0] == kind
+        pred = Predictor.from_checkpoint(SimpleTransformer.from_config(cfg, seed=2), path)
+        outs.append(pred.warmup(batch)(batch))
+    assert all(np.array_equal(o, outs[0]) for o in outs[1:]) and np.isfinite(outs[0]).all()

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither jax nor the JAX package.
+"""The port stands alone: it imports neither jax (flax, optax) nor the JAX
+package, nor msgpack (its reader of JAX checkpoints is pure Python).
 
 The import check runs in a subprocess, because tests/conftest.py imports
 jax into the test process itself.
@@ -29,14 +30,16 @@ def test_port_modules_and_chip_smoke_import_no_jax():
                  "examples.ex2_darcy", "examples.ex3_darcy_inv", "data.ns",
                  "data.synthetic_torch", "examples.ex4_navier_stokes", "utils.args",
                  "utils.naming", "train.checkpoint", "train.schedule", "train.trainer",
-                 "train.device_loop"):
+                 "train.device_loop", "utils.torch_compat",
+                 "examples.ex1_burgers_super_res"):
         assert f"galerkin_transformer_torch.{name}" in modules
     code = "\n".join(
         [f"import {m}" for m in modules]
         + ["import chip_smoke",
            "import sys",
            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-           " or m in ('flax', 'optax') or m.startswith('galerkin_transformer_tpu')]",
+           " or m in ('flax', 'optax', 'msgpack') or m.startswith('flax.')"
+           " or m.startswith('msgpack.') or m.startswith('galerkin_transformer_tpu')]",
            "assert not bad, bad",
            "print('ok')"])
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -48,8 +51,8 @@ def test_port_modules_and_chip_smoke_import_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    imports = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|galerkin_transformer_tpu)\b",
-                         re.M)
+    imports = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|msgpack|galerkin_transformer_tpu)\b", re.M)
     files = [f for f in PACKAGE.rglob("*") if f.suffix in (".py", ".cu")]
     assert len(files) > 40
     assert {f.name for f in files} >= {"galerkin_scores_bf16.cu", "fourier_chain_bf16.cu",

@@ -151,9 +151,7 @@ def test_full_config_has_the_published_parameter_count():
     assert sum(p.numel() for p in model.parameters()) == 862049
 
 
-@pytest.mark.parametrize("override", [dict(seq_mesh=object()), dict(return_latent=True),
-                                      dict(return_attn_weight=True)],
-                         ids=["seq_mesh", "return_latent", "return_attn_weight"])
+@pytest.mark.parametrize("override", [dict(seq_mesh=object())], ids=["seq_mesh"])
 def test_lite_refuses_unported_options(override):
     with pytest.raises(NotImplementedError, match="not ported"):
         FourierTransformer2DLite.from_config({**_cfg(), **override}, device="cpu")

@@ -185,7 +185,29 @@
    the card, its validation metric on the calibration's 100 validation
    fields (n = 2048, batches of 16) within 1 % of the reference's
    1.4932e-3, with ``galerkin_scores`` in every layer of its graphs;
-12. prints one {"kernels": [...]} line (launches summed over the main
+12. generators phase (``generators_phase``): the multigrid Darcy solve
+   (``data/synthetic_torch.py::darcy_mg``) of the same fields at 421² on
+   the card and the CPU at a fixed count (2 cycles, tol 0, batch 4), to
+   1e-4 of the largest entry, and its captured cycles bit-equal to eager
+   ones; ``darcy_mg_torch`` of 16 samples at 421² through the residual
+   gate (every sample below 0.05, float32 on the card and float64 on the
+   host), eager and captured: seconds a sample, samples/s, cycles, the
+   kernels of one captured cycle; Cole–Hopf at n = 8192 against the CPU;
+13. ex2 at 421 (``darcy_421_phase``): ``examples/ex2_darcy.py`` at its
+   defaults for 1 epoch on 32 samples made afresh by multigrid on the card
+   (train and validation sets), each train step's graph exactly 6
+   ``galerkin_scores`` and 6 ``galerkin_scores_bwd``;
+14. graph phase (``graph_phase``): a GCN and a GAT ``SimpleTransformer`` at
+   the ex1 width (galerkin) at n = 1024 and a GCN ``FourierTransformer2D``
+   at (141, 43) on ``DarcyDataset``'s FEM edge features, each served with
+   its edge features against the CPU (its galerkin launches exactly) and
+   stepped against the CPU;
+15. random-features phase (``random_features_phase``): the ex1-width
+   ``RandomFourierTransformer``, favor and rfa, through
+   ``DeviceEpochRunner`` against the eager loop, ω redrawn on the host
+   before each step: a new ω every replay, the same sequence as the eager
+   loop's;
+16. prints one {"kernels": [...]} line (launches summed over the main
    paths), then the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a GPU it exits 1 and
@@ -227,8 +249,12 @@ from galerkin_transformer_torch.data import (BurgersDataset, DarcyDataset,  # no
                                              DataLoader, NavierStokesDatasetLite,
                                              darcy_grids, get_scaler_sizes, ns_grids)
 from galerkin_transformer_torch.examples import (ex1_burgers,  # noqa: E402
+                                                 ex1_burgers_random_fourier_features,
                                                  ex1_burgers_super_res, ex2_darcy,
                                                  ex3_darcy_inv, ex4_navier_stokes)
+from galerkin_transformer_torch.models.graph import GAT, GCN  # noqa: E402
+from galerkin_transformer_torch.models.random_fourier import (  # noqa: E402
+    redraw_random_features)
 from galerkin_transformer_torch.train import (AdamOneCycle, AdamPlateau,  # noqa: E402
                                               DeviceEpochRunner, PlateauController,
                                               WeightedL2Loss, WeightedL2Loss2d,
@@ -236,6 +262,7 @@ from galerkin_transformer_torch.train import (AdamOneCycle, AdamPlateau,  # noqa
                                               make_darcy_steps, make_ns_steps, run_train,
                                               save_checkpoint, save_jax_checkpoint)
 from galerkin_transformer_torch.utils import config as port_config  # noqa: E402
+from galerkin_transformer_torch.data import synthetic_torch as ST  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import _build  # noqa: E402
 from galerkin_transformer_torch.ops.cuda._graph import (launched_kernels,  # noqa: E402
                                                         wrapper_launches)
@@ -1361,10 +1388,12 @@ def eager_request(model, normalizer, batch) -> np.ndarray:
     dev = next(model.parameters()).device
     kwargs = ({"normalizer": normalizer}
               if "normalizer" in inspect.signature(model.forward).parameters else {})
+    graph = any(isinstance(m, (GCN, GAT)) for m in model.modules())   # as Predictor does
     with torch.inference_mode():
         node, pos, grid = (torch.as_tensor(batch[k], device=dev).float()
                            for k in ("node", "pos", "grid"))
-        return model(node, None, pos, grid, **kwargs)["preds"].cpu().numpy()
+        edge = torch.as_tensor(batch["edge"], device=dev).float() if graph else None
+        return model(node, edge, pos, grid, **kwargs)["preds"].cpu().numpy()
 
 
 def timed_requests(serve, batches) -> tuple:
@@ -1919,9 +1948,12 @@ def loop_case(tag, make, train, batch, per_step, epochs, tol_loss, tol_param, po
         losses, _, _ = run_loop(checked, epochs)
         got = check(checked, opt)
         ref_model, _, ref_step, _ = make("cuda")
+        before = getattr(ref_step, "before_step", None)   # as DeviceEpochRunner calls it
         ref_losses, eager_ms = [], []
         for _ in range(epochs):
             for host_batch in loader:
+                if before is not None:
+                    before()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = ref_step(host_batch)
@@ -2754,6 +2786,344 @@ def ex1_variants_phase(rng):
     return {name: counts[name] for name in COUNTERS}
 
 
+# generators phase: the multigrid Darcy solve at the 421 grid (levels 421, 211,
+# 106), first at a fixed count on a few fields, card against CPU: float32 sums
+# in another order through two cycles, each with 318 coarse CG iterations
+GEN_GRID = 421
+GEN_FIXED_SAMPLES = 4
+GEN_FIXED_CYCLES = 2
+TOL_GEN_FIXED = 1e-4       # of the CPU solution's largest entry
+GEN_SAMPLES = 16           # the full solve through the residual gate
+GEN_GATE = 0.05
+COLE_HOPF_N = 8192
+COLE_HOPF_SAMPLES = 8
+TOL_COLE_HOPF = 1e-4       # of max|u| on the CPU: exp(-U/2ν) at ν = 0.01 in float32
+
+
+def generators_phase():
+    """The device-side generators on the card (``data/synthetic_torch.py``):
+    the multigrid Darcy solve of the same coefficient fields on the card and
+    on the CPU at a fixed count (`GEN_FIXED_CYCLES` cycles, tol 0), and the
+    card's captured cycles bit-equal to its eager ones; the full solve of
+    `GEN_SAMPLES` fields at 421² through the residual gate, every sample below
+    0.05 (float32 on the device, float64 on the host), eager and captured,
+    with the kernels of one cycle and the seconds per sample of each;
+    Cole–Hopf Burgers at n = 8192, card against CPU.  No kernel of the port
+    runs here.  Returns the launch counts of its run (none)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    re, im = ST.grf_2d_normals(torch.Generator().manual_seed(SEED), GEN_FIXED_SAMPLES, GEN_GRID)
+    g = ST.grf_2d_from_normals(re, im, tau=3.0, alpha=2.0, device="cuda")
+    coeff = torch.where(g >= 0, 12.0, 3.0).float()
+    fixed = dict(max_cycles=GEN_FIXED_CYCLES, tol=0.0)
+    run = {}
+    gpu = ST.darcy_mg(coeff, GEN_GRID, stats=run, **fixed)
+    eager = ST.darcy_mg(coeff, GEN_GRID, graphs=False, **fixed)
+    cpu = ST.darcy_mg(coeff.cpu(), GEN_GRID, **fixed)
+    err = float((gpu.cpu() - cpu).abs().max() / cpu.abs().max())
+    same = torch.equal(gpu, eager)
+    print(f"generators: darcy_mg at {GEN_GRID}^2 (levels {ST.mg_sizes(GEN_GRID)}), "
+          f"{GEN_FIXED_SAMPLES} fields, {GEN_FIXED_CYCLES} cycles at tol 0: card vs CPU "
+          f"{err:.3e} of max|cpu| (tol {TOL_GEN_FIXED:.0e}); captured cycles "
+          f"{'bit-equal' if same else 'NOT bit-equal'} to eager ones on the card; "
+          f"{run['kernels']} device kernels a captured cycle")
+    if not (err <= TOL_GEN_FIXED and same and run["cycles"] == GEN_FIXED_CYCLES):
+        raise AssertionError("generators: the multigrid solve disagrees")
+    rates = {}
+    for graphs in (False, True):
+        st = {}
+        torch.cuda.synchronize()
+        coeff_np, sol = ST.darcy_mg_torch(GEN_SAMPLES, GEN_GRID, seed=SEED, batch=GEN_SAMPLES,
+                                          graphs=graphs, stats=st)
+        mode = "captured" if graphs else "eager"
+        rates[mode] = st["seconds"] / GEN_SAMPLES
+        print(f"generators: darcy_mg_torch {GEN_SAMPLES} samples at {GEN_GRID}^2 ({mode} "
+              f"cycles): {st['seconds']:.3f} s with the fields and the gate, "
+              f"{rates[mode] * 1e3:.2f} ms a sample, {GEN_SAMPLES / st['seconds']:.1f} "
+              f"samples/s; {st['cycles']} cycles; f32 residual gate max {st['gate_max']:.3e}, "
+              f"f64 max {st['f64_max']:.3e} (gate {GEN_GATE}); {st['resolved']} re-solved by "
+              f"CG; {st['kernels_per_cycle']} kernels a captured cycle")
+        res64 = ST.fd_residual_host(coeff_np, sol)
+        if not (res64.max() < GEN_GATE and st["gate_max"] < GEN_GATE and np.isfinite(sol).all()
+                and sol.shape == (GEN_SAMPLES, GEN_GRID, GEN_GRID)):
+            raise AssertionError(f"generators: a sample above the gate ({res64.max():.3e})")
+    print(f"generators: multigrid {rates['eager'] / rates['captured']:.2f}x faster a sample "
+          f"with captured cycles ({rates['eager'] * 1e3:.2f} -> {rates['captured'] * 1e3:.2f} "
+          f"ms)")
+    a = ST.grf_1d_torch(torch.Generator().manual_seed(SEED), COLE_HOPF_SAMPLES, COLE_HOPF_N,
+                        device="cuda")
+    u_gpu = ST.cole_hopf_torch(a, 0.01, 1.0)
+    u_cpu = ST.cole_hopf_torch(a.cpu(), 0.01, 1.0)
+    err = float((u_gpu.cpu() - u_cpu).abs().max() / u_cpu.abs().max())
+    print(f"generators: Cole-Hopf Burgers at n={COLE_HOPF_N}, {COLE_HOPF_SAMPLES} fields: card "
+          f"vs CPU {err:.3e} of max|u| (tol {TOL_COLE_HOPF:.0e}); phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not err <= TOL_COLE_HOPF:
+        raise AssertionError("generators: Cole-Hopf disagrees")
+    return {name: launches()[name] for name in COUNTERS}
+
+
+# the ex2 driver at its own grid: the data made by multigrid on the card, the
+# full-width model trained at the defaults' (n_f, n_c) = (141, 43)
+DARCY_421_SAMPLES = 32
+
+
+def darcy_421_phase():
+    """``examples/ex2_darcy.py`` at its defaults (``--n-grid-fine 421``,
+    subsample 3 and 10) on `DARCY_421_SAMPLES` training samples for one
+    epoch, with the data made afresh by ``darcy_mg_torch`` on the card: the
+    training and validation sets both from the device branch, each train
+    step's graph exactly 6 ``galerkin_scores`` and 6 ``galerkin_scores_bwd``
+    and each eval step's 6 ``galerkin_scores``.  Returns the launch counts
+    of its run, the graph replays included."""
+    reset_launches()
+    t0 = time.perf_counter()
+    with runner_hooks() as runners, tempfile.TemporaryDirectory() as tmp, fresh_data_dir():
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            val = ex2_darcy.main(["--n-samples", str(DARCY_421_SAMPLES), "--epochs", "1"],
+                                 model_save_path=tmp)
+        print(printed.getvalue(), end="")
+        _driver_outputs("ex2 421", tmp, val, 1)
+    made = printed.getvalue().count("Darcy samples at 421² (device MG")
+    if made != 2 or len(runners) != 1 or runners[0].replays == 0:
+        raise AssertionError(f"ex2 421: {made} sets from the device generator, "
+                             f"{len(runners)} device loops")
+    (train_k, train_r), (eval_k, eval_r) = runners[0].replayed()
+    if (dict(wrapper_launches(train_k)) != {"galerkin_scores": 6, "galerkin_scores_bwd": 6}
+            or dict(wrapper_launches(eval_k)) != {"galerkin_scores": 6}):
+        raise AssertionError(f"ex2 421: graphs hold {wrapper_launches(train_k)} and "
+                             f"{wrapper_launches(eval_k)}")
+    counts = Counter(launches())
+    counts.update(runner_launches(runners))
+    print(f"driver ex2 at the 421 grid (data by multigrid on the card, f32, (n_f,n_c)=(141,43)):"
+          f" 1 epoch, validation metric {val:.4e}; train graph 6+6 galerkin kernels "
+          f"({train_r} replays), eval graph 6 ({eval_r} replays); launches {dict(counts)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {name: counts[name] for name in COUNTERS}
+
+
+# graph phase: the ex1 model with a GCN or GAT lift at n = 1024 (subsample 8;
+# BurgersDataset's edge features: two Krylov powers and two distance
+# channels), and the ex2 model with a GCN extractor at (141, 43) on the coarse
+# grid's FEM features (three Krylov powers of the normalized Laplacian);
+# galerkin attention throughout.  The 2D edge encoder convolves n_c² × n_c²
+# images (1849² at (141, 43)): the CPU's forward of one sample takes ~15 s
+# on 8 threads, so the (141, 43) model is served against the CPU at batch 1
+# and stepped on the card alone, and its step is held against the CPU at
+# (61, 13)
+GRAPH_SUBSAMPLE = 8
+GRAPH_BATCH = 2
+GRAPH_2D = dict(n_grid_fine=421, subsample_nodes=3, subsample_attn=10, n_samples_synthetic=8,
+                train_len=6, return_edge=True)
+GRAPH_2D_STEP = dict(n_grid_fine=61, subsample_nodes=1, subsample_attn=5, n_samples_synthetic=8,
+                     train_len=6, return_edge=True)
+GRAPH_2D_STEPS = 5   # timed card steps at (141, 43)
+
+
+def graph_phase():
+    """Graph features on the card (``models/graph.py``): a GCN and a GAT
+    `SimpleTransformer` at the ex1 width (d = 96, galerkin) at n = 1024,
+    each served through `Predictor` (edge features passed) against the CPU
+    as in item 5, with exactly its galerkin launches in the graph, and one
+    train step (dropout off) against the CPU; a GCN `FourierTransformer2D`
+    at the ex2 width at (n_f, n_c) = (141, 43) with its edge features from
+    `DarcyDataset` (data by multigrid on the card) served against the CPU
+    and stepped and timed on the card (its launches exact), and its step
+    against the CPU at (61, 13) (`spread_step`).  Returns the launch counts
+    of its run, the graph replays included."""
+    reset_launches()
+    t0 = time.perf_counter()
+    replayed = []
+    train = BurgersDataset(subsample=GRAPH_SUBSAMPLE, train_data=True, train_portion=0.5,
+                           n_samples_synthetic=TRAIN_SAMPLES, return_edge=True)
+    n = train.n_grid
+    batches = [b for b, _ in zip(DataLoader(train, GRAPH_BATCH), range(3))]
+    edge_feats = batches[0]["edge"].shape[-1]
+    h = 1 / n
+    for kind in ("gcn", "gat"):
+        cfg = {**load_config("ex1_burgers"), "attention_type": "galerkin",
+               "feat_extract_type": kind, "num_feat_layers": 2, "edge_feats": edge_feats}
+        gpu = Predictor(SimpleTransformer.from_config(cfg, seed=SEED))
+        cpu = Predictor(SimpleTransformer.from_config(cfg, device="cpu", seed=SEED), device="cpu")
+        same_weights(gpu, cpu)
+        tag = f"ex1 {kind} galerkin f32 n={n} batch={GRAPH_BATCH} edge_feats={edge_feats}"
+        serve_and_check(tag, gpu, cpu, batches, "galerkin_scores", cfg["num_encoder_layers"],
+                        GRAPH_BATCH * n, (GRAPH_BATCH, n, 1), TOL_SERVE, replayed)
+        del gpu, cpu
+        steps, models = {}, {}
+        for device in ("cuda", "cpu"):
+            model = no_dropout(SimpleTransformer.from_config(cfg, device=device, seed=SEED))
+            opt = AdamOneCycle(model.parameters(), 1e-3, 100, grad_clip=0.999)
+            models[device] = model
+            steps[device] = make_burgers_steps(
+                model, WeightedL2Loss(regularizer=True, h=h, gamma=0.1), WeightedL2Loss(h=h),
+                opt)[0]
+        compare_step(tag, steps, models, batches[0],
+                     {"galerkin_scores": 4, "galerkin_scores_bwd": 4}, TOL_TRAIN_LOSS,
+                     TOL_TRAIN_GRAD)
+        del steps, models
+        release_graphs()
+
+    print(f"graph: the ex1 cases {time.perf_counter() - t0:.1f} s "
+          f"({torch.get_num_threads()} CPU threads)")
+
+    def graph_2d(spec, batch):
+        data = DarcyDataset(train_data=True, **spec)
+        n_f = (spec["n_grid_fine"] - 1) // spec["subsample_nodes"] + 1
+        batches = [b for b, _ in zip(DataLoader(data, batch), range(3))]
+        normalizer = data.normalizer_y.as_tuple()
+        cfg = {**ex2_config(n_f, data.n_grid), "feat_extract_type": "gcn",
+               "num_feat_layers": 2, "edge_feats": batches[0]["edge"].shape[-1]}
+        print(f"graph: DarcyDataset with edge features at (n_f, n_c) = ({n_f}, {data.n_grid}) "
+              f"({data.assembly} assembly), edge {batches[0]['edge'].shape}")
+        return (n_f, data.n_grid), batches, normalizer, cfg
+
+    (n_f, n_c), batches, normalizer, cfg = graph_2d(GRAPH_2D, 1)
+    gpu = Predictor(FourierTransformer2D.from_config(cfg, seed=SEED), normalizer=normalizer)
+    cpu = Predictor(FourierTransformer2D.from_config(cfg, device="cpu", seed=SEED),
+                    normalizer=normalizer, device="cpu")
+    same_weights(gpu, cpu)
+    tag = f"ex2 gcn galerkin f32 (n_f,n_c)=({n_f},{n_c})"
+
+    def variation(out):   # the encoder shows in what varies over the grid
+        mean, std, eps = normalizer
+        part = ((out - mean) / (std + eps))[:, 1:-1, 1:-1]
+        return float(np.abs(part - part.mean()).max())
+
+    serve_and_check(f"{tag} batch=1", gpu, cpu, batches, "galerkin_scores",
+                    cfg["num_encoder_layers"], n_f * n_f, (1, n_f, n_f, 1), TOL_SERVE, replayed,
+                    scale_of=variation)
+    del gpu, cpu
+    release_graphs()
+    per_step = {"galerkin_scores": 6, "galerkin_scores_bwd": 6}
+    _, step = ex2_step("cuda", None, cfg, batches, normalizer, n_f)
+    before = launches()
+    losses = [float(x) for x in step(batches[0])]
+    moved = {k: launches()[k] - before[k] for k in before if launches()[k] != before[k]}
+    if moved != per_step or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {tag}: launches {moved}, losses {losses}")
+    time_steps(f"{tag} batch=1 (card only)", step, batches, GRAPH_2D_STEPS, n_f * n_f)
+    del step
+    release_graphs()
+    (n_f, n_c), batches, normalizer, cfg = graph_2d(GRAPH_2D_STEP, GRAPH_BATCH)
+    spread_step(f"ex2 gcn galerkin f32 (n_f,n_c)=({n_f},{n_c}) batch={GRAPH_BATCH}",
+                lambda device: ex2_step(device, None, {**cfg, **NO_DROPOUT}, batches,
+                                        normalizer, n_f), batches[0], per_step)
+    counts = Counter(launches())
+    counts.update(forward_launches(replayed))
+    print(f"graph phase: {time.perf_counter() - t0:.1f} s")
+    return {name: counts[name] for name in COUNTERS}
+
+
+# the 2D GCN step's float32 gradients carry rounding far beyond
+# TOL_TRAIN_GRAD: behind the GCN's aggregation the features vary little over
+# the nodes, and the attention's per-head LN (eps 1e-7 below n_f = 211)
+# divides by their spread; on the CPU two runs of the (61, 13) step differ by
+# 2-3 % of the gradient's norm and up to 28 % of a tensor's scale (the
+# plain model's by 2e-7).  So the card is held to the CPU within
+# SPREAD_FACTOR times the CPU's own spread, tensor by tensor
+SPREAD_FACTOR = 4.0
+
+
+def spread_step(tag, make, batch, per_step):
+    """One train step from the same weights on the card and three times on
+    the CPU (its default thread count twice, then one thread); `make(device)`
+    -> (model, step).  The card's step launches exactly `per_step`; its
+    losses agree with the CPU's to `TOL_TRAIN_LOSS`; each gradient is within
+    `SPREAD_FACTOR` times the CPU runs' largest gap, or within
+    `TOL_TRAIN_GRAD`, of max(its largest entry, `GRAD_FLOOR` of the model's
+    largest gradient)."""
+    runs = {}
+    for run in ("cuda", "cpu", "cpu again", "cpu, 1 thread"):
+        threads = torch.get_num_threads()
+        if run == "cpu, 1 thread":
+            torch.set_num_threads(1)
+        try:
+            model, step = make("cuda" if run == "cuda" else "cpu")
+            before = launches()
+            losses = [float(x) for x in step(batch)]
+            moved = {k: launches()[k] - before[k] for k in before if launches()[k] != before[k]}
+            runs[run] = losses, {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        finally:
+            torch.set_num_threads(threads)
+        if run == "cuda" and moved != per_step:
+            raise AssertionError(f"train {tag}: launched {moved}, expected {per_step}")
+    (got, card), (want, cpu) = runs["cuda"], runs["cpu"]
+    others = [runs["cpu again"][1], runs["cpu, 1 thread"][1]]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want) if b != 0)
+    top = max(float(g.abs().max()) for g in cpu.values())
+    worst, worst_key, spread = 0.0, "", 0.0
+    for key, ref in cpu.items():
+        scale = max(float(ref.abs().max()), GRAD_FLOOR * top)
+        gap = float((card[key] - ref).abs().max()) / scale
+        own = max(float((other[key] - ref).abs().max()) for other in others) / scale
+        spread = max(spread, own)
+        allowed = max(SPREAD_FACTOR * own, TOL_TRAIN_GRAD)
+        if gap / allowed > worst:
+            worst, worst_key = gap / allowed, key
+    print(f"train {tag}: losses {got} vs CPU {want} (max rel err {loss_err:.3e}, tol "
+          f"{TOL_TRAIN_LOSS:.1e}); the CPU's runs differ by up to {spread:.3e} of a "
+          f"gradient's scale; the card's worst gradient at {worst:.3f} of its allowance "
+          f"(max({SPREAD_FACTOR:g}x the CPU's spread, {TOL_TRAIN_GRAD:.0e})) at {worst_key}; "
+          f"launches/step {per_step}")
+    if not (all(math.isfinite(x) for x in got) and loss_err <= TOL_TRAIN_LOSS and worst <= 1):
+        raise AssertionError(f"train {tag}: the card's step is off the CPU's")
+
+
+RF_LOOP_EPOCHS = 4   # 4 steps an epoch: 2 eager, 14 replays
+
+
+def random_features_phase():
+    """Random-feature attention on the card (``models/random_fourier.py``):
+    the ex1-width `RandomFourierTransformer` (favor, then rfa) trained
+    through `DeviceEpochRunner` against the eager host loop as in item 7,
+    each step's ω redrawn on the host before it (``before_step``): the ω
+    of every replay must differ from the one before, and the captured run's
+    sequence of ω must equal the eager loop's.  No kernel of the port runs
+    here.  Returns the launch counts of its run (none)."""
+    reset_launches()
+    train = ex1_train_data()
+    runners = []
+    for kind in ("favor", "rfa"):
+        drawn = []   # each make()'s ω sequence: the captured run, the eager run, the timed run
+
+        def make(device, kind=kind):
+            model = no_dropout(ex1_burgers_random_fourier_features.RandomFourierTransformer(
+                attention_type=kind, device=device, seed=SEED))
+            opt = AdamOneCycle(model.parameters(), 1e-3, 100 * (TRAIN_SAMPLES // 2 // BATCH))
+            h = 1 / TRAIN_N
+            train_step, eval_step = make_burgers_steps(
+                model, WeightedL2Loss(regularizer=True, h=h, gamma=0.1), WeightedL2Loss(h=h),
+                opt)
+            gen, seen = torch.Generator().manual_seed(SEED), []
+            drawn.append(seen)
+
+            def before():
+                redraw_random_features(model, gen)
+                seen.append(model.encoder_layers[0].attn.omega.detach().cpu().clone())
+
+            train_step.before_step = before
+            return model, opt, train_step, eval_step
+
+        tag = f"ex1 random features {kind} f32 n={TRAIN_N} batch={BATCH}"
+        runners.extend(loop_case(tag, make, train, BATCH, {}, RF_LOOP_EPOCHS, TOL_LOOP,
+                                 TOL_LOOP, BATCH * TRAIN_N))
+        captured, eager = drawn[0], drawn[1]
+        same = len(captured) == len(eager) and all(torch.equal(a, b)
+                                                    for a, b in zip(captured, eager))
+        fresh = all(not torch.equal(a, b) for a, b in zip(captured, captured[1:]))
+        print(f"random features {kind}: {len(captured)} steps, each with a new ω "
+              f"({'every one differs from the one before' if fresh else 'REPEATED'}); the "
+              f"captured run's ω sequence {'equals' if same else 'DIFFERS FROM'} the eager "
+              f"loop's")
+        if not (same and fresh):
+            raise AssertionError(f"random features {kind}: ω not redrawn per replay")
+    counts = Counter(launches())
+    counts.update(runner_launches(runners))
+    return {name: counts[name] for name in COUNTERS}
+
+
 def release_graphs():
     """Free what earlier work left on the card: a Predictor and its captured
     requests refer to each other, so their graphs (and the memory pools they
@@ -3054,12 +3424,14 @@ def main(argv=None) -> int:
                   lambda: serving_ex4_phase(rng), training_phase, training_2d_phase,
                   ex4_phase, device_loop_phase, lambda: recovery_phase(smi), driver_phase,
                   lambda: ex1_variants_phase(rng), lambda: variants_2d_phase(rng),
-                  checkpoints_phase):
+                  checkpoints_phase, generators_phase, darcy_421_phase, graph_phase,
+                  random_features_phase):
         release_graphs()   # the graphs of the phases before
         paths.append(phase())
     print(f"launches by main path (ex1 serving, ex2 serving, ex4 serving, ex1 training, "
           f"ex2 training, ex4 training, device loop, recovery, drivers, ex1 variants, "
-          f"2D variants, checkpoints): {paths}")
+          f"2D variants, checkpoints, generators, ex2 at 421, graph, random features): "
+          f"{paths}")
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths)
         if k["launches"] == 0:

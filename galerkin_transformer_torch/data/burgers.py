@@ -9,8 +9,11 @@ arrays.  The data are the published .mat file's
 names a file that exists; otherwise exact synthetic Burgers solutions
 from `burgers_cole_hopf` (the JAX package's synthetic setup, viscosity
 0.01), cached as ``.npz`` under ``DATA_PATH`` with the JAX package's cache
-name, so both packages read the same file.  FEM edge features
-(``return_edge=True``) are not ported and raise.
+name, so both packages read the same file.  With ``return_edge`` each
+item carries the FEM edge features of its grid (`get_edge`: Krylov powers
+of the normalized P1 Laplacian, distance and mass channels, (n, n, C)
+channels-last) and its mass matrix, made once for the uniform grid, per
+sample for the nonuniform meshes, or per item with ``online_features``.
 """
 from __future__ import annotations
 
@@ -18,18 +21,22 @@ import os
 
 import numpy as np
 
+from ..ops.fem import get_distance_matrix, get_laplacian_1d, get_mass_1d, krylov_powers
 from ..utils import config
 from .synthetic import burgers_cole_hopf
 
 SYNTHETIC_VISCOSITY = 0.01
 # the weight of |f''|² in the nonuniform meshes' node density (the JAX
-# dataset's `viscosity`, which no caller sets)
+# dataset's `viscosity` default)
 DENSITY_VISCOSITY = 0.1
 
 
 class BurgersDataset:
     def __init__(self, subsample: int = 4,
                  n_grid_fine: int = 2 ** 13,
+                 viscosity: float = DENSITY_VISCOSITY,
+                 n_krylov: int = 2,
+                 smoother: str | None = None,
                  uniform: bool = True,
                  train_data: bool = True,
                  train_portion: float = 0.9,
@@ -37,12 +44,14 @@ class BurgersDataset:
                  super_resolution: int = 1,
                  data_path: str | None = None,
                  n_samples_synthetic: int = 256,
+                 synthetic_viscosity: float = SYNTHETIC_VISCOSITY,
                  return_edge: bool = False,
+                 online_features: bool = False,
+                 renormalization: bool = False,
+                 return_distance_features: bool = True,
+                 return_mass_features: bool = False,
                  random_sampling: bool = False,
                  random_state: int = 1127802):
-        if return_edge:
-            raise NotImplementedError("BurgersDataset(return_edge=True) (FEM edge "
-                                      "features) is not ported")
         if subsample > 1 and subsample % 2:
             raise ValueError(f"subsample must be 1 or even, got {subsample}")
         self.subsample = subsample
@@ -51,6 +60,9 @@ class BurgersDataset:
         self.n_grid_fine = n_grid_fine
         self.n_grid = n_grid_fine // subsample
         self.h = 1.0 / n_grid_fine
+        self.viscosity = viscosity
+        self.n_krylov = n_krylov
+        self.smoother = smoother
         self.uniform = uniform
         self.random_sampling = random_sampling
         self.train_data = train_data
@@ -58,6 +70,12 @@ class BurgersDataset:
         self.valid_portion = valid_portion
         self.data_path = data_path
         self.n_samples_synthetic = n_samples_synthetic
+        self.synthetic_viscosity = synthetic_viscosity
+        self.return_edge = return_edge
+        self.online_features = online_features
+        self.renormalization = renormalization
+        self.return_distance_features = return_distance_features
+        self.return_mass_features = return_mass_features
         self.random_state = random_state
         self._initialize()
 
@@ -71,13 +89,13 @@ class BurgersDataset:
             return np.asarray(data["a"]), np.asarray(data["u"])
         cache = os.path.join(
             config.DATA_PATH, f"burgers_synth_n{self.n_grid_fine}"
-            f"_s{self.n_samples_synthetic}_v{SYNTHETIC_VISCOSITY}"
+            f"_s{self.n_samples_synthetic}_v{self.synthetic_viscosity}"
             f"_seed{self.random_state}.npz")
         if os.path.exists(cache):
             with np.load(cache) as z:
                 return z["a"], z["u"]
         a, u = burgers_cole_hopf(self.n_samples_synthetic, self.n_grid_fine,
-                                 SYNTHETIC_VISCOSITY, seed=self.random_state)
+                                 self.synthetic_viscosity, seed=self.random_state)
         try:
             os.makedirs(config.DATA_PATH, exist_ok=True)
             tmp = f"{cache}.{os.getpid()}.tmp.npz"
@@ -123,6 +141,11 @@ class BurgersDataset:
         grid = np.linspace(0, 1, self.n_grid)
         grid_fine = np.linspace(0, 1, self.n_grid_fine // self.supsample)
 
+        self.edge_features = self.mass_features = None
+        if self.return_edge and not self.online_features:
+            edge, mass = self.get_edge(grid)
+            self.edge_features = np.broadcast_to(edge[None], (self.n_samples,) + edge.shape)
+            self.mass_features = np.broadcast_to(mass[None], (self.n_samples,) + mass.shape)
         self.node_features = nodes[..., None].astype(np.float32)
         self.pos = grid[..., None].astype(np.float32)
         self.pos_fine = grid_fine[..., None].astype(np.float32)
@@ -143,7 +166,7 @@ class BurgersDataset:
         f_x = self.central_diff(x_data, h)
         f_xx = np.zeros_like(x_data)
         f_xx[:, 1:-1] = (x_data[:, :-2] - 2 * x_data[:, 1:-1] + x_data[:, 2:]) / h ** 2
-        density = np.sqrt(f_x ** 2 + DENSITY_VISCOSITY * f_xx ** 2)[:, 1:-1]
+        density = np.sqrt(f_x ** 2 + self.viscosity * f_xx ** 2)[:, 1:-1]
         density /= density.sum(axis=1, keepdims=True)
 
         k = sr * self.n_grid - 2
@@ -172,6 +195,12 @@ class BurgersDataset:
         self.target_uniform = np.stack([y_data[:, ::s], y_diff[:, ::s], x_data[:, ::s]],
                                        axis=2).astype(np.float32)
 
+        self.edge_features = self.mass_features = None
+        if self.return_edge and not self.online_features:
+            feats = [self.get_edge(g) for g in grids]
+            self.edge_features = np.asarray([f[0] for f in feats], dtype=np.float32)
+            self.mass_features = np.asarray([f[1] for f in feats], dtype=np.float32)
+
         self.node_features = nodes[..., None].astype(np.float32)
         self.pos = grids[..., None].astype(np.float32)
         self.pos_fine = grids_fine[..., None].astype(np.float32)
@@ -184,14 +213,37 @@ class BurgersDataset:
         xp = np.c_[pad_0, x, pad_1]
         return (xp[:, 2:] - xp[:, :-2]) / (2 * h)
 
+    def get_edge(self, grid: np.ndarray):
+        """FEM edge features of a 1D `grid` (ft.py:289-318): the Krylov
+        powers of the normalized P1 Laplacian (with the Kipf–Welling weight
+        n under `renormalization`, and the Jacobi `smoother`), then the
+        distance and mass channels as asked, (n, n, C) float32; and the P1
+        mass matrix (n, n)."""
+        weight = np.full(len(grid), float(self.n_grid)) if self.renormalization else None
+        lap = get_laplacian_1d(grid, normalize=True, weight=weight, smoother=self.smoother)
+        edges = np.stack([m.toarray() for m in krylov_powers(lap, max(self.n_krylov, 1))],
+                         axis=-1)
+        mass = get_mass_1d(grid, normalize=False).toarray().astype(np.float32)
+        feats = [edges.astype(np.float32)]
+        if self.return_distance_features:
+            feats.append(get_distance_matrix(grid))
+        if self.return_mass_features:
+            feats.append(mass[..., None])
+        return np.concatenate(feats, axis=2), mass
+
     def __getitem__(self, index: int) -> dict:
-        one = np.array([1.0], dtype=np.float32)   # no edge features
         # uniform: one shared grid; nonuniform: a per-sample mesh
         pos = self.pos if self.uniform else self.pos[index]
         pos_fine = self.pos_fine if self.uniform else self.pos_fine[index]
+        if self.online_features:
+            edge, mass = self.get_edge(pos[:, 0])
+        elif self.return_edge:
+            edge, mass = self.edge_features[index], self.mass_features[index]
+        else:   # no edge features
+            edge = mass = np.array([1.0], dtype=np.float32)
         return dict(node=self.node_features[index],
                     pos=pos,
                     grid=pos if self.super_resolution < 2 else pos_fine,
-                    edge=one,
-                    mass=one,
+                    edge=edge,
+                    mass=mass,
                     target=self.target[index])

@@ -11,26 +11,42 @@ The dual-resolution protocol of the JAX package:
   * Gaussian normalization fit on the training set, reused on validation,
   * additive input noise.
 
-Without a `data_path` the pairs are synthetic, from the host generator
-`darcy_fd` (a sparse direct solve per sample: set `n_grid_fine` well below
-the 421 of the published files), cached as ``.npz`` under ``DATA_PATH``
-with the JAX package's host cache name, so both packages read the same
-file.  The JAX package's device-side generator is not ported: the port
-always takes the host path.  FEM edge features (``return_edge=True``) are
-not ported and raise.
+Without a `data_path` the pairs are synthetic and cached as ``.npz``
+under ``DATA_PATH``.  Up to 64·85² points (samples × n²) they come from the
+host generator `darcy_fd` (a sparse direct solve per sample), with the JAX
+package's cache name, so both packages read the same file.  Above it, as
+the JAX package's `_load` does, they come from the multigrid generator
+``synthetic_torch.darcy_mg_torch`` on `device` (``None`` is the GPU:
+without one it raises unless ``device="cpu"`` is passed; there is no
+fallback to the host solver), cached with the tag ``_torch`` in place of
+JAX's ``_jax``: torch's draws are not ``jax.random``'s.
+
+With ``return_edge`` each item carries the P1-FEM edge features of its
+coefficient on the coarse grid (`get_edge`: the Krylov powers of the
+normalized Laplacian, and of the coefficient's stiffness unless
+``return_lap_only``), assembled by the native library
+(``ops/fem_native.py``) when it loads and by scipy otherwise (``assembly``
+says which), dense (n², n², C) or with ``sparse_edge`` as (values,
+``edge_indices``) for ``ops/sparse.py::densify_edges`` on the device;
+``online_features`` assembles them per item.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional
+import time
+from typing import Optional, Union
 
 import numpy as np
+import torch
 
 from ..ops import fem
 from ..ops.interp import interp_matrix, resolve_interp_size
 from ..utils import config
 from .normalizer import UnitGaussianNormalizer
 from .synthetic import darcy_fd
+
+# samples × n² above which the pairs are made on the device (data/darcy.py:96-97)
+DEVICE_WORK = 64 * 85 ** 2
 
 
 def get_grid(n_grid: int, subsample: int = 1, return_boundary: bool = True) -> np.ndarray:
@@ -84,23 +100,26 @@ class DarcyDataset:
                  inverse_problem: bool = False,
                  normalizer_x: Optional[UnitGaussianNormalizer] = None,
                  normalization: bool = True,
+                 renormalization: bool = False,
                  subsample_attn: int = 15,
                  subsample_nodes: int = 1,
                  subsample_inverse: int = 1,
                  subsample_method: str = "nearest",
                  subsample_method_inverse: str = "average",
+                 n_krylov: int = 3,
                  n_grid_fine: int = 421,
                  train_data: bool = True,
                  train_len=0.9,
                  valid_len=0.0,
                  n_samples_synthetic: int = 64,
                  return_edge: bool = False,
+                 sparse_edge: bool = False,
+                 online_features: bool = False,
+                 return_lap_only: bool = True,
                  return_boundary: bool = True,
                  noise: float = 0.0,
-                 random_state: int = 1127802):
-        if return_edge:
-            raise NotImplementedError("DarcyDataset(return_edge=True) (FEM edge "
-                                      "features) is not ported")
+                 random_state: int = 1127802,
+                 device: Optional[Union[str, torch.device]] = None):
         self.data_path = data_path
         self.n_grid_fine = n_grid_fine
         self.subsample_attn = subsample_attn
@@ -113,13 +132,21 @@ class DarcyDataset:
         self.train_data = train_data
         self.train_len = train_len
         self.valid_len = valid_len
+        self.n_krylov = n_krylov
         self.n_samples_synthetic = n_samples_synthetic
+        self.return_edge = return_edge
+        self.sparse_edge = sparse_edge
+        self.online_features = online_features
         self.normalization = normalization
         self.normalizer_x = normalizer_x
+        self.renormalization = renormalization
         self.inverse_problem = inverse_problem
         self.return_boundary = return_boundary
+        self.return_lap_only = return_lap_only
         self.random_state = random_state
         self.noise = noise
+        self.device = device
+        self.assembly = None   # "native" or "scipy" once edge features are assembled
         self._initialize()
 
     def __len__(self):
@@ -131,14 +158,25 @@ class DarcyDataset:
             data = loadmat(self.data_path)
             return np.asarray(data["coeff"]), np.asarray(data["sol"])
         seed = self.random_state + (0 if self.train_data else 7)
-        # _t3: the GRF correlation tag (tau = 3 fields)
+        on_device = self.n_samples_synthetic * self.n_grid_fine ** 2 > DEVICE_WORK
+        # _t3: the GRF correlation tag (tau = 3 fields); _torch: the device
+        # generator draws another stream than the host one from the same seed
         cache = os.path.join(
             config.DATA_PATH, f"darcy_synth_n{self.n_grid_fine}"
-            f"_s{self.n_samples_synthetic}_t3_seed{seed}.npz")
+            f"_s{self.n_samples_synthetic}_t3{'_torch' if on_device else ''}_seed{seed}.npz")
         if os.path.exists(cache):
             with np.load(cache) as z:
                 return z["coeff"], z["sol"]
-        coeff, sol = darcy_fd(self.n_samples_synthetic, self.n_grid_fine, seed=seed)
+        if on_device:
+            from .synthetic_torch import darcy_mg_torch
+            t0 = time.perf_counter()
+            coeff, sol = darcy_mg_torch(self.n_samples_synthetic, self.n_grid_fine, seed=seed,
+                                        device=self.device)
+            print(f"Generating {self.n_samples_synthetic} Darcy samples at "
+                  f"{self.n_grid_fine}² (device MG, {self.device or 'cuda'}) - done in "
+                  f"{time.perf_counter() - t0:.2f} s")
+        else:
+            coeff, sol = darcy_fd(self.n_samples_synthetic, self.n_grid_fine, seed=seed)
         try:
             os.makedirs(config.DATA_PATH, exist_ok=True)
             tmp = f"{cache}.{os.getpid()}.tmp.npz"
@@ -174,6 +212,13 @@ class DarcyDataset:
         self.pos, self.elem = fem.uniform_triangulation(self.n_grid)
         self.pos_fine = get_grid(self.n_grid_fine, subsample=self.subsample_nodes,
                                  return_boundary=self.return_boundary)
+
+        self.edge_features = self.mass_features = None
+        if self.return_edge and self.online_features:
+            self._a_fine = a   # the features are assembled per item (ft.py:811-823)
+        elif self.return_edge:
+            self.edge_features, self.mass_features = self.get_edge(a)
+        self._edge_pattern = None   # the channels' union pattern, for sparse_edge
 
         if self.inverse_problem:
             nodes, targets = targets, nodes
@@ -259,16 +304,84 @@ class DarcyDataset:
         m = interp_matrix(n_f, n_c).astype(np.float64)
         return np.einsum("cf,bfg,dg->bcd", m, x, m)
 
+    def get_edge(self, a):
+        """P1-FEM edge features of the fine coefficients `a` (N, n_f, n_f)
+        on the coarse grid (ft.py:729-786): the coefficient pooled to the
+        coarse grid and averaged per element, then for each sample the
+        Krylov powers of the normalized Laplacian (preceded by those of the
+        normalized stiffness unless ``return_lap_only``), as lists of CSR
+        matrices, and the mass matrix.  The native library assembles them
+        when it loads and ``renormalization`` is off; scipy otherwise
+        (``self.assembly`` says which)."""
+        nodes, elems = self.pos, self.elem
+        ks = self.subsample_attn // self.subsample_nodes
+        a_coarse = fem.pooling_2d(a, kernel_size=(ks, ks), padding=True)
+        k_elem = a_coarse.reshape(len(a), -1)[:, elems].mean(axis=2)
+
+        native = getattr(self, "_fem_plan", None)
+        if native is None and not self.renormalization:
+            from ..ops import fem_native
+            if fem_native.available():
+                native = self._fem_plan = fem_native.FemPlan(nodes, elems)
+        self.assembly = "native" if native is not None else "scipy"
+
+        edges, mass = [], []
+        if native is not None:
+            a_list, lap_n, m = native.assemble_batch(k_elem, normalize=True)
+            laps_shared = fem.krylov_powers(lap_n, self.n_krylov)
+            for i in range(len(a)):
+                edges.append(laps_shared if self.return_lap_only
+                             else fem.krylov_powers(a_list[i], self.n_krylov) + laps_shared)
+                mass.append(m)
+            return edges, mass
+        for i in range(len(a)):
+            A, lap, m = fem.assemble_p1(nodes, elems, k_elem[i])
+            w = (np.asarray(m.sum(axis=-1)).ravel() * self.n_grid ** 2
+                 if self.renormalization else None)
+            A, lap = fem.normalize_matrix(A, w), fem.normalize_matrix(lap, w)
+            laps = fem.krylov_powers(lap, self.n_krylov)
+            edges.append(laps if self.return_lap_only
+                         else fem.krylov_powers(A, self.n_krylov) + laps)
+            mass.append(m)
+        return edges, mass
+
+    def _edges_sparse(self, mats):
+        """(values (nse, C), indices (nse, 2)) of the matrices `mats` on the
+        union of their patterns, which the mesh fixes: computed once."""
+        if self._edge_pattern is None:
+            union = sum(abs(m) for m in mats).tocoo()
+            self._edge_pattern = (union.row.astype(np.int32), union.col.astype(np.int32))
+        rows, cols = self._edge_pattern
+        values = np.stack([np.asarray(m[rows, cols]).ravel() for m in mats],
+                          axis=-1).astype(np.float32)
+        return values, np.stack([rows, cols], axis=-1)
+
     def __getitem__(self, index: int) -> dict:
-        one = np.array([1.0], dtype=np.float32)   # no edge features
         pos = self.pos[:, :2].astype(np.float32)
+        edge_indices = None
+        if self.return_edge:
+            if self.online_features:
+                edges, masses = self.get_edge(self._a_fine[index: index + 1])
+                mats, mass = edges[0], masses[0]
+            else:
+                mats, mass = self.edge_features[index], self.mass_features[index]
+            if self.sparse_edge:
+                edge, edge_indices = self._edges_sparse(mats)
+            else:
+                edge = np.stack([m.toarray() for m in mats], axis=-1).astype(np.float32)
+            mass = mass.toarray().astype(np.float32)
+        else:   # no edge features
+            edge = mass = np.array([1.0], dtype=np.float32)
         if self.subsample_attn < 5:
-            pos = one
-        return dict(node=self.node_features[index],
-                    coeff=self.coeff[index].astype(np.float32),
-                    pos=pos,
-                    grid=self.pos_fine.astype(np.float32),
-                    edge=one,
-                    mass=one,
-                    target=self.target[index],
-                    target_grad=self.target_grad[index])
+            pos = np.array([1.0], dtype=np.float32)
+        out = dict(node=self.node_features[index],
+                   coeff=self.coeff[index].astype(np.float32),
+                   pos=pos,
+                   grid=self.pos_fine.astype(np.float32),
+                   edge=edge,
+                   mass=mass,
+                   target=self.target[index],
+                   target_grad=self.target_grad[index])
+        if edge_indices is not None:
+            out["edge_indices"] = edge_indices
+        return out

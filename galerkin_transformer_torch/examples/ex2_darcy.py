@@ -7,10 +7,12 @@ default; every type of JAX's 2D model), an interp upscaler and a
 ``SpectralConv2d`` decoder with the Dirichlet boundary, trained with the
 coefficient-weighted H¹-regularized relative L2 and 1cycle Adam.  Reads
 ``piececonst_r421_*.mat`` when paths are given, otherwise makes synthetic
-finite-difference Darcy pairs (use a small ``--n-grid-fine``: the
-generator is a sparse direct solve per sample).  Runs on the GPU unless
-``--device cpu`` is given; without a GPU that default raises.
+finite-difference Darcy pairs: at the default 421 grid by multigrid on the
+device (``DarcyDataset``), on small sets by the host's sparse direct
+solve.  Runs on the GPU unless ``--device cpu`` is given; without a GPU
+that default raises.
 
+    python -m galerkin_transformer_torch.examples.ex2_darcy
     python -m galerkin_transformer_torch.examples.ex2_darcy --n-grid-fine 141 --bf16
     python -m galerkin_transformer_torch.examples.ex2_darcy --n-grid-fine 141 \
         --attention-type softmax
@@ -39,7 +41,7 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
     set_matmul_precision(fast_matmul=args.fast_matmul)
 
     kw = dict(subsample_attn=args.subsample_attn, subsample_nodes=args.subsample_nodes,
-              n_grid_fine=args.n_grid_fine)
+              n_grid_fine=args.n_grid_fine, device=device)
     train_dataset = DarcyDataset(data_path=args.train_path, train_data=True,
                                  train_len=args.train_len,
                                  n_samples_synthetic=args.n_samples, **kw)

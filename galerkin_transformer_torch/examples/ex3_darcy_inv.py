@@ -7,6 +7,9 @@ regularizer, the loss's mesh size h = 1/n_grid_coarse.  Data, device and
 ``--attention-type`` as in ``ex2_darcy``.
 
     python -m galerkin_transformer_torch.examples.ex3_darcy_inv --n-grid-fine 141
+    python -m galerkin_transformer_torch.examples.ex3_darcy_inv --subsample-nodes 2 \
+        --subsample-attn 6 --noise 0.05 --n-samples 1024 --train-len 1024 \
+        --online-noise --ema-decay 0.999 --epochs 150
     python -m galerkin_transformer_torch.examples.ex3_darcy_inv --device cpu \\
         --n-grid-fine 61 --n-samples 16 --epochs 2
 """
@@ -35,7 +38,7 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
     kw = dict(inverse_problem=True, subsample_attn=args.subsample_attn,
               subsample_nodes=args.subsample_nodes, subsample_inverse=args.subsample_attn,
               subsample_method_inverse="average", n_grid_fine=args.n_grid_fine,
-              noise=args.noise)
+              noise=args.noise, device=device)
     # --online-noise: the train inputs stay clean in the dataset and fresh noise
     # is drawn in every train step (validation keeps its baked noise)
     train_kw = dict(kw, noise=0.0) if args.online_noise else kw

@@ -19,6 +19,7 @@ from torch import nn
 from ..utils.device import resolve_device
 from ..utils.misc import default
 from .encoder import SimpleTransformerEncoderLayer, VanillaTransformerEncoderLayer
+from .graph import GAT, GCN
 from .layers import ATTENTION_TYPES, BulkRegressor, Identity, linear
 from .regressor import PointwiseRegressor, SpectralRegressor
 from .scaler import DownScaler, UpScaler
@@ -42,6 +43,20 @@ class _ConfigurableModel(nn.Module):
         kwargs = {k: v for k, v in dict(config).items() if k in fields}
         kwargs.update(overrides)
         return cls(**kwargs)
+
+
+def _graph_extractor(kind, num_feat_layers, node_feats, n_hidden, edge_feats,
+                     graph_activation, raw_laplacian, g):
+    """JAX's ``feat_extract`` GCN or GAT (transformer.py:114-127), or None
+    for any other `kind` or no layers."""
+    if num_feat_layers > 0 and kind == "gcn":
+        return GCN(node_feats=node_feats, edge_feats=edge_feats, num_gcn_layers=num_feat_layers,
+                   out_features=n_hidden, activation=graph_activation,
+                   raw_laplacian=bool(raw_laplacian), generator=g)
+    if num_feat_layers > 0 and kind == "gat":
+        return GAT(node_feats=node_feats, out_features=n_hidden, num_gcn_layers=num_feat_layers,
+                   activation=bool(graph_activation), generator=g)
+    return None
 
 
 def _raise_unported(model: str, unported: dict):
@@ -73,17 +88,21 @@ class SimpleTransformer(_ConfigurableModel):
     (``torch.bfloat16``) is the SimpleAttention layers' compute type: the
     parameters stay float32 and the decoder runs in float32.  Options of
     the JAX model that this port does not carry raise
-    ``NotImplementedError``: graph feature extractors, ``batch_norm`` (no
-    JAX train step carries its statistics) and a spectral regressor of
-    another dimension than 1.
+    ``NotImplementedError``: ``batch_norm`` (no JAX train step carries its
+    statistics) and a spectral regressor of another dimension than 1.
+    * ``num_feat_layers > 0`` with ``feat_extract_type`` ``gcn`` or ``gat``:
+      the lift is a `GCN` (an `EdgeEncoder` of the `edge_feats` edge
+      channels, then graph convolutions) or a `GAT` on the edge's first
+      channel, taking forward's `edge` (B, n, n, E).
     """
 
-    def __init__(self, node_feats: int = 1,
+    def __init__(self, node_feats: int = 1, edge_feats: Optional[int] = None,
                  pos_dim: int = 1, n_targets: int = 1, n_hidden: int = 96,
                  num_feat_layers: int = 0, num_encoder_layers: int = 4,
                  n_head: int = 1, pred_len: int = 0, n_freq_targets: int = 0,
                  dim_feedforward: Optional[int] = None,
                  feat_extract_type: Optional[str] = None,
+                 graph_activation: bool = True, raw_laplacian: Optional[bool] = None,
                  attention_type: str = "fourier", xavier_init: float = 1e-2,
                  diagonal_weight: float = 1e-2, symmetric_init: bool = False,
                  layer_norm: bool = False, attn_norm: Optional[bool] = True,
@@ -111,8 +130,6 @@ class SimpleTransformer(_ConfigurableModel):
         if not spectral and decoder_type not in ("pointwise", "convolution"):
             raise NotImplementedError(f"decoder type {decoder_type!r} not implemented")
         _raise_unported("SimpleTransformer", {
-            "graph feature extractors (num_feat_layers > 0 with gcn/gat)":
-                num_feat_layers > 0 and feat_extract_type in ("gcn", "gat"),
             "a spectral regressor of another dimension than 1":
                 spectral and spacial_dim != 1,
             "batch_norm in the feed-forward": batch_norm,
@@ -127,7 +144,10 @@ class SimpleTransformer(_ConfigurableModel):
             num_encoder_layers += 1
         dim_feedforward = default(dim_feedforward, 2 * n_hidden)
 
-        self.feat_extract = Identity(node_feats, n_hidden, generator=g)
+        graph = _graph_extractor(feat_extract_type, num_feat_layers, node_feats, n_hidden,
+                                 edge_feats, graph_activation, raw_laplacian, g)
+        self.graph = graph is not None
+        self.feat_extract = graph if self.graph else Identity(node_feats, n_hidden, generator=g)
         self.vanilla = attention_type not in ATTENTION_TYPES
         if self.vanilla:
             # the softmax baseline (transformer.py:137-153)
@@ -179,7 +199,7 @@ class SimpleTransformer(_ConfigurableModel):
         self.to(device)
 
     def forward(self, node, edge=None, pos=None, grid=None, weight=None):
-        x = self.feat_extract(node)
+        x = self.feat_extract(node, edge) if self.graph else self.feat_extract(node)
         res = x
         # as in JAX, the lift's output is the first latent whenever the
         # residual is kept, even without return_latent
@@ -243,18 +263,22 @@ class FourierTransformer2D(_ConfigurableModel):
       kernel, fourier's dense n×n weights beside its chain kernel).
     * ``decoder_type``: ``ifft2`` or ``pointwise``; any other (JAX's
       ``attention`` too, transformer.py:448-451) raises
-      ``NotImplementedError``, as do graph feature extractors and
-      ``batch_norm``.
+      ``NotImplementedError``, as does ``batch_norm``.
+    * ``num_feat_layers > 0`` with ``feat_extract_type`` ``gcn`` or ``gat``:
+      a `GCN` or `GAT` (``feat_extract``) on the downscaled coarse sequence
+      (n_hidden features) with forward's `edge` (B, n_c², n_c², E)
+      (transformer.py:329-341).
 
     Built and placed as `SimpleTransformer` is; `dtype` is the compute type
     of the scalers and the encoder (float32 parameters, float32 decoder).
     """
 
-    def __init__(self, node_feats: int = 1,
+    def __init__(self, node_feats: int = 1, edge_feats: Optional[int] = None,
                  pos_dim: int = 2, n_targets: int = 1, n_hidden: int = 128,
                  num_feat_layers: int = 0, num_encoder_layers: int = 6,
                  n_head: int = 4, dim_feedforward: Optional[int] = None,
                  feat_extract_type: Optional[str] = None,
+                 graph_activation: bool = True, raw_laplacian: Optional[bool] = None,
                  attention_type: str = "galerkin", xavier_init: float = 1e-2,
                  diagonal_weight: float = 1e-2, symmetric_init: bool = False,
                  layer_norm: bool = False, attn_norm: Optional[bool] = True,
@@ -287,8 +311,6 @@ class FourierTransformer2D(_ConfigurableModel):
         if decoder_type not in ("ifft2", "pointwise"):
             raise NotImplementedError(f"decoder type {decoder_type!r} not implemented")
         _raise_unported("FourierTransformer2D", {
-            "graph feature extractors (num_feat_layers > 0 with gcn/gat)":
-                num_feat_layers > 0 and feat_extract_type in ("gcn", "gat"),
             "batch_norm in the feed-forward": batch_norm,
         })
         device = resolve_device(device)
@@ -308,6 +330,9 @@ class FourierTransformer2D(_ConfigurableModel):
             self.downscaler = Identity(node_feats + spacial_dim, n_hidden,
                                        generator=g)
         self.concat_pos = not downscaler_size
+        self.feat_extract = _graph_extractor(feat_extract_type, num_feat_layers, n_hidden,
+                                             n_hidden, edge_feats, graph_activation,
+                                             raw_laplacian, g)
         self.dropout = nn.Dropout(default(dropout, 0.05))
         dim_feedforward = default(dim_feedforward, 2 * n_hidden)
         self.official = attention_type == "official"
@@ -381,6 +406,8 @@ class FourierTransformer2D(_ConfigurableModel):
             node = torch.cat([node, pos.reshape(bsz, n_s, n_s, -1).to(node.dtype)],
                              dim=-1)
         x = self.downscaler(node).reshape(bsz, -1, self.n_hidden)
+        if self.feat_extract is not None:
+            x = self.feat_extract(x, edge)
         x = self.dropout(x)
         x_latent, attn_weights = [], []
         if self.official:

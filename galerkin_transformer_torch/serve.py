@@ -6,7 +6,10 @@ batches (1D: node (B, n, C), pos and grid (B, n, 1); 2D: node
 node (B, n, n, T_in), pos (B, n², 2), grid (B, n, n, 2)) with numpy
 predictions.  The operator is discretization-invariant, so every input
 resolution is served by the same weights.  Floating inputs and normalizers
-are taken as float32, whatever their type.
+are taken as float32, whatever their type.  A model with a graph feature
+extractor (GCN or GAT) also takes the batch's ``edge`` features (1D
+(B, n, n, E), 2D (B, n_c², n_c², E)), which the JAX package's Predictor
+does not pass.
 
 The JAX package compiles one executable per input shape; the port's
 counterpart on a CUDA device is one CUDA graph per request key (the
@@ -39,12 +42,14 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .models.graph import GAT, GCN
 from .ops.cuda._graph import Replayed
 from .train.checkpoint import load_jax_checkpoint, read_jax_payload
 from .utils.device import resolve_device
 from .utils.torch_compat import check_state_dict, load_torch_file, state_dict_of
 
 KEYS = ("node", "pos", "grid")
+GRAPH_KEYS = KEYS + ("edge",)
 
 
 class _Captured:
@@ -72,6 +77,8 @@ class Predictor:
         self.model = model.to(self.device).eval()
         self._takes_normalizer = (
             "normalizer" in inspect.signature(model.forward).parameters)
+        self._keys = GRAPH_KEYS if any(isinstance(m, (GCN, GAT)) for m in model.modules()) \
+            else KEYS
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._captured: Dict[tuple, _Captured] = {}
         self._normalizer = None
@@ -108,16 +115,16 @@ class Predictor:
         return cls(model, normalizer=saved if normalizer is None else normalizer,
                    device=device)
 
-    def _forward(self, node, pos, grid) -> torch.Tensor:
+    def _forward(self, node, pos, grid, edge=None) -> torch.Tensor:
         kwargs = {"normalizer": self._normalizer} if self._takes_normalizer else {}
-        return self.model(node, None, pos, grid, **kwargs)["preds"]
+        return self.model(node, edge, pos, grid, **kwargs)["preds"]
 
     def __call__(self, batch: dict) -> np.ndarray:
         if self._stream is None:
             with torch.inference_mode():
-                node, pos, grid = (_as_input(batch[k], self.device) for k in KEYS)
-                return self._forward(node, pos, grid).cpu().numpy()
-        inputs = _inputs(batch)
+                inputs = (_as_input(batch[k], self.device) for k in self._keys)
+                return self._forward(*inputs).cpu().numpy()
+        inputs = _inputs(batch, self._keys)
         key = _key(inputs)
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.inference_mode(), torch.cuda.stream(self._stream):
@@ -136,7 +143,7 @@ class Predictor:
         """The replayed forward of `batch`'s request key (its ``kernels()``,
         ``eager`` calls and ``replays``), or None: never served, or on the
         CPU."""
-        captured = self._captured.get(_key(_inputs(batch)))
+        captured = self._captured.get(_key(_inputs(batch, self._keys)))
         return None if captured is None else captured.forward
 
     def warmup(self, batch: dict) -> "Predictor":
@@ -165,11 +172,11 @@ def read_checkpoint(path: str) -> Tuple[str, Dict[str, torch.Tensor], Optional[T
     return "reference", state_dict_of(obj), None
 
 
-def _inputs(batch: dict) -> list:
-    """node, pos and grid as tensors where they lie (numpy arrays as CPU
-    tensors, without a copy)."""
+def _inputs(batch: dict, keys=KEYS) -> list:
+    """The batch's entries of `keys` as tensors where they lie (numpy arrays
+    as CPU tensors, without a copy)."""
     return [x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
-            for x in (batch[k] for k in KEYS)]
+            for x in (batch[k] for k in keys)]
 
 
 def _key(inputs: list) -> tuple:

@@ -113,7 +113,10 @@ class DeviceEpochRunner:
     `run_block` tracks the best validation metric.
     ``train_step.generators`` (see ``train.steps``) are registered with the
     graph, so that each replay draws fresh noise; dropout on the default
-    generator is registered by ``torch.cuda.graph`` itself.
+    generator is registered by ``torch.cuda.graph`` itself.  A
+    ``train_step.before_step`` callable runs on the host before every train
+    step, eager or replayed (the random-feature models redraw their ω into
+    its buffers there).
     """
 
     def __init__(self, model: torch.nn.Module, train_step: Callable, eval_step: Callable,
@@ -276,7 +279,10 @@ class DeviceEpochRunner:
         self._ids.copy_(perm[: self.n_batches * self.batch_size].view(self._ids.shape))
         self._index.zero_()
         count = getattr(self.optimizer, "count", None)
+        before = getattr(self.train_step, "before_step", None)
         for _ in range(self.n_batches):
+            if before is not None:
+                before()
             self._train()
         if self.graphed:   # the capture moved the host count, the replays did not
             self.optimizer.count = count + self.n_batches

@@ -14,14 +14,18 @@ stack (T, in, out) of the `BulkRegressor` becomes a `BatchedLinear` weight
 (in, H, d_h) for query, key and value and (H, d_h, out) for out, become
 Linear weights (H·d_h, in) and (out, H·d_h); the 2D ``official`` branch's
 vanilla blocks map as the 1D ones do, and ``official_proj`` keeps its
-name.  The JAX package's
+name.  The graph extractors' ``gcn_layer{i}`` / ``gat_layer{i}`` become
+``gcn_layer0`` and ``gcn_layers.{i-1}`` (``gat_...`` alike), their
+``weight``, ``bias``, ``W`` and ``a`` (in, out) unchanged, and the edge
+encoder's ``lap_conv1`` / ``lap_conv2`` map as the other convolutions.
+The JAX package's
 ``utils/torch_compat.py::convert_state_dict`` is the inverse map for the
 module families it knows.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -48,6 +52,8 @@ _MODULE_RULES = [   # (JAX module path, port module name); \d groups carried
     (r"encoder_layer(\d+)/attn/k_proj", "encoder_layers.{0}.attn.linears.1"),
     (r"encoder_layer(\d+)/attn/v_proj", "encoder_layers.{0}.attn.linears.2"),
     (r"encoder_layer(\d+)/attn/fc", "encoder_layers.{0}.attn.fc"),
+    (r"encoder_layer(\d+)/attn/(query|key|value|out)_projection",
+     "encoder_layers.{0}.attn.{1}_projection"),
     (r"encoder_layer(\d+)/ff/lr([12])", "encoder_layers.{0}.ff.lr{1}"),
     (r"encoder_layer(\d+)/layer_norm([12])", "encoder_layers.{0}.layer_norm{1}"),
     (r"encoder_layer(\d+)/(linear[12]|norm[12])", "encoder_layers.{0}.{1}"),
@@ -62,6 +68,7 @@ _MODULE_RULES = [   # (JAX module path, port module name); \d groups carried
     (r"regressor/out", "regressor.out"),
 ]
 _CONV_RULES = [   # the convolution `conv` or `conv1` of a Conv2dResBlock
+    (r"feat_extract/edge_learner/(lap_conv[12])/(conv1?)", "feat_extract.edge_learner.{0}.{1}.0"),
     (r"downscaler/interp/(conv\d)/(conv1?)", "downscaler.downsample.{0}.{1}.0"),
     (r"downscaler/conv([01])/(conv\d)/(conv1?)", "downscaler.downsample.{0}.{1}.{2}.0"),
     (r"upscaler/interp/conv/(conv1?)", "upscaler.upsample.conv.0.{0}.0"),
@@ -69,14 +76,31 @@ _CONV_RULES = [   # the convolution `conv` or `conv1` of a Conv2dResBlock
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 
-def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX SimpleTransformer, FourierTransformer2D or
-    FourierTransformer2DLite params (nested dicts of arrays) -> state_dict.
+def params_from_jax(tree: Mapping, random_features: Optional[Mapping] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX SimpleTransformer, FourierTransformer2D,
+    FourierTransformer2DLite or RandomFourierTransformer params (nested
+    dicts of arrays) -> state_dict.  `random_features`, the JAX
+    ``random_features`` collection of a random-feature model, adds each
+    layer's ω (``encoder_layers.{i}.attn.omega``).
 
     Raises KeyError on a parameter this port has no place for."""
     sd: Dict[str, torch.Tensor] = {}
+    for path, val in _flatten(random_features or {}).items():
+        m = re.fullmatch(r"encoder_layer(\d+)/attn/omega", "/".join(path))
+        if m is None:
+            raise KeyError(f"no port buffer for JAX random feature {'/'.join(path)!r}")
+        sd[f"encoder_layers.{m.group(1)}.attn.omega"] = torch.from_numpy(
+            np.array(val, dtype=np.float32))
     for path, val in _flatten(tree).items():
         key = "/".join(path)
+        m = re.fullmatch(r"feat_extract/(gcn|gat)_layer(\d+)/(weight|bias|W|a)", key)
+        if m:   # the graph layers' own parameters, (in, out) in both packages
+            i = int(m.group(2))
+            name = f"{m.group(1)}_layer0" if i == 0 else f"{m.group(1)}_layers.{i - 1}"
+            sd[f"feat_extract.{name}.{m.group(3)}"] = torch.from_numpy(
+                np.array(val, dtype=np.float32))
+            continue
         m = re.fullmatch(r"encoder_layer(\d+)/attn/norm_([KQV])_(scale|bias)", key)
         if m:
             leaf = _LEAF[m.group(3)]
@@ -169,6 +193,11 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], n_head=None) -> dict:
     heads: Dict[tuple, dict] = {}
     for key, tensor in state_dict.items():
         val = tensor.detach().float().cpu().numpy()
+        m = re.fullmatch(r"feat_extract\.(gcn|gat)_layer(?:0|s\.(\d+))\.(weight|bias|W|a)", key)
+        if m:
+            i = 0 if m.group(2) is None else int(m.group(2)) + 1
+            put(f"feat_extract/{m.group(1)}_layer{i}/{m.group(3)}", val)
+            continue
         m = re.fullmatch(r"encoder_layers\.(\d+)\.attn\.norm_([KQV])\.(\d+)\.(weight|bias)", key)
         if m:
             heads.setdefault((m.group(1), m.group(2), m.group(4)), {})[int(m.group(3))] = val

@@ -595,8 +595,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    dict(decoder_type="attention"), dict(feat_extract_type="gcn", num_feat_layers=2),
-    dict(batch_norm=True),
+    dict(decoder_type="attention"), dict(batch_norm=True),
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError):

@@ -1366,3 +1366,112 @@ def test_checkpoint_kinds_serve_the_same_on_cuda(dev, tmp_path):
         pred = Predictor.from_checkpoint(SimpleTransformer.from_config(cfg, seed=2), path)
         outs.append(pred.warmup(batch)(batch))
     assert all(np.array_equal(o, outs[0]) for o in outs[1:]) and np.isfinite(outs[0]).all()
+
+
+def _darcy_coeff(n, b, seed):
+    from galerkin_transformer_torch.data.synthetic_torch import grf_2d_torch
+    g = grf_2d_torch(torch.Generator().manual_seed(seed), b, n, tau=3.0, alpha=2.0, device="cpu")
+    return torch.where(g >= 0, 12.0, 3.0)
+
+
+def test_multigrid_captured_cycles_equal_eager_ones_and_the_cpu(dev):
+    """One captured cycle replayed bit-equal to eager cycles on the card;
+    card against CPU at a fixed count to 1e-4 of the largest entry (float32
+    sums in another order over 2 cycles of 3·n_c coarse iterations)."""
+    from galerkin_transformer_torch.data.synthetic_torch import darcy_mg
+    coeff = _darcy_coeff(85, 3, 0)
+    stats = {}
+    got = darcy_mg(coeff.to(dev), 85, tol=1e-3, stats=stats)
+    assert torch.equal(got, darcy_mg(coeff.to(dev), 85, tol=1e-3, graphs=False))
+    assert stats["kernels"] > 0 and stats["cycles"] >= 2
+    fixed = dict(max_cycles=2, tol=0.0)
+    want = darcy_mg(coeff, 85, **fixed)
+    torch.testing.assert_close(darcy_mg(coeff.to(dev), 85, **fixed).cpu(), want, rtol=0,
+                               atol=1e-4 * want.abs().max().item())
+
+
+def test_cg_restart_periods_replayed_equal_a_host_read_every_iteration(dev):
+    from galerkin_transformer_torch.data.synthetic_torch import darcy_cg_torch
+    coeff = _darcy_coeff(61, 3, 1).to(dev)
+    every = darcy_cg_torch(coeff, 61, max_iters=450, tol=1e-4, read_every=1)
+    assert torch.equal(every, darcy_cg_torch(coeff, 61, max_iters=450, tol=1e-4))
+
+
+def test_darcy_mg_torch_on_the_card_passes_the_gate(dev):
+    from galerkin_transformer_torch.data.synthetic_torch import darcy_mg_torch, fd_residual_host
+    stats = {}
+    coeff, sol = darcy_mg_torch(4, 141, seed=3, device=dev, stats=stats)
+    assert stats["resolved"] == 0 and (fd_residual_host(coeff, sol) < 0.05).all()
+    cpu_coeff, _ = darcy_mg_torch(4, 141, seed=3, device="cpu")
+    np.testing.assert_array_equal(coeff, cpu_coeff)   # the draws do not depend on the device
+
+
+def test_graph_models_on_the_card_match_the_cpu(dev):
+    """A GCN and a GAT SimpleTransformer (galerkin) on the card against the
+    CPU, served at float32 rounding (1e-4 of the largest entry)."""
+    from galerkin_transformer_torch import SimpleTransformer, load_config
+    from galerkin_transformer_torch.ops.fem import get_distance_matrix, get_laplacian_1d
+    n = 64
+    grid = np.linspace(0, 1, n)
+    lap = get_laplacian_1d(grid).toarray()
+    edge = np.concatenate([np.stack([lap, lap @ lap], -1), get_distance_matrix(grid)], -1)
+    rng = np.random.default_rng(0)
+    inputs = [rng.standard_normal((2, n, 1)), np.broadcast_to(edge, (2, n, n, 4)),
+              grid[None, :, None].repeat(2, 0), grid[None, :, None].repeat(2, 0)]
+    for kind in ("gcn", "gat"):
+        cfg = {**load_config("ex1_burgers"), "n_hidden": 32, "dim_feedforward": 64,
+               "attention_type": "galerkin", "feat_extract_type": kind, "num_feat_layers": 2,
+               "edge_feats": 4}
+        outs = []
+        for device in (dev, "cpu"):
+            model = SimpleTransformer.from_config(cfg, device=device, seed=1).eval()
+            with torch.inference_mode():
+                outs.append(model(*(torch.tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                                                 device=device) for x in inputs))["preds"].cpu())
+        torch.testing.assert_close(outs[0], outs[1], rtol=0,
+                                   atol=1e-4 * outs[1].abs().max().item())
+
+
+def test_random_feature_replays_draw_a_new_omega_each(dev):
+    """The device loop of the random-feature model: ω written on the host
+    before each step, so each replay reads a new one, the same sequence as
+    the eager loop's, and the two runs agree bit for bit."""
+    from galerkin_transformer_torch.data import BurgersDataset, DataLoader
+    from galerkin_transformer_torch.examples.ex1_burgers_random_fourier_features import (
+        RandomFourierTransformer)
+    from galerkin_transformer_torch.models.random_fourier import redraw_random_features
+    from galerkin_transformer_torch.train import (AdamOneCycle, DeviceEpochRunner,
+                                                  WeightedL2Loss, make_burgers_steps)
+    train = BurgersDataset(subsample=64, n_samples_synthetic=32, train_portion=0.5)
+    loader = DataLoader(train, 4, drop_last=True)
+
+    def run(eager):
+        model = RandomFourierTransformer(n_hidden=32, num_encoder_layers=2, device=dev, seed=2)
+        opt = AdamOneCycle(model.parameters(), 1e-3, 40)
+        train_step, eval_step = make_burgers_steps(model, WeightedL2Loss(h=1 / 128),
+                                                   WeightedL2Loss(h=1 / 128), opt)
+        gen, seen = torch.Generator().manual_seed(5), []
+
+        def before():
+            redraw_random_features(model, gen)
+            seen.append(model.encoder_layers[0].attn.omega.cpu().clone())
+
+        train_step.before_step = before
+        if eager:
+            losses = []
+            for _ in range(3):
+                for batch in loader:
+                    before()
+                    losses.append(float(train_step(batch)[0]))
+            return np.asarray(losses), seen
+        runner = DeviceEpochRunner(model, train_step, eval_step, opt, loader, loader,
+                                   verbose=False)
+        losses = np.concatenate([runner.train_epoch(e).cpu().numpy()[:, 0] for e in range(3)])
+        assert runner.replays == len(losses) - 2
+        return losses, seen
+
+    got, got_omega = run(False)
+    want, want_omega = run(True)
+    assert all(not torch.equal(a, b) for a, b in zip(got_omega, got_omega[1:]))
+    assert all(torch.equal(a, b) for a, b in zip(got_omega, want_omega))
+    np.testing.assert_allclose(got, want, rtol=1e-5)

@@ -180,8 +180,9 @@ def test_darcy_dataset_dummy_pos_cache_and_unported_options(data_path):
     np.testing.assert_array_equal(again[1]["node"], ds[1]["node"])
     batch = next(iter(DataLoader(ds, 2)))
     assert batch["node"].shape == (2, 13, 13, 1) and batch["edge"].shape == (2, 1)
-    with pytest.raises(NotImplementedError, match="return_edge"):
-        DarcyDataset(n_grid_fine=13, n_samples_synthetic=4, return_edge=True)
+    # return_edge is ported: the coarse grid's FEM features, three Krylov powers
+    edged = DarcyDataset(n_grid_fine=13, n_samples_synthetic=4, return_edge=True)
+    assert edged[0]["edge"].shape == (1, 1, 3)
 
 
 # ------------------------------------------------------------- train step

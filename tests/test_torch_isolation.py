@@ -31,7 +31,9 @@ def test_port_modules_and_chip_smoke_import_no_jax():
                  "data.synthetic_torch", "examples.ex4_navier_stokes", "utils.args",
                  "utils.naming", "train.checkpoint", "train.schedule", "train.trainer",
                  "train.device_loop", "utils.torch_compat",
-                 "examples.ex1_burgers_super_res"):
+                 "examples.ex1_burgers_super_res", "models.graph", "ops.fem_native",
+                 "ops.sparse", "models.random_fourier",
+                 "examples.ex1_burgers_random_fourier_features"):
         assert f"galerkin_transformer_torch.{name}" in modules
     code = "\n".join(
         [f"import {m}" for m in modules]

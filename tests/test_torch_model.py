@@ -171,7 +171,6 @@ def test_config_dict_equals_config_yml():
 
 @pytest.mark.parametrize("override", [
     dict(spacial_dim=2), dict(batch_norm=True),
-    dict(feat_extract_type="gcn", num_feat_layers=2),
 ])
 def test_unported_options_raise(override):
     cfg = _small_cfg("fourier")

@@ -12,6 +12,7 @@ layers, n_hidden 32, 24 training samples in 3 steps an epoch, 8 validation
 samples, dropout off), its weights carried across by `params_from_jax`.
 """
 import argparse
+import datetime
 import functools
 import importlib.util
 import os
@@ -47,6 +48,32 @@ from galerkin_transformer_torch.utils.weights import params_from_jax
 from tests.test_device_loop import _tiny_setup
 
 H = 8 / 512   # the tiny setup's mesh size: subsample 8 of a 512 grid
+DAY = datetime.date(2026, 10, 17)
+
+
+class _Day(datetime.date):
+    """A ``date`` whose ``today()`` is `DAY`."""
+
+    @classmethod
+    def today(cls):
+        return cls(DAY.year, DAY.month, DAY.day)
+
+
+def pin_checkpoint_date(monkeypatch):
+    """Give both packages' `get_model_name` one date.  The name of a
+    checkpoint ends in today's date, so a driver that resumes after
+    midnight looks for another file than the one its first run wrote and
+    starts afresh, in both packages; a test that runs a driver twice, or
+    names a file after a run, must not see the date turn between its
+    calls."""
+    from galerkin_transformer_torch.utils import naming
+    monkeypatch.setattr(naming, "date", _Day)
+    monkeypatch.setattr(j_naming, "date", _Day)
+
+
+@pytest.fixture(autouse=True)
+def _one_date(monkeypatch):
+    pin_checkpoint_date(monkeypatch)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPIKE = re.compile(r"loss spike at epoch (\d+)")
 

@@ -207,7 +207,21 @@
    ``DeviceEpochRunner`` against the eager loop, ω redrawn on the host
    before each step: a new ω every replay, the same sequence as the eager
    loop's;
-16. prints one {"kernels": [...]} line (launches summed over the main
+16. parallel phase (``parallel_phase``), the multi-device paths, each rank a
+   process started by ``parallel.spawn`` (a rank that fails fails the
+   phase): world 1 over NCCL, three full-width ex1 galerkin f32 steps with
+   a mesh (n = 8192, batch 8) and ``Predictor(mesh=)`` requests, each equal
+   to the same without a mesh (to 1e-6); then two ranks sharing the card
+   over gloo on a 1 x 2 (data x seq) mesh: the ex1 galerkin model with
+   ``seq_mesh`` served in f32 and bf16 at n = 8192 and the ex2 model at
+   (211, 71) (5041 coarse tokens, padded to 5042), each against the
+   one-process kernel path, with exactly the kernel's launches per layer
+   on each rank, three f32 steps held to the one-process steps (losses
+   2e-5, parameters rtol 1e-4 / atol 1e-5), and one bf16 step held to the
+   one-process bf16 step at the bf16 train tolerances (its launches of
+   ``galerkin_scores_bwd_bf16`` counted); each rank's local partial
+   against the whole kernel, and the collectives' times;
+17. prints one {"kernels": [...]} line (launches summed over the main
    paths), then the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a GPU it exits 1 and
@@ -3354,6 +3368,359 @@ def round_trip(ckpt, cfg, batch, want, served):
           f"read back by content, each served bit-equal to the original")
 
 
+# parallel phase: the multi-device paths on the one card.  World 1 over NCCL
+# (all-reducing one rank is the identity), then two ranks sharing cuda:0 over
+# gloo (NCCL refuses two ranks on one device; gloo takes CUDA tensors)
+PAR_N = RESOLUTIONS[0]        # ex1 at the full 2^13 grid
+PAR_STEPS = 3
+PAR_REQUESTS = 3
+PAR_GRID_2D = GRIDS_2D[1]     # (211, 71): 71² = 5041 coarse tokens, padded to 5042
+PAR_JOIN_S = 240              # each spawn's limit: a hung collective fails the phase
+# world 1: the mesh step and request against the same ones without a mesh
+TOL_PAR_WORLD1 = 1e-6
+# two ranks: losses relative, parameters (rtol, atol) after three steps, as
+# JAX holds its sequence-parallel step to its unsharded one
+# (tests/test_parallel.py::test_seq_parallel_train_step_matches_unsharded)
+TOL_PAR_LOSS = 2e-5
+TOL_PAR_PARAM = (1e-4, 1e-5)
+
+
+def _par_setup():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return np.random.default_rng(SEED)
+
+
+def _par_train_batch(rng, n=PAR_N):
+    batch = make_batch(rng, n)
+    batch["target"] = rng.standard_normal((BATCH, n, 2)).astype(np.float32)
+    return batch
+
+
+def _par_steps(mesh=None, seq_mesh=None, dtype=None):
+    """A full-width ex1 galerkin model (dropout off) and its steps, on a
+    `mesh` (the steps' gradient averaging) and with a `seq_mesh`."""
+    cfg = load_config("ex1_burgers")
+    cfg["attention_type"] = "galerkin"
+    model = no_dropout(SimpleTransformer.from_config(cfg, device="cuda", seed=SEED,
+                                                     dtype=dtype, seq_mesh=seq_mesh))
+    opt = AdamOneCycle(model.parameters(), 1e-3, 100)
+    h = 1 / PAR_N
+    train_step, _ = make_burgers_steps(model, WeightedL2Loss(regularizer=True, h=h, gamma=0.1),
+                                       WeightedL2Loss(h=h), opt, mesh=mesh)
+    return model, train_step
+
+
+def _par_run_steps(step, batches):
+    """Losses of one step per batch, and the wrappers' launches over them."""
+    reset_launches()
+    losses = [[float(x) for x in step(b)] for b in batches]
+    return losses, launches()
+
+
+def _par_loss_err(losses, want) -> tuple:
+    """(largest relative, largest absolute) gap of `losses` from `want`
+    (lists of steps' losses); NaN when any loss is not finite, so that no
+    tolerance passes it."""
+    a, b = np.asarray(losses, np.float64), np.asarray(want, np.float64)
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        return math.nan, math.nan
+    gap = np.abs(a - b)
+    return (float(np.max(gap / np.where(b != 0, np.abs(b), np.inf))),
+            float(np.max(gap)))
+
+
+def _par_param_err(model, ref, rtol, atol) -> float:
+    """The largest |a - b| / (atol + rtol |b|) over every parameter (<= 1
+    passes); NaN when any parameter of either model is not finite."""
+    ref = dict(ref.named_parameters())
+    with torch.no_grad():
+        if not all(bool(torch.isfinite(p).all() and torch.isfinite(ref[k]).all())
+                   for k, p in model.named_parameters()):
+            return math.nan
+        return float(torch.stack([((p - ref[k]).abs() / (atol + rtol * ref[k].abs())).max()
+                                  for k, p in model.named_parameters()]).max())
+
+
+def _par_grad_err(model, ref) -> tuple:
+    """The largest gap of a gradient of `model` from that of `ref`, over
+    the largest entry of the reference's (as `compare_step` holds them),
+    and its parameter; NaN when any gradient is not finite."""
+    ref = dict(ref.named_parameters())
+    worst, key = 0.0, ""
+    for k, p in model.named_parameters():
+        err, scale = max_err(p.grad, ref[k].grad)
+        rel = err / scale if scale > 0 else err
+        if not (math.isfinite(rel) and bool(torch.isfinite(p.grad).all())):
+            return math.nan, k
+        if rel > worst:
+            worst, key = rel, k
+    return worst, key
+
+
+def _par_collective_ms(collective, iters: int = 20) -> float:
+    """Host-clock ms of one `collective()` on the card, synchronized."""
+    for _ in range(3):
+        collective()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        collective()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _par_allreduce_ms(group) -> float:
+    """ms of one all-reduce of the ex1 scores (8, 1, 97, 97) f32."""
+    s = torch.randn(BATCH, 1, 97, 97, device="cuda")
+    return _par_collective_ms(lambda: torch.distributed.all_reduce(s, group=group))
+
+
+def _par_allgather_ms(mesh) -> float:
+    """ms of the sharded ex1 encoder's exit: the all-gather of each rank's
+    rows of the (8, 8192, 96) f32 output."""
+    from galerkin_transformer_torch.parallel import gather_rows
+    from galerkin_transformer_torch.parallel.galerkin import axis_rows
+
+    rows = axis_rows(mesh, PAR_N)
+    x = torch.randn(BATCH, rows.stop - rows.start, 96, device="cuda")
+    return _par_collective_ms(lambda: gather_rows(x, mesh, PAR_N), iters=5)
+
+
+def _par_world1(rank, world, out_dir):
+    """NCCL, one rank: three ex1 steps with the mesh against three without,
+    `Predictor(mesh=)` against `Predictor`, and the all-reduce's time."""
+    from galerkin_transformer_torch.parallel import make_mesh
+
+    rng = _par_setup()
+    mesh = make_mesh(data=1, seq=1)
+    batches = [_par_train_batch(rng) for _ in range(PAR_STEPS)]
+    meshed, step = _par_steps(mesh=mesh)
+    plain, plain_step = _par_steps()
+    losses, counts = _par_run_steps(step, batches)
+    want, _ = _par_run_steps(plain_step, batches)
+    loss_err, _ = _par_loss_err(losses, want)
+    param_err = _par_param_err(meshed, plain, TOL_PAR_WORLD1, 0.0)
+    cfg = load_config("ex1_burgers")
+    cfg["attention_type"] = "galerkin"
+    requests = [make_batch(rng, PAR_N) for _ in range(PAR_REQUESTS)]
+    reset_launches()
+    served = Predictor(SimpleTransformer.from_config(cfg, seed=SEED), mesh=mesh)
+    outs = [served(b) for b in requests]
+    serve_counts = Counter(launches())
+    serve_counts.update(forward_launches([served.captured(requests[0])]))
+    refs = [Predictor(SimpleTransformer.from_config(cfg, seed=SEED))(b) for b in requests]
+    serve_err = float(np.max([np.abs(o - r).max() / np.abs(r).max() for o, r in zip(outs, refs)]))
+    if not all(np.isfinite(o).all() for o in outs):
+        serve_err = math.nan
+    counts = Counter(counts)
+    counts.update(serve_counts)
+    result = dict(losses=losses, loss_err=loss_err, param_err=param_err,
+                  serve_err=serve_err, launches=dict(counts),
+                  allreduce_ms=_par_allreduce_ms(mesh.groups["seq"]),
+                  backend=torch.distributed.get_backend())
+    with open(os.path.join(out_dir, f"world1_rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _par_serve(tag, sharded, plain, batches, kernel, per_request, tol, scale_of):
+    """`sharded` (a Predictor of a model with a seq mesh: eager requests)
+    against `plain` (the one-process kernel path, captured) on `batches`:
+    the launches of `kernel` per request, the error over `scale_of` the
+    reference, and the median request times."""
+    reset_launches()
+    outs, ms = timed_requests(sharded, batches)
+    counts = launches()
+    if counts[kernel] != per_request * len(batches):
+        raise AssertionError(f"{tag}: {counts[kernel]} launches of {kernel} over "
+                             f"{len(batches)} requests, expected {per_request} each")
+    plain.warmup(batches[0])
+    refs, plain_ms = timed_requests(plain, batches)
+    err = max(float(np.abs(o - r).max()) / scale_of(r) for o, r in zip(outs, refs))
+    if not all(np.isfinite(o).all() and o.shape == r.shape for o, r in zip(outs, refs)) \
+            or not err <= tol:
+        raise AssertionError(f"{tag}: sharded requests {err:.3e} from the one-process "
+                             f"path (tol {tol:.1e})")
+    return dict(err=err, tol=tol, ms=statistics.median(ms), plain_ms=statistics.median(plain_ms),
+                launches=dict(counts))
+
+
+def _par_partial_ms(mesh, rng, dtype) -> dict:
+    """Device ms of this rank's local partial (its n/2 rows) and of the
+    one-process kernel on all n rows, at the ex1 shape, and the kernels one
+    local call launches (a graph captured from it)."""
+    from galerkin_transformer_torch.parallel import axis_rows
+    from galerkin_transformer_torch.parallel.galerkin import _local_scores
+
+    k, v, pos, params = galerkin_inputs(rng, torch.device("cuda"), EX1_SHAPE, dtype)
+    rows = axis_rows(mesh, k.shape[2])
+    local = [t[:, :, rows].contiguous() for t in (k, v)] + [pos[:, rows].contiguous()]
+    part = lambda: _local_scores(*local, params, 1e-5)
+    whole = lambda: GS.galerkin_scores(k, v, pos, *params, 1e-5)
+    part(), whole()
+    out = dict(rows=rows.stop - rows.start,
+               kernels=dict(wrapper_launches(launched_kernels(part))))
+    for turn in range(mesh.shape["seq"]):   # one rank times while the others wait
+        torch.distributed.barrier(group=mesh.groups["seq"])
+        if turn == mesh.index["seq"]:
+            out.update(part_ms=device_ms(part), whole_ms=device_ms(whole))
+        torch.cuda.synchronize()
+    torch.distributed.barrier(group=mesh.groups["seq"])
+    return out
+
+
+def _par_world2(rank, world, out_dir):
+    """Gloo, two ranks on cuda:0, a 1 x 2 (data x seq) mesh: ex1 galerkin f32
+    and bf16 served with the seq mesh at n = 8192, three f32 steps and one
+    bf16 step, each against the one-process kernel path; ex2 served with the
+    seq mesh at the 421 grid's (211, 71); the local partial's time and the
+    all-reduce's."""
+    from galerkin_transformer_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    rng = _par_setup()
+    mesh = make_mesh(data=1, seq=2)
+    result, counts = {}, Counter()
+    cfg = load_config("ex1_burgers")
+    cfg["attention_type"] = "galerkin"
+    requests = [make_batch(rng, PAR_N) for _ in range(PAR_REQUESTS)]
+    for dtype in DTYPES:
+        sharded = Predictor(SimpleTransformer.from_config(cfg, seed=SEED, dtype=dtype,
+                                                          seq_mesh=mesh), mesh=mesh)
+        plain = Predictor(SimpleTransformer.from_config(cfg, seed=SEED, dtype=dtype))
+        tag = f"ex1 galerkin {dtype_name(dtype)} n={PAR_N}"
+        result[tag] = r = _par_serve(
+            tag, sharded, plain, requests, KERNEL_OF["galerkin", dtype],
+            cfg["num_encoder_layers"], TOL_SERVE if dtype is None else TOL_SERVE_BF16,
+            lambda ref: float(np.abs(ref).max()))
+        counts.update(r["launches"])
+        result[f"partial {dtype_name(dtype)}"] = _par_partial_ms(mesh, rng, dtype)
+    batches = [_par_train_batch(rng) for _ in range(PAR_STEPS)]
+    sharded, step = _par_steps(mesh=mesh, seq_mesh=mesh)
+    plain, plain_step = _par_steps()
+    losses, step_counts = _par_run_steps(step, batches)
+    want, _ = _par_run_steps(plain_step, batches)
+    per_step = LAUNCHES_PER_STEP["galerkin", None]
+    if any(step_counts[k] != n * PAR_STEPS for k, n in per_step.items()):
+        raise AssertionError(f"ex1 seq-parallel steps launched {step_counts}, expected "
+                             f"{per_step} per step")
+    counts.update(step_counts)
+    loss_err, loss_gap = _par_loss_err(losses, want)
+    param_err = _par_param_err(sharded, plain, *TOL_PAR_PARAM)
+    if not (loss_err <= TOL_PAR_LOSS and param_err <= 1.0):
+        raise AssertionError(f"ex1 seq-parallel steps: losses {losses} vs {want} "
+                             f"({loss_err:.3e}), parameters {param_err:.3e} of the tolerance")
+    result["train"] = dict(losses=losses, loss_err=loss_err, loss_gap=loss_gap,
+                           param_err=param_err)
+    # one bf16 step: the sharded backward in JAX's cast order (the partial in
+    # f32, all-reduced, divided, cast) against the one-process bf16 step, at
+    # the bf16 train step's tolerances
+    del sharded, step, plain, plain_step
+    sharded, step = _par_steps(mesh=mesh, seq_mesh=mesh, dtype=torch.bfloat16)
+    plain, plain_step = _par_steps(dtype=torch.bfloat16)
+    losses, step_counts = _par_run_steps(step, batches[:1])
+    want, _ = _par_run_steps(plain_step, batches[:1])
+    per_step = LAUNCHES_PER_STEP["galerkin", torch.bfloat16]
+    if any(step_counts[k] != n for k, n in per_step.items()):
+        raise AssertionError(f"ex1 seq-parallel bf16 step launched {step_counts}, expected "
+                             f"{per_step}")
+    counts.update(step_counts)
+    loss_err, _ = _par_loss_err(losses, want)
+    grad_err, worst = _par_grad_err(sharded, plain)
+    if not (loss_err <= TOL_TRAIN_LOSS_BF16 and grad_err <= TOL_TRAIN_GRAD_BF16):
+        raise AssertionError(f"ex1 seq-parallel bf16 step: losses {losses} vs {want} "
+                             f"({loss_err:.3e}), gradient of {worst} {grad_err:.3e} of its "
+                             f"largest entry")
+    result["train_bf16"] = dict(losses=losses, loss_err=loss_err, grad_err=grad_err,
+                                worst=worst)
+    del sharded, step, plain, plain_step
+    n_f, n_c = PAR_GRID_2D
+    cfg2 = {**ex2_config(n_f, n_c), **NO_DROPOUT}
+    normalizer = ((0.1 * rng.standard_normal((n_f, n_f, 1))).astype(np.float32),
+                  rng.uniform(0.5, 1.5, (n_f, n_f, 1)).astype(np.float32), np.float32(1e-5))
+    pos, grid = darcy_grids(n_f, n_c)
+    requests = [dict(node=rng.standard_normal((BATCH_2D, n_f, n_f, 1)).astype(np.float32),
+                     pos=pos[None].repeat(BATCH_2D, 0), grid=grid[None].repeat(BATCH_2D, 0))
+                for _ in range(PAR_REQUESTS)]
+
+    def variation(out):
+        """How far the model's part of the output moves (as serving_2d_phase)."""
+        mean, std, eps = normalizer
+        part = ((out - mean) / (std + eps))[:, 1:-1, 1:-1]
+        return float(np.abs(part - part.mean()).max())
+
+    tag = f"ex2 galerkin f32 (n_f,n_c)=({n_f},{n_c}) batch={BATCH_2D}"
+    result[tag] = r = _par_serve(
+        tag, Predictor(FourierTransformer2D.from_config(cfg2, seed=SEED, seq_mesh=mesh),
+                       normalizer=normalizer, mesh=mesh),
+        Predictor(FourierTransformer2D.from_config(cfg2, seed=SEED), normalizer=normalizer),
+        requests, "galerkin_scores", cfg2["num_encoder_layers"], TOL_SERVE, variation)
+    counts.update(r["launches"])
+    result.update(launches=dict(counts), allreduce_ms=_par_allreduce_ms(mesh.groups["seq"]),
+                  allgather_ms=_par_allgather_ms(mesh),
+                  backend=torch.distributed.get_backend(), seconds=time.perf_counter() - t0)
+    with open(os.path.join(out_dir, f"world2_rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def parallel_phase(smi: str):
+    """The multi-device paths: `_par_world1` over NCCL, then `_par_world2`
+    on two ranks sharing the card over gloo, each rank a spawned process
+    (``parallel.spawn``: any rank's failure fails the phase).  Prints each
+    rank's readings; returns the launches of the mesh runs, summed over the
+    ranks (the one-process references not counted)."""
+    from galerkin_transformer_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    counts = Counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        spawn(_par_world1, 1, args=(out_dir,), device="cuda", join_s=PAR_JOIN_S)
+        spawn(_par_world2, 2, args=(out_dir,), device="cuda", backend="gloo",
+              join_s=PAR_JOIN_S)
+        results = {}
+        for name in ("world1_rank0", "world2_rank0", "world2_rank1"):
+            with open(os.path.join(out_dir, f"{name}.json")) as f:
+                results[name] = json.load(f)
+    w1 = results["world1_rank0"]
+    if not (w1["loss_err"] <= TOL_PAR_WORLD1 and w1["param_err"] <= 1.0
+            and w1["serve_err"] <= TOL_PAR_WORLD1):
+        raise AssertionError(f"parallel world 1: {w1}")
+    print(f"parallel world 1 ({w1['backend']}, {smi}): ex1 galerkin f32 n={PAR_N} "
+          f"batch={BATCH}: {PAR_STEPS} mesh steps vs plain steps, losses {w1['losses']} "
+          f"(max rel err {w1['loss_err']:.3e}), parameters {w1['param_err']:.3e} of "
+          f"{TOL_PAR_WORLD1:.0e} relative; Predictor(mesh=) {w1['serve_err']:.3e} from "
+          f"Predictor; all-reduce of (8,1,97,97) f32 {w1['allreduce_ms']:.4f} ms; "
+          f"launches {w1['launches']}")
+    counts.update(w1["launches"])
+    for rank in range(2):
+        r = results[f"world2_rank{rank}"]
+        counts.update(r["launches"])
+        print(f"parallel world 2 rank {rank} ({r['backend']} on cuda:0, {smi}): "
+              f"{r['seconds']:.1f} s; all-reduce of (8,1,97,97) f32 "
+              f"{r['allreduce_ms']:.4f} ms; all-gather of the (8,{PAR_N},96) f32 encoder "
+              f"output {r['allgather_ms']:.3f} ms; launches {r['launches']}")
+        for tag, s in r.items():
+            if isinstance(s, dict) and "err" in s:
+                print(f"  serve {tag} seq 1x2: median request {s['ms']:.2f} ms (eager) vs "
+                      f"{s['plain_ms']:.2f} ms one process (captured); err {s['err']:.3e} "
+                      f"(tol {s['tol']:.1e})")
+            elif tag.startswith("partial"):
+                print(f"  {tag} local partial ({s['rows']} of {PAR_N} rows): "
+                      f"{s['part_ms']:.4f} ms vs {s['whole_ms']:.4f} ms one-process kernel "
+                      f"on all rows; one local call launches {s['kernels']}")
+        t = r["train"]
+        print(f"  train ex1 galerkin f32 seq 1x2: losses {t['losses']} (max rel err "
+              f"{t['loss_err']:.3e}, max abs {t['loss_gap']:.3e}, tol {TOL_PAR_LOSS:.0e}); "
+              f"parameters {t['param_err']:.3e} of (rtol, atol) {TOL_PAR_PARAM}")
+        t = r["train_bf16"]
+        print(f"  train ex1 galerkin bf16 seq 1x2, one step vs one process: losses "
+              f"{t['losses']} (max rel err {t['loss_err']:.3e}, tol {TOL_TRAIN_LOSS_BF16:.0e}); "
+              f"gradients max err/max|g| {t['grad_err']:.3e} at {t['worst']} (tol "
+              f"{TOL_TRAIN_GRAD_BF16:.1e})")
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+    return {name: counts[name] for name in COUNTERS}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Build, check and drive the port on one GPU.")
     parser.add_argument("--against", nargs="+", metavar="ROOT",
@@ -3425,12 +3792,13 @@ def main(argv=None) -> int:
                   ex4_phase, device_loop_phase, lambda: recovery_phase(smi), driver_phase,
                   lambda: ex1_variants_phase(rng), lambda: variants_2d_phase(rng),
                   checkpoints_phase, generators_phase, darcy_421_phase, graph_phase,
-                  random_features_phase):
+                  random_features_phase, lambda: parallel_phase(smi)):
         release_graphs()   # the graphs of the phases before
         paths.append(phase())
     print(f"launches by main path (ex1 serving, ex2 serving, ex4 serving, ex1 training, "
           f"ex2 training, ex4 training, device loop, recovery, drivers, ex1 variants, "
-          f"2D variants, checkpoints, generators, ex2 at 421, graph, random features): "
+          f"2D variants, checkpoints, generators, ex2 at 421, graph, random features, "
+          f"parallel): "
           f"{paths}")
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths)

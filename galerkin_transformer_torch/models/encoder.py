@@ -12,6 +12,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from ..ops.init import lecun_normal
+from ..parallel.galerkin import axis_rows
 from ..utils.misc import default
 from .layers import (FeedForward, PositionalEncoding, SimpleAttention, _generator,
                      linear)
@@ -45,6 +46,12 @@ class SimpleTransformerEncoderLayer(nn.Module):
     With a compute `dtype` (``torch.bfloat16``) the input is cast at entry
     and the attention, the feed-forward and the residuals run in it
     (encoder.py:54-55, 100-116); the parameters stay float32.
+
+    `seq_mesh` and `seq_axis` go to the attention (sequence-parallel
+    galerkin attention); forward's `seq_tokens` says that x holds this
+    rank's rows of a sequence of that many tokens, and everything but the
+    attention's scores is row-wise (the positional encoding starts at the
+    rank's first row).
     """
 
     def __init__(self, d_model: int = 96, pos_dim: int = 1, n_head: int = 2,
@@ -60,11 +67,13 @@ class SimpleTransformerEncoderLayer(nn.Module):
                  dropout: Optional[float] = 0.1,
                  ffn_dropout: Optional[float] = None,
                  score_dropout: Optional[float] = None,
-                 dtype: Optional[torch.dtype] = None,
+                 dtype: Optional[torch.dtype] = None, seq_mesh=None,
+                 seq_axis: str = "seq",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = _generator(generator)
         self.dtype = dtype
+        self.seq_mesh, self.seq_axis = seq_mesh, seq_axis
         dropout = default(dropout, 0.05)
         if attention_type in ("linear", "softmax"):
             dropout = 0.1
@@ -85,7 +94,7 @@ class SimpleTransformerEncoderLayer(nn.Module):
             score_dropout=score_dropout, xavier_init=xavier_init,
             diagonal_weight=diagonal_weight, symmetric_init=symmetric_init,
             norm=attn_norm, norm_type=norm_type, eps=norm_eps, dtype=dtype,
-            generator=g)
+            seq_mesh=seq_mesh, seq_axis=seq_axis, generator=g)
         self.dropout1 = nn.Dropout(dropout)
         self.layer_norm1 = nn.LayerNorm(d_model, eps=norm_eps) if layer_norm else None
         # activation_type None resolves to relu inside FeedForward
@@ -95,13 +104,16 @@ class SimpleTransformerEncoderLayer(nn.Module):
         self.dropout2 = nn.Dropout(dropout)
         self.layer_norm2 = nn.LayerNorm(d_model, eps=norm_eps) if layer_norm else None
 
-    def forward(self, x, pos=None, weight=None):
+    def forward(self, x, pos=None, weight=None, seq_tokens: Optional[int] = None):
         if self.dtype is not None:
             x = x.to(self.dtype)
         if self.pos_emb is not None:
-            x = self.pos_emb(x)
+            start = 0 if seq_tokens is None else \
+                axis_rows(self.seq_mesh, seq_tokens, self.seq_axis).start
+            x = self.pos_emb(x, start)
         att_output, attn_weight = self.attn(x, x, x, pos=pos, weight=weight,
-                                            need_weights=self.attn_weight)
+                                            need_weights=self.attn_weight,
+                                            seq_tokens=seq_tokens)
         att_output = self.dropout1(att_output)
         x = x - att_output if self.subtract else x + att_output
         if self.layer_norm1 is not None:

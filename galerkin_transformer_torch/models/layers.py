@@ -12,6 +12,7 @@ import math
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
@@ -23,6 +24,7 @@ from ..ops.cuda.fourier import fourier_attention_tiled
 from ..ops.cuda.galerkin import MAX_D as GALERKIN_MAX_D
 from ..ops.cuda.galerkin import galerkin_attention_fused
 from ..ops.init import diagonal_dominant_init, lecun_normal
+from ..parallel.galerkin import seq_sharded_galerkin_attention
 from ..utils.misc import default
 
 ACTIVATIONS: Dict[str, Callable] = {
@@ -144,8 +146,10 @@ class PositionalEncoding(nn.Module):
         self.register_buffer("pe", pe, persistent=False)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x):
-        return self.dropout(x + self.pe[None, : x.shape[1]].to(x.dtype))
+    def forward(self, x, start: int = 0):
+        """`start`: the position of x's first row (a rank's rows of a
+        sequence sharded over a seq mesh start past 0)."""
+        return self.dropout(x + self.pe[None, start: start + x.shape[1]].to(x.dtype))
 
 
 class SimpleAttention(nn.Module):
@@ -188,6 +192,18 @@ class SimpleAttention(nn.Module):
     causal run plain PyTorch, as JAX runs them in XLA.  With a compute
     `dtype` the projections and ``fc`` run as `dense` does; the parameters
     stay float32.
+
+    With a `seq_mesh` (a ``parallel.Mesh``) galerkin attention runs
+    sequence-parallel over its `seq_axis`
+    (``parallel.seq_sharded_galerkin_attention``: the ``galerkin_scores``
+    kernels on each rank's rows, one all-reduce of the d×d scores), with
+    the parameters of the unsharded layer.  Only galerkin attention with
+    per-head layer norm and no mask shards; any other configuration with a
+    `seq_mesh` raises ``ValueError`` at its forward, as JAX's layer does.
+    forward's `seq_tokens` says that the inputs are this rank's rows of a
+    sequence of that many tokens (a model's sharded encoder); without it
+    the inputs are whole, and so is the output.  In training with a score
+    dropout the keep-mask of the seq group's first rank is used by all.
     """
 
     def __init__(self, n_head: int, d_model: int, pos_dim: int = 1,
@@ -196,12 +212,14 @@ class SimpleAttention(nn.Module):
                  xavier_init: float = 1e-4, diagonal_weight: float = 1e-2,
                  symmetric_init: bool = False, norm: bool = False,
                  norm_type: str = "layer", eps: float = 1e-5,
-                 dtype: Optional[torch.dtype] = None,
+                 dtype: Optional[torch.dtype] = None, seq_mesh=None,
+                 seq_axis: str = "seq",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if d_model % n_head:
             raise ValueError(f"d_model={d_model} is not a multiple of "
                              f"n_head={n_head}")
+        self.seq_mesh, self.seq_axis = seq_mesh, seq_axis
         if norm_type not in ("layer", "instance"):
             raise ValueError(f"norm_type must be 'layer' or 'instance', "
                              f"got {norm_type!r}")
@@ -249,10 +267,42 @@ class SimpleAttention(nn.Module):
     def _score_dropout(self, scores):
         return F.dropout(scores, self.score_rate, self.training)
 
+    def _check_seq_mesh(self, mask):
+        atype = self.attention_type
+        if atype == "galerkin" and self.norm and self.norm_type == "layer" and mask is None:
+            return
+        # a silent fall-through to the unsharded compute on a real mesh is a
+        # correctness surprise, not a fallback
+        raise ValueError(
+            f"seq_mesh is set but the attention config is outside the "
+            f"sequence-sharded path's support "
+            f"(attention_type={atype!r}, norm={self.norm}, "
+            f"norm_type={self.norm_type!r}, mask={'set' if mask is not None else None}); "
+            f"supported: galerkin attention + per-head layer norm + no "
+            f"mask.  Unset seq_mesh to run the unsharded compute.")
+
+    def _seq_sharded(self, q, k, v, pos_in, seq_tokens):
+        mesh, axis = self.seq_mesh, self.seq_axis
+        sk, bk = self._affine("K")
+        sv, bv = self._affine("V")
+        score_mask = None
+        if self.training and self.score_rate > 0.0:
+            d_eff = self.d_k + (0 if pos_in is None else self.pos_dim)
+            score_mask = F.dropout(q.new_ones(q.shape[0], self.n_head, d_eff, d_eff),
+                                   self.score_rate)
+            dist.broadcast(score_mask, mesh.first_rank(axis), group=mesh.groups[axis])
+        return seq_sharded_galerkin_attention(
+            q, k, v, mesh, sk, bk, sv, bv, pos=pos_in, eps=self.eps, seq_axis=axis,
+            score_mask=score_mask, n_global=seq_tokens)
+
     def forward(self, query, key, value, pos=None, mask=None, weight=None,
-                need_weights: bool = False):
+                need_weights: bool = False, seq_tokens: Optional[int] = None):
         """Returns (out (B, n, d_model), p_attn).  `need_weights`: fourier
-        forms and returns its n×n weights beside the chain kernel's output."""
+        forms and returns its n×n weights beside the chain kernel's output.
+        `seq_tokens` (with a `seq_mesh`): the inputs are this rank's rows of
+        a sequence of that many tokens."""
+        if self.seq_mesh is not None:
+            self._check_seq_mesh(mask)
         if weight is not None:
             query, key = weight * query, weight * key
         bsz, n = query.shape[0], query.shape[1]
@@ -260,7 +310,7 @@ class SimpleAttention(nn.Module):
         atype = self.attention_type
 
         def split_heads(x):   # (B, n, d_model) -> (B, H, n, d_k)
-            return x.reshape(bsz, -1, h, d_k).transpose(1, 2)
+            return x.reshape(bsz, x.shape[1], h, d_k).transpose(1, 2)
 
         q, k, v = (split_heads(dense(lin, x, self.dtype)) for lin, x
                    in zip(self.linears, (query, key, value)))
@@ -277,7 +327,9 @@ class SimpleAttention(nn.Module):
         # form for galerkin, the dense scores for fourier.  Decided from the
         # shapes, before any launch.
         p = 0 if pos_in is None else self.pos_dim
-        if atype == "galerkin" and self.norm and self.norm_type == "layer" \
+        if self.seq_mesh is not None:
+            x, p_attn = self._seq_sharded(q, k, v, pos_in, seq_tokens)
+        elif atype == "galerkin" and self.norm and self.norm_type == "layer" \
                 and d_k + p <= GALERKIN_MAX_D:
             sk, bk = self._affine("K")
             sv, bv = self._affine("V")
@@ -320,7 +372,7 @@ class SimpleAttention(nn.Module):
                 x, p_attn = A.fourier_attention(q, k, v, score_dropout=self._score_dropout,
                                                 mask=score_mask)
 
-        out = x.transpose(1, 2).reshape(bsz, n, -1)
+        out = x.transpose(1, 2).reshape(bsz, n, h * x.shape[-1])   # n may be 0 on a rank
         if pos_in is not None:
             out = dense(self.fc, out, self.dtype)
         return out, p_attn

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.galerkin import SeqRegion
 from ..utils.device import resolve_device
 from ..utils.misc import default
 from .encoder import SimpleTransformerEncoderLayer, VanillaTransformerEncoderLayer
@@ -59,6 +60,16 @@ def _graph_extractor(kind, num_feat_layers, node_feats, n_hidden, edge_feats,
     return None
 
 
+def _seq_region(mesh, layers, n: int) -> SeqRegion:
+    """The sharded region of the encoder stack `layers` over `n` tokens;
+    an attention outside the sharded path raises first, before any rank
+    takes its rows."""
+    if mesh is not None:
+        for layer in layers:
+            layer.attn._check_seq_mesh(None)
+    return SeqRegion(mesh, n)
+
+
 def _raise_unported(model: str, unported: dict):
     for what, hit in unported.items():
         if hit:
@@ -94,6 +105,15 @@ class SimpleTransformer(_ConfigurableModel):
       the lift is a `GCN` (an `EdgeEncoder` of the `edge_feats` edge
       channels, then graph convolutions) or a `GAT` on the edge's first
       channel, taking forward's `edge` (B, n, n, E).
+    * ``seq_mesh`` (a ``parallel.Mesh``): the encoder stack runs
+      sequence-parallel over the mesh's ``seq`` axis (`SeqRegion`): each
+      rank keeps its rows of the tokens, pos and weight, the galerkin
+      layers sum their d×d scores over the seq group, and the stack's
+      output (and each latent with ``return_latent``) is all-gathered, so
+      the lift, the regressor and the loss run whole on every rank.  Only
+      galerkin attention with per-head layer norm shards: another
+      SimpleAttention type raises ``ValueError`` at the first forward (as
+      in JAX); the vanilla stack ignores the mesh, as JAX's does.
     """
 
     def __init__(self, node_feats: int = 1, edge_feats: Optional[int] = None,
@@ -121,7 +141,7 @@ class SimpleTransformer(_ConfigurableModel):
                  encoder_dropout: Optional[float] = 0.0,
                  decoder_dropout: Optional[float] = 0.0,
                  ffn_dropout: Optional[float] = 0.0,
-                 score_dropout: Optional[float] = None, dtype=None,
+                 score_dropout: Optional[float] = None, dtype=None, seq_mesh=None,
                  *, device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0):
         super().__init__()
@@ -149,6 +169,7 @@ class SimpleTransformer(_ConfigurableModel):
         self.graph = graph is not None
         self.feat_extract = graph if self.graph else Identity(node_feats, n_hidden, generator=g)
         self.vanilla = attention_type not in ATTENTION_TYPES
+        self.seq_mesh = None if self.vanilla else seq_mesh
         if self.vanilla:
             # the softmax baseline (transformer.py:137-153)
             self.encoder_layers = nn.ModuleList(
@@ -170,7 +191,7 @@ class SimpleTransformer(_ConfigurableModel):
                     residual_type=residual_type,
                     activation_type=attn_activation, dropout=encoder_dropout,
                     ffn_dropout=ffn_dropout, score_dropout=score_dropout,
-                    dtype=dtype, generator=g)
+                    dtype=dtype, seq_mesh=self.seq_mesh, generator=g)
                 for _ in range(num_encoder_layers))
 
         self.freq_regressor = self.freq_fc1 = self.freq_fc2 = None
@@ -205,16 +226,19 @@ class SimpleTransformer(_ConfigurableModel):
         # residual is kept, even without return_latent
         x_latent = [res] if self.spacial_residual or self.return_latent else []
         attn_weights = []
+        region = _seq_region(self.seq_mesh, self.encoder_layers, x.shape[1])
+        x, pos_l, weight_l = region.enter(x), region.enter(pos), region.enter(weight)
         for layer in self.encoder_layers:
             if self.vanilla:
                 x = layer(x)
             elif self.return_attn_weight:
-                x, attn_w = layer(x, pos, weight)
+                x, attn_w = layer(x, pos_l, weight_l, seq_tokens=region.tokens)
                 attn_weights.append(attn_w)
             else:
-                x = layer(x, pos, weight)
+                x = layer(x, pos_l, weight_l, seq_tokens=region.tokens)
             if self.return_latent:
-                x_latent.append(x)
+                x_latent.append(region.exit(x))
+        x = region.exit(x)
         if self.dtype is not None:
             x = x.float()   # the decoder stays float32
         if self.spacial_residual:
@@ -271,6 +295,10 @@ class FourierTransformer2D(_ConfigurableModel):
 
     Built and placed as `SimpleTransformer` is; `dtype` is the compute type
     of the scalers and the encoder (float32 parameters, float32 decoder).
+    ``seq_mesh`` shards the encoder stack over the coarse grid's n_c²
+    tokens as `SimpleTransformer`'s does (``official`` ignores it); the
+    scalers, the spectral regressor and the boundary run whole on every
+    rank.
     """
 
     def __init__(self, node_feats: int = 1, edge_feats: Optional[int] = None,
@@ -304,7 +332,7 @@ class FourierTransformer2D(_ConfigurableModel):
                  ffn_dropout: Optional[float] = 0.05,
                  score_dropout: Optional[float] = None,
                  downscaler_dropout: Optional[float] = 0.05,
-                 upscaler_dropout: Optional[float] = 0.0, dtype=None,
+                 upscaler_dropout: Optional[float] = 0.0, dtype=None, seq_mesh=None,
                  *, device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0):
         super().__init__()
@@ -336,6 +364,7 @@ class FourierTransformer2D(_ConfigurableModel):
         self.dropout = nn.Dropout(default(dropout, 0.05))
         dim_feedforward = default(dim_feedforward, 2 * n_hidden)
         self.official = attention_type == "official"
+        self.seq_mesh = None if self.official else seq_mesh
         self.official_proj = None
         if self.official:
             width = n_hidden + pos_dim * n_head
@@ -359,7 +388,7 @@ class FourierTransformer2D(_ConfigurableModel):
                     residual_type=residual_type,
                     activation_type=attn_activation, dropout=encoder_dropout,
                     ffn_dropout=ffn_dropout, score_dropout=score_dropout,
-                    dtype=dtype, generator=g)
+                    dtype=dtype, seq_mesh=self.seq_mesh, generator=g)
                 for _ in range(num_encoder_layers))
         self.upscaler = (UpScaler(
             in_dim=n_hidden, out_dim=n_hidden, upsample_mode=upsample_mode,
@@ -415,14 +444,17 @@ class FourierTransformer2D(_ConfigurableModel):
             if self.return_latent:
                 x_latent += latents
         else:
+            region = _seq_region(self.seq_mesh, self.encoder_layers, x.shape[1])
+            x, pos_l, weight_l = region.enter(x), region.enter(pos), region.enter(weight)
             for layer in self.encoder_layers:
                 if self.return_attn_weight:
-                    x, attn_w = layer(x, pos, weight)
+                    x, attn_w = layer(x, pos_l, weight_l, seq_tokens=region.tokens)
                     attn_weights.append(attn_w)
                 else:
-                    x = layer(x, pos, weight)
+                    x = layer(x, pos_l, weight_l, seq_tokens=region.tokens)
                 if self.return_latent:
-                    x_latent.append(x)
+                    x_latent.append(region.exit(x))
+            x = region.exit(x)
         x = x.reshape(bsz, n_s, n_s, self.n_hidden)
         if self.upscaler is not None:
             x = self.upscaler(x)
@@ -460,8 +492,10 @@ class FourierTransformer2DLite(_ConfigurableModel):
     ``residual_type``, ``attn_activation`` and ``decoder_type`` are
     declared and ignored, and ``return_attn_weight`` and ``return_latent``
     change nothing: ``preds_latent`` and ``attn_weights`` are None.
-    ``seq_mesh`` (sequence-parallel attention) raises
-    ``NotImplementedError``.
+    ``seq_mesh`` shards the encoder stack over the n² tokens as
+    `SimpleTransformer`'s does (galerkin with ``attn_norm`` only; the
+    default ``attn_norm=False`` raises ``ValueError`` at the first
+    forward, as in JAX).
     """
 
     def __init__(self, node_feats: int = 12, pos_dim: int = 2, n_targets: int = 1,
@@ -487,12 +521,9 @@ class FourierTransformer2DLite(_ConfigurableModel):
                  *, device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0):
         super().__init__()
-        _raise_unported("FourierTransformer2DLite", {
-            "seq_mesh (sequence-parallel attention)": seq_mesh is not None,
-        })
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
-        self.n_hidden, self.dtype = n_hidden, dtype
+        self.n_hidden, self.dtype, self.seq_mesh = n_hidden, dtype, seq_mesh
 
         self.feat_extract = Identity(node_feats, n_hidden, generator=g)
         self.encoder_layers = nn.ModuleList(
@@ -504,7 +535,7 @@ class FourierTransformer2DLite(_ConfigurableModel):
                 pos_dim=pos_dim, xavier_init=xavier_init,
                 diagonal_weight=diagonal_weight, dropout=encoder_dropout,
                 ffn_dropout=ffn_dropout, score_dropout=score_dropout,
-                dtype=dtype, generator=g)
+                dtype=dtype, seq_mesh=seq_mesh, generator=g)
             for _ in range(num_encoder_layers))
         self.dropout = nn.Dropout(default(dropout, 0.05))
         self.regressor = SpectralRegressor(
@@ -521,8 +552,11 @@ class FourierTransformer2DLite(_ConfigurableModel):
         n_grid = grid.shape[1]
         x = self.feat_extract(torch.cat(
             [node.reshape(bsz, -1, input_dim), pos.to(node.dtype)], dim=-1))
+        region = _seq_region(self.seq_mesh, self.encoder_layers, x.shape[1])
+        x, pos_l = region.enter(x), region.enter(pos)
         for layer in self.encoder_layers:
-            x = layer(x, pos)
+            x = layer(x, pos_l, seq_tokens=region.tokens)
+        x = region.exit(x)
         if self.dtype is not None:
             x = x.float()   # the decoder stays float32
         x = self.dropout(x).reshape(bsz, n_grid, n_grid, self.n_hidden)

@@ -17,6 +17,7 @@ replayed."""
 from __future__ import annotations
 
 import ctypes
+import gc
 import re
 from collections import Counter, deque
 from typing import Callable
@@ -202,8 +203,18 @@ class Replayed:
             if gen.device.type == "cuda":
                 graph.register_generator_state(gen)
         self.stream.wait_stream(torch.cuda.current_stream(self.stream.device))
-        with torch.cuda.graph(graph, stream=self.stream):
-            self.body()
+        # a graph of an earlier capture that the cycle collector frees during
+        # this one resets itself, a call CUDA refuses under capture,
+        # which invalidates the capture: no collection runs during it
+        # (torch.cuda.graph no longer collects before a capture)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream):
+                self.body()
+        finally:
+            if collecting:
+                gc.enable()
         self.graph = graph
 
     def kernels(self) -> list:

@@ -32,6 +32,17 @@ where the capture found them:
 One Predictor serves one request at a time; its graphs replay in turn on
 its stream, whose ticket pools they share.  On the CPU every request runs
 eagerly.
+
+With a `mesh` (a ``parallel.Mesh``; JAX's batch-parallel serving) every
+rank calls with the same batch and gets the whole prediction: the model's
+parameters and buffers are the mesh's first rank's (``replicate``), each
+rank serves its 'data' slice of node, and of pos and grid as
+``parallel.shard_batch`` decides (a leading dim that does not divide is
+served whole), and the ranks' outputs are all-gathered over the data group
+after the forward, outside any captured graph.  A model built with a
+``seq_mesh`` runs collectives inside its forward (a gloo collective cannot
+be captured in a CUDA graph), so such a model is served eagerly on every
+device, each request through the kernels as it comes.
 """
 from __future__ import annotations
 
@@ -41,9 +52,11 @@ from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .models.graph import GAT, GCN
 from .ops.cuda._graph import Replayed
+from .parallel.mesh import replicate, sharding_of
 from .train.checkpoint import load_jax_checkpoint, read_jax_payload
 from .utils.device import resolve_device
 from .utils.torch_compat import check_state_dict, load_torch_file, state_dict_of
@@ -70,16 +83,23 @@ class _Captured:
 class Predictor:
     def __init__(self, model: torch.nn.Module,
                  normalizer: Optional[Tuple] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, mesh=None):
         """`device` None means CUDA; without a GPU that raises unless
-        ``device="cpu"`` is passed."""
+        ``device="cpu"`` is passed.  `mesh`: serve data-parallel over it
+        (every rank of the mesh makes its Predictor and calls it)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            replicate(mesh).put(self.model)
         self._takes_normalizer = (
             "normalizer" in inspect.signature(model.forward).parameters)
         self._keys = GRAPH_KEYS if any(isinstance(m, (GCN, GAT)) for m in model.modules()) \
             else KEYS
-        self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        # collectives inside the forward: eager requests
+        eager = any(getattr(m, "seq_mesh", None) is not None for m in model.modules())
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" and not eager else None)
         self._captured: Dict[tuple, _Captured] = {}
         self._normalizer = None
         self.normalizer = normalizer
@@ -99,7 +119,7 @@ class Predictor:
     @classmethod
     def from_checkpoint(cls, model: torch.nn.Module, checkpoint_path: str,
                         normalizer: Optional[Tuple] = None,
-                        device: Optional[Union[str, torch.device]] = None):
+                        device: Optional[Union[str, torch.device]] = None, mesh=None):
         """Load the weights of a checkpoint into `model` and serve it.  The
         file is one of three kinds, told apart by what it holds, never by
         its name (`read_checkpoint`): the port's own
@@ -108,22 +128,42 @@ class Predictor:
         msgpack bytes) or the original torch implementation's (a
         ``torch.save`` dict with ``'model'``, or a bare state_dict).  The
         weights must fit `model` key for key and shape for shape; a file of
-        none of these kinds raises ``ValueError``."""
+        none of these kinds raises ``ValueError``.  `mesh` as in the
+        constructor."""
         kind, state_dict, saved = read_checkpoint(checkpoint_path)
         check_state_dict(model, state_dict)
         model.load_state_dict(state_dict, strict=True)
         return cls(model, normalizer=saved if normalizer is None else normalizer,
-                   device=device)
+                   device=device, mesh=mesh)
 
     def _forward(self, node, pos, grid, edge=None) -> torch.Tensor:
         kwargs = {"normalizer": self._normalizer} if self._takes_normalizer else {}
         return self.model(node, edge, pos, grid, **kwargs)["preds"]
 
     def __call__(self, batch: dict) -> np.ndarray:
+        if self.mesh is None:
+            return self._serve(batch).numpy()
+        shardings = {k: sharding_of(self.mesh, k, batch[k]) for k in self._keys}
+        out = self._serve({k: s.put(batch[k]) for k, s in shardings.items()})
+        if shardings["node"].axis is not None:
+            out = self._gather(out)
+        return out.numpy()
+
+    def _gather(self, out: torch.Tensor) -> torch.Tensor:
+        """The data group's outputs, in rank order along the batch (on the
+        device for NCCL, on the host for gloo)."""
+        group = self.mesh.groups["data"]
+        part = out.to(self.device) if dist.get_backend(group) == "nccl" else out
+        parts = [torch.empty_like(part) for _ in range(self.mesh.shape["data"])]
+        dist.all_gather(parts, part, group=group)
+        return torch.cat(parts).cpu()
+
+    def _serve(self, batch: dict) -> torch.Tensor:
+        """The prediction of `batch` (this rank's part of it) on the host."""
         if self._stream is None:
             with torch.inference_mode():
                 inputs = (_as_input(batch[k], self.device) for k in self._keys)
-                return self._forward(*inputs).cpu().numpy()
+                return self._forward(*inputs).cpu()
         inputs = _inputs(batch, self._keys)
         key = _key(inputs)
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -134,7 +174,7 @@ class Predictor:
             for buf, x in zip(captured.inputs, inputs):
                 buf.copy_(x)
             captured.forward()
-            out = captured.out.cpu().numpy()   # before a capture or replay rewrites it
+            out = captured.out.cpu()   # before a capture or replay rewrites it
             if captured.forward.graph is None:
                 captured.forward.capture()
         return out

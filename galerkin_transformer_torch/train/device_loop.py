@@ -123,7 +123,8 @@ class DeviceEpochRunner:
                  optimizer: torch.optim.Optimizer, train_loader, valid_loader,
                  ema_decay: Optional[float] = None, shuffle_seed: Optional[int] = None,
                  epochs_per_dispatch: int = 1, mode: str = "min", verbose: bool = True):
-        if getattr(train_loader, "num_shards", 1) != 1:
+        if getattr(train_loader, "num_shards", 1) != 1 or \
+                getattr(train_step, "mesh", None) is not None:
             raise ValueError(
                 "DeviceEpochRunner is single-process; use the host "
                 "DataLoader path for multi-host sharded input")

@@ -24,12 +24,30 @@ gradient it computed, so after a capture ``.grad`` is the graph's buffer,
 which every replay rewrites; and ``train_step.generators`` lists the
 ``torch.Generator`` objects it draws from besides the default one, which
 the graph must register so that each replay draws anew.
+
+With a `mesh` (a ``parallel.Mesh``; JAX gets this from XLA) a factory
+first gives every rank the parameters and buffers of the mesh's first
+rank (``parallel.replicate``), and each train step averages every
+parameter's gradient over all ranks of the mesh, data and seq alike,
+after the backward and before ``optimizer.step()``, so the optimizer's
+global-norm clip sees the global gradient.  The one rule is exact: over
+``data`` each rank's loss is a mean over an equal slice of the batch; over
+``seq`` the adjoints of the encoder's all-gather (a reduce-scatter, sum)
+and of the scores' all-reduce make each rank's gradient upstream of the
+gather the group's sum of its share, while the gradients downstream are
+the same on every rank.  The returned losses are averaged over the mesh
+too: over the data group, as the ranks of a seq group hold the same ones.
+The eval metric is combined by its reduction (``combine_metric``).  Such a
+step runs collectives, so it is not captured (``DeviceEpochRunner``
+refuses it: data-parallel training runs the host loop, as in JAX).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from ..parallel.mesh import combine_metric, mean_over, replicate
 
 
 class _DarcyLosses(NamedTuple):
@@ -47,6 +65,26 @@ def to_device(batch: Dict, device: torch.device) -> Dict:
     is passed as it is (no copy: the device loop's batches stay put)."""
     return {k: x if x is None or (isinstance(x, torch.Tensor) and x.device == device)
             else torch.as_tensor(x, device=device) for k, x in batch.items()}
+
+
+def _on_mesh(mesh, model: torch.nn.Module, train_step: Callable):
+    """Replicate `model` over `mesh` and mark the step as a mesh step."""
+    if mesh is not None:
+        replicate(mesh).put(model)
+    train_step.mesh = mesh
+
+
+def _mean(mesh, grads, losses):
+    """(grads, losses) averaged over the mesh, or as they are without one."""
+    if mesh is None:
+        return grads, losses
+    both = mean_over(mesh, list(grads) + list(losses))
+    return both[: len(grads)], tuple(both[len(grads):])
+
+
+def _metric(mesh, metric_fn, metric: torch.Tensor) -> torch.Tensor:
+    return metric if mesh is None else \
+        combine_metric(mesh, metric, metric_fn.metric_reduction)
 
 
 def microbatched_value_and_grad(forward_loss: Callable, accum_steps: int):
@@ -99,7 +137,7 @@ def microbatched_value_and_grad(forward_loss: Callable, accum_steps: int):
 
 def make_burgers_steps(model: torch.nn.Module, loss_fn, metric_fn,
                        optimizer: torch.optim.Optimizer,
-                       accum_steps: int = 1) -> Tuple[Callable, Callable]:
+                       accum_steps: int = 1, mesh=None) -> Tuple[Callable, Callable]:
     device = next(model.parameters()).device
     params = [p for p in model.parameters() if p.requires_grad]
 
@@ -122,19 +160,23 @@ def make_burgers_steps(model: torch.nn.Module, loss_fn, metric_fn,
     def train_step(batch: Dict) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         model.train()
         (_, res), grads = value_and_grad(params, to_device(batch, device))
+        grads, losses = _mean(mesh, grads, (res.loss + res.reg + res.ortho, res.reg,
+                                            res.ortho))
         for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()
-        return res.loss + res.reg + res.ortho, res.reg, res.ortho
+        return losses
 
     train_step.generators = ()
+    _on_mesh(mesh, model, train_step)
 
     @torch.no_grad()
     def eval_step(batch: Dict) -> torch.Tensor:
         model.eval()
         batch = to_device(batch, device)
         out = model(batch["node"], batch.get("edge"), batch["pos"], batch["grid"])
-        return metric_fn(out["preds"][..., 0], batch["target"][..., 0]).metric
+        return _metric(mesh, metric_fn,
+                       metric_fn(out["preds"][..., 0], batch["target"][..., 0]).metric)
 
     return train_step, eval_step
 
@@ -143,7 +185,7 @@ def make_darcy_steps(model: torch.nn.Module, loss_fn, metric_fn,
                      optimizer: torch.optim.Optimizer,
                      normalizer: Optional[Tuple] = None,
                      online_noise: float = 0.0, accum_steps: int = 1,
-                     noise_generator: Optional[torch.Generator] = None
+                     noise_generator: Optional[torch.Generator] = None, mesh=None
                      ) -> Tuple[Callable, Callable]:
     """Steps of the 2D Darcy models.  `normalizer` is the target normalizer
     ``(mean, std, eps)`` that the model undoes on its output.
@@ -184,19 +226,22 @@ def make_darcy_steps(model: torch.nn.Module, loss_fn, metric_fn,
     def train_step(batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         model.train()
         (_, (loss, reg)), grads = value_and_grad(params, to_device(batch, device))
+        grads, losses = _mean(mesh, grads, (loss + reg, reg))
         for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()
-        return loss + reg, reg
+        return losses
 
     train_step.generators = () if noise_generator is None else (noise_generator,)
+    _on_mesh(mesh, model, train_step)
 
     @torch.no_grad()
     def eval_step(batch: Dict) -> torch.Tensor:
         model.eval()
         batch = to_device(batch, device)
         preds = forward(batch)["preds"]
-        return metric_fn(preds[..., 0], batch["target"][..., 0]).metric
+        return _metric(mesh, metric_fn,
+                       metric_fn(preds[..., 0], batch["target"][..., 0]).metric)
 
     return train_step, eval_step
 
@@ -204,7 +249,7 @@ def make_darcy_steps(model: torch.nn.Module, loss_fn, metric_fn,
 
 def make_ns_steps(model: torch.nn.Module, loss_fn, metric_fn,
                   optimizer: torch.optim.Optimizer, time_steps: int = 10,
-                  accum_steps: int = 1) -> Tuple[Callable, Callable]:
+                  accum_steps: int = 1, mesh=None) -> Tuple[Callable, Callable]:
     """Autoregressive rollout steps of the Navier–Stokes model
     (steps.py:179-236): `time_steps` applications of the model, each
     prediction fed back as the newest step of the input window.  Training
@@ -234,19 +279,23 @@ def make_ns_steps(model: torch.nn.Module, loss_fn, metric_fn,
     def train_step(batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         model.train()
         (_, (total, reg)), grads = value_and_grad(params, to_device(batch, device))
+        grads, (total, reg) = _mean(mesh, grads, (total, reg))
         for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()
         return total / time_steps, reg / time_steps
 
     train_step.generators = ()
+    _on_mesh(mesh, model, train_step)
 
     @torch.no_grad()
     def eval_step(batch: Dict) -> torch.Tensor:
         model.eval()
         batch = to_device(batch, device)
         u = batch["target"]
-        metrics = rollout(batch, lambda pred, t: metric_fn(pred, u[..., t]).metric)
+        # each step's metric is combined over the mesh before the mean
+        metrics = rollout(batch, lambda pred, t: _metric(mesh, metric_fn,
+                                                         metric_fn(pred, u[..., t]).metric))
         return torch.stack(metrics).mean()
 
     return train_step, eval_step

@@ -1107,6 +1107,58 @@ def test_replays_draw_fresh_dropout_and_noise(dev, noise):
     assert len(set(replayed.tolist())) == len(replayed), losses
 
 
+def test_capture_is_not_invalidated_by_collecting_an_old_graph(dev):
+    """The cycle collector can free a captured graph of an earlier path
+    (a served request key, a runner) while another capture runs; the freed
+    graph resets itself, which CUDA refuses under capture, and the
+    capture fails (it failed the 2D dropout replay test intermittently).
+    Here the old graph's last reference goes into a cycle during the
+    capture, and the collector is set to run at almost every allocation."""
+    import gc
+
+    from galerkin_transformer_torch.ops.cuda._graph import Replayed
+
+    def captured_path():
+        x = torch.zeros(1 << 20, device=dev)
+        out = {}
+
+        def body():
+            out["y"] = x * 2   # from the graph's own memory pool
+
+        path = Replayed(body, torch.cuda.Stream(dev), warmup=1)
+        path(), path()   # eager; capture and replay
+        assert path.graph is not None
+        return path, out
+
+    old = [captured_path() for _ in range(3)]
+    y = torch.zeros(1000, device=dev)
+
+    def body():
+        y.add_(1)
+        if torch.cuda.is_current_stream_capturing() and old:
+            cycle = [old.pop()]
+            cycle.append(cycle)   # the old graph now lives only in a cycle
+            del cycle
+            junk = [[] for _ in range(2000)]   # an automatic collection would run here
+            del junk
+        y.mul_(2)
+
+    path = Replayed(body, torch.cuda.Stream(dev), warmup=1)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        for _ in range(3):   # eager; capture and replay; replay
+            path()
+    finally:
+        gc.set_threshold(*thresholds)
+    torch.cuda.synchronize()
+    assert path.graph is not None and path.replays == 2
+    # the eager call (0 + 1)·2, then the capture (it runs nothing) and two
+    # replays: (2 + 1)·2, (6 + 1)·2
+    assert torch.equal(y, torch.full_like(y, 14.0))
+    gc.collect()
+
+
 def test_tickets_survive_capture(dev):
     """A galerkin forward captured on a stream keeps its ticket pool: a
     replay, an eager call on the same stream that needs a larger pool, then
@@ -1475,3 +1527,40 @@ def test_random_feature_replays_draw_a_new_omega_each(dev):
     assert all(not torch.equal(a, b) for a, b in zip(got_omega, got_omega[1:]))
     assert all(torch.equal(a, b) for a, b in zip(got_omega, want_omega))
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+# ------------------------------------------------- the multi-device paths
+
+def test_mesh_step_over_nccl_equals_the_step_without_a_mesh(dev, tmp_path):
+    """World 1 over NCCL: averaging over one rank is the identity, so three
+    steps with the mesh equal three without, through the galerkin kernels."""
+    import torch_parallel_ranks as ranks
+    from galerkin_transformer_torch.ops.cuda import _build
+    from galerkin_transformer_torch.parallel import spawn
+
+    _build.build(["galerkin_scores", "galerkin_scores_bwd"])
+    spawn(ranks.cuda_mesh_step, 1, args=(str(tmp_path),), device="cuda", join_s=300)
+    got = np.load(tmp_path / "cuda_step_rank0.npz")
+    assert str(got["backend"]) == "nccl"
+    np.testing.assert_allclose(got["losses"], got["plain"], rtol=1e-6)
+    assert float(got["gap"]) <= 1e-6
+    assert tuple(got["launches"]) == (2 * 3, 2 * 3)   # two layers, three steps
+
+
+def test_two_ranks_on_one_card_shard_the_sequence(dev, tmp_path):
+    """Two processes share cuda:0 over gloo: each rank's forward of the
+    seq-sharded model launches the scores kernel per layer on its rows
+    (511 tokens: 256 and 255), its backward the backward kernel, and the
+    gathered output equals the unsharded forward's."""
+    import torch_parallel_ranks as ranks
+    from galerkin_transformer_torch.ops.cuda import _build
+    from galerkin_transformer_torch.parallel import spawn
+
+    _build.build(["galerkin_scores", "galerkin_scores_bwd"])
+    spawn(ranks.cuda_seq_forward, 2, args=(str(tmp_path),), device="cuda", backend="gloo",
+          join_s=300)
+    for rank in range(2):
+        got = np.load(tmp_path / f"cuda_seq_rank{rank}.npz")
+        assert tuple(got["launches"]) == (2, 2)
+        np.testing.assert_allclose(got["out"], got["want"], rtol=1e-4,
+                                   atol=1e-4 * np.abs(got["want"]).max())

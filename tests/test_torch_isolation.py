@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither jax (flax, optax) nor the JAX
-package, nor msgpack (its reader of JAX checkpoints is pure Python).
+package, nor msgpack (its reader of JAX checkpoints is pure Python); nor
+does the module of rank functions that the multi-process tests spawn
+(``tests/torch_parallel_ranks.py``).
 
 The import check runs in a subprocess, because tests/conftest.py imports
 jax into the test process itself.
@@ -33,12 +35,17 @@ def test_port_modules_and_chip_smoke_import_no_jax():
                  "train.device_loop", "utils.torch_compat",
                  "examples.ex1_burgers_super_res", "models.graph", "ops.fem_native",
                  "ops.sparse", "models.random_fourier",
-                 "examples.ex1_burgers_random_fourier_features"):
+                 "examples.ex1_burgers_random_fourier_features", "parallel",
+                 "parallel.mesh", "parallel.galerkin", "parallel.launch",
+                 "examples.distributed_data_parallel"):
         assert f"galerkin_transformer_torch.{name}" in modules
     code = "\n".join(
         [f"import {m}" for m in modules]
         + ["import chip_smoke",
            "import sys",
+           # the rank functions that the multi-process tests spawn
+           f"sys.path.insert(0, {str(ROOT / 'tests')!r})",
+           "import torch_parallel_ranks",
            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
            " or m in ('flax', 'optax', 'msgpack') or m.startswith('flax.')"
            " or m.startswith('msgpack.') or m.startswith('galerkin_transformer_tpu')]",

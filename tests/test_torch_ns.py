@@ -153,8 +153,18 @@ def test_full_config_has_the_published_parameter_count():
 
 @pytest.mark.parametrize("override", [dict(seq_mesh=object())], ids=["seq_mesh"])
 def test_lite_refuses_unported_options(override):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        FourierTransformer2DLite.from_config({**_cfg(), **override}, device="cpu")
+    """A seq_mesh is taken (sequence-parallel galerkin attention), but the
+    ex4 config's attention (no per-head norm) is outside the sharded path:
+    the first forward raises JAX's ValueError, as JAX's init does."""
+    b = _batch()
+    with pytest.raises(ValueError, match="seq_mesh"):
+        JaxLite.from_config({**_cfg(), **override}).init(
+            jax.random.key(0), jnp.asarray(b["node"]), None, jnp.asarray(b["pos"]),
+            jnp.asarray(b["grid"]))
+    model = FourierTransformer2DLite.from_config({**_cfg(), **override}, device="cpu")
+    with pytest.raises(ValueError, match="seq_mesh"):
+        model(*(torch.from_numpy(b[k]) for k in ("node",)), None,
+              torch.from_numpy(b["pos"]), torch.from_numpy(b["grid"]))
 
 
 def test_lite_raises_without_cuda(monkeypatch):

@@ -20,6 +20,10 @@
     python3 chip_smoke.py --cosine-bf16
         # bf16 cosine serving's distance from the float32 model on four
         # seeds, the CPU's and the card's, ex1 and ex2 (cosine_bf16_phase)
+    python3 chip_smoke.py --profile-float64
+        # the memory profiles' galerkin and fourier gradient steps at batch 1
+        # (card, card with the plain attention, CPU) against float64
+        # (profile_float64_phase, the readings behind PROFILE_GRAD_FLOOR)
 
 1. prints the card (nvidia-smi) and turns TF32 off;
 2. builds every CUDA kernel of the port from galerkin_transformer_torch/csrc
@@ -49,7 +53,10 @@
    ``fourier_chain`` launches in float32 (each sweep also against float64,
    to 1e-5 of its largest entry), three ``fourier_chain_mixed``
    launches (one float32 operand each, each bit-equal on a second call and
-   two device kernels) for bfloat16 q, k, v;
+   two device kernels) for bfloat16 q, k, v; the float32 ``galerkin_scores``,
+   ``galerkin_scores_bwd``, ``fourier_chain`` and the fourier backward
+   again at the encoder profile's shapes (8, 4, 8192, 32, 1) and
+   (32, 8192, 33), as above;
    wide phase: a galerkin and a fourier ``SimpleAttention`` with heads of
    d_k + pos_dim = 130 columns, wider than the kernels take, forward and
    backward on the card against the CPU, with no kernel launched (the JAX
@@ -207,7 +214,29 @@
    ``DeviceEpochRunner`` against the eager loop, ω redrawn on the host
    before each step: a new ω every replay, the same sequence as the eager
    loop's;
-16. parallel phase (``parallel_phase``), the multi-device paths, each rank a
+16. decoder phase (``decoder_phase``): one ``GalerkinTransformerDecoderLayer``
+   at the ex1 width (d 96, 1 head, FFN 192, per-head LN) at n = 8192, batch
+   8, galerkin and fourier self-attention: a forward with exactly one
+   ``galerkin_scores`` or ``fourier_chain`` against the CPU on the rows
+   whose causal cross-attention is well conditioned (κ <= 100), that
+   cross-attention against float64 on those rows (``causal_witness``, as
+   in item 9), and one step (one
+   ``galerkin_scores_bwd`` or three ``fourier_chain`` more) against the CPU;
+17. profiles phase (``profiles_phase``): the four ``examples/*_memory_profile.py``
+   drivers at their defaults (ex1 n = 8192 batch 4, ex2 (141, 43) and ex3
+   (141, 36) batch 4, the encoder stack d 128, 4 heads, 4 layers, n = 8192,
+   batch 8; the encoder's softmax batch cut if its reckoned eager peak
+   passes half the card), each printing JAX's table: each row keeps the graph
+   its timing replayed, the captured galerkin and fourier steps hold their
+   kernels in every layer, every row's FLOPs equal the CPU's count, and
+   the galerkin and fourier steps at batch 1 (the drivers' shapes and
+   kernel instantiations but the batch) give the CPU's gradients, to
+   ``TOL_PROFILE_GRAD`` with the ``PROFILE_GRAD_FLOOR`` floor;
+18. eval phase (``eval_phase``): ``eval/ex1_burgers_eval.py`` on the
+   reference's checkpoint within 1 % of 1.4932e-3 and
+   ``eval/ex2_darcy_eval.py`` on the ex2 421 checkpoint, every request with
+   ``galerkin_scores`` in every layer;
+19. parallel phase (``parallel_phase``), the multi-device paths, each rank a
    process started by ``parallel.spawn`` (a rank that fails fails the
    phase): world 1 over NCCL, three full-width ex1 galerkin f32 steps with
    a mesh (n = 8192, batch 8) and ``Predictor(mesh=)`` requests, each equal
@@ -221,8 +250,9 @@
    one-process bf16 step at the bf16 train tolerances (its launches of
    ``galerkin_scores_bwd_bf16`` counted); each rank's local partial
    against the whole kernel, and the collectives' times;
-17. prints one {"kernels": [...]} line (launches summed over the main
-   paths), then the result line {"ok": true, "device": {...}}.
+20. prints one {"kernels": [...]} line (launches summed over the main
+   paths), each phase's seconds, then the result line
+   {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero.  Without a GPU it exits 1 and
 prints no result.
@@ -231,6 +261,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import gc
 import glob
 import importlib
@@ -266,6 +297,12 @@ from galerkin_transformer_torch.examples import (ex1_burgers,  # noqa: E402
                                                  ex1_burgers_random_fourier_features,
                                                  ex1_burgers_super_res, ex2_darcy,
                                                  ex3_darcy_inv, ex4_navier_stokes)
+from galerkin_transformer_torch.examples import (encoder_memory_profile,  # noqa: E402
+                                                 ex1_memory_profile, ex2_memory_profile,
+                                                 ex3_memory_profile)
+from galerkin_transformer_torch.eval import ex1_burgers_eval, ex2_darcy_eval  # noqa: E402
+from galerkin_transformer_torch.models import GalerkinTransformerDecoderLayer  # noqa: E402
+from galerkin_transformer_torch.utils.profiling import compiled_cost  # noqa: E402
 from galerkin_transformer_torch.models.graph import GAT, GCN  # noqa: E402
 from galerkin_transformer_torch.models.random_fourier import (  # noqa: E402
     redraw_random_features)
@@ -283,6 +320,7 @@ from galerkin_transformer_torch.ops.cuda._graph import (launched_kernels,  # noq
 from galerkin_transformer_torch.ops.cuda import fourier as FC  # noqa: E402
 from galerkin_transformer_torch.ops.cuda import galerkin as GS  # noqa: E402
 from galerkin_transformer_torch.ops.attention import per_head_layer_norm  # noqa: E402
+from galerkin_transformer_torch.models import layers as model_layers  # noqa: E402
 from galerkin_transformer_torch.models.layers import SimpleAttention  # noqa: E402
 from galerkin_transformer_torch.models.encoder import MultiHeadDotProductAttention  # noqa: E402
 
@@ -671,9 +709,10 @@ def stage_sweep_phase(ns=(64, 1024, 2048, 4096, 8192, 16384)) -> list:
     return rows
 
 
-def fourier_phase(rng, dev, peak, dtype=None):
-    """`fourier_chain` (float32) or `fourier_chain_bf16` at the ex1 shape."""
-    bh, n, d = BATCH, RESOLUTIONS[0], 97    # d = 96 + the pos column
+def fourier_phase(rng, dev, peak, dtype=None, shape=(BATCH, RESOLUTIONS[0], 97)):
+    """`fourier_chain` (float32) or `fourier_chain_bf16` at (BH, n, d), by
+    default the ex1 shape (d = 96 + the pos column)."""
+    bh, n, d = shape
     bf16 = dtype == torch.bfloat16
     name = "fourier_chain_bf16" if bf16 else "fourier_chain"
     tol = TOL_BF16_KERNEL if bf16 else TOL_FOURIER
@@ -814,10 +853,11 @@ def galerkin_bwd_phase(rng, dev, peak, shape=EX1_SHAPE, dtype=None, eps=1e-5):
     return res
 
 
-def fourier_bwd_phase(rng, dev, peak):
-    """The backward of fourier attention at the training shape: three
-    fourier_chain launches, against fourier_attention_bwd_reference."""
-    bh, n, d = BATCH, TRAIN_N, 97
+def fourier_bwd_phase(rng, dev, peak, shape=(BATCH, TRAIN_N, 97)):
+    """The backward of fourier attention at (BH, n, d), by default the ex1
+    training shape: three fourier_chain launches, against
+    fourier_attention_bwd_reference."""
+    bh, n, d = shape
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
     q, k, v, g = (t(rng.standard_normal((bh, 1, n, d))) for _ in range(4))
     xs = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -1684,22 +1724,31 @@ def compare_step(tag, steps, models, batch, per_step, tol_loss, tol_grad, floor=
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want) if b != 0)
     if not (all(math.isfinite(x) for x in got) and loss_err <= tol_loss):
         raise AssertionError(f"train {tag}: losses {got} vs CPU {want}")
-    cpu_grads = dict(models["cpu"].named_parameters())
+    grad_err, worst = hold_grads(
+        f"train {tag}", {k: p.grad for k, p in models["cuda"].named_parameters()},
+        {k: p.grad for k, p in models["cpu"].named_parameters()}, tol_grad, floor)
+    print(f"train {tag}: losses {got} vs CPU {want} (max rel err {loss_err:.3e}, tol "
+          f"{tol_loss:.1e}); gradients max err/max|g| {grad_err:.3e} at {worst} (tol "
+          f"{tol_grad:.1e}); launches/step {per_step}")
+
+
+def hold_grads(tag, got, want, tol, floor=0.0):
+    """Every gradient of `got` (the card's, by name) within `tol` of the
+    largest entry of the same gradient in `want` (the CPU's), or of `floor`
+    times the largest entry of all of `want` where that is more.  Returns
+    the worst ratio and its name."""
+    g_floor = floor * max(float(g.abs().max()) for g in want.values())
     grad_err, worst = 0.0, ""
-    g_floor = floor * max(float(p.grad.abs().max()) for p in cpu_grads.values())
-    for key, p in models["cuda"].named_parameters():
-        ref = cpu_grads[key].grad
-        err, scale = max_err(p.grad.cpu(), ref)
+    for key, ref in want.items():
+        err, scale = max_err(got[key].cpu(), ref)
         scale = max(scale, g_floor)
         rel = err / scale if scale > 0 else err
         if rel > grad_err:
             grad_err, worst = rel, key
-        if not err <= tol_grad * scale:
-            raise AssertionError(f"train {tag}: gradient of {key} "
+        if not err <= tol * scale:
+            raise AssertionError(f"{tag}: gradient of {key} "
                                  f"max_abs_err={err:.3e} max|ref|={scale:.3e}")
-    print(f"train {tag}: losses {got} vs CPU {want} (max rel err {loss_err:.3e}, tol "
-          f"{tol_loss:.1e}); gradients max err/max|g| {grad_err:.3e} at {worst} (tol "
-          f"{tol_grad:.1e}); launches/step {per_step}")
+    return grad_err, worst
 
 
 def time_steps(tag, step, batches, n_steps, points):
@@ -2605,50 +2654,65 @@ def masks_phase(rng, n=TRAIN_N):
               f"scale={scale:.3e} tol={TOL_SERVE:.1e}; no kernel")
         if not (err <= TOL_SERVE * scale and torch.isfinite(got).all()):
             raise AssertionError(f"masked {atype}: the card and the CPU disagree")
-    causal_witness(x, pos, keys)
+    causal = SimpleAttention(n_head=1, d_model=x.shape[-1], attention_type="causal", norm=True,
+                             xavier_init=1e-2, diagonal_weight=1e-2, dropout=0.0).eval()
+    causal_witness("causal SimpleAttention with its norm", causal, x, x, pos, keys)
 
 
-def causal_witness(x, pos, keys):
-    """Causal `SimpleAttention` with its norm (layer-normalized q, k with
-    the pos column in front) on inputs `x`, `pos` and the key mask `keys`,
-    in float32 on the card and on the CPU, each against float64 on the CPU.
-    Its denominator q_t·Σ_{s<=t} k_s sums signed terms, so row t loses
-    about κ_t = Σ|q_t|·Σ|k_s| / |q_t·Σk_s| float32 steps: over the rows with
-    κ_t <= CAUSAL_KAPPA both must be within TOL_SERVE of the float64 output
-    there; over all rows both errors are printed."""
-    b, n, d = x.shape
-    layer = SimpleAttention(n_head=1, d_model=d, attention_type="causal", norm=True,
-                            xavier_init=1e-2, diagonal_weight=1e-2, dropout=0.0).eval()
+def causal_kappa(attn, query, memory, pos, keys):
+    """κ_t of the rows of the causal `SimpleAttention` `attn` with its norm
+    (the largest over its heads, (b, n)), in float64 on the CPU from its
+    query input, the memory its keys come from, pos and the key mask
+    `keys`, q and k formed as the layer forms them (per-head LN, the pos
+    columns in front).  Its denominator q_t·Σ_{s<=t} k_s sums signed
+    terms, so row t loses about κ_t = Σ|q_t|·Σ|k_s| / |q_t·Σk_s| float32
+    steps."""
+    a = copy.deepcopy(attn).cpu().double()
+    b, n, _ = query.shape
+    h, d_k = a.n_head, a.d_k
+    p64 = pos.cpu().double()[:, None].expand(b, h, n, pos.shape[-1])
+    with torch.no_grad():
+        q, k = (torch.cat([p64, a._head_norm(lin(t.cpu().double()).reshape(b, n, h, d_k)
+                                             .transpose(1, 2), name)], -1)
+                for lin, name, t in zip(a.linears[:2], ("Q", "K"), (query, memory)))
+    km = k * keys.cpu().double()[:, None, :, None] / n
+    den = torch.einsum("bhnd,bhnd->bhn", km.cumsum(2), q)
+    return (torch.einsum("bhnd,bhnd->bhn", km.abs().cumsum(2), q.abs()) / den.abs()).amax(1)
+
+
+def causal_witness(tag, attn, query, memory, pos, keys):
+    """The causal `SimpleAttention` `attn` with its norm on the query input
+    `query`, keys and values from `memory`, `pos` and the key mask `keys`,
+    in float32 on the card and on the CPU, each against float64 on the CPU:
+    over the rows with κ_t <= CAUSAL_KAPPA (`causal_kappa`) both must be
+    within TOL_SERVE of the float64 output there, of its largest entry;
+    over all rows both errors are printed.  Returns κ and the two errors on
+    those rows."""
+    kappa = causal_kappa(attn, query, memory, pos, keys)
+    well = kappa <= CAUSAL_KAPPA
     outs = {}
     with torch.no_grad():
-        # q and k as the float64 layer forms them
-        x64, pos64 = x.double(), pos.double()
-        layer.double()
-        q, k = (torch.cat([pos64[:, None],
-                           layer._head_norm(lin(x64).reshape(b, 1, n, d), name)], -1)
-                for lin, name in zip(layer.linears[:2], ("Q", "K")))
         for side, dev, dtype in (("float64", "cpu", torch.float64), ("CPU", "cpu", torch.float32),
                                  ("card", "cuda", torch.float32)):
-            xs, ps, ms = (t.to(dev, dtype) for t in (x, pos, keys))
-            outs[side] = layer.to(dev, dtype)(xs, xs, xs, ps, mask=ms)[0].cpu().double()
-    km = k * keys.double()[:, None, :, None] / n
-    den = torch.einsum("bhnd,bhnd->bhn", km.cumsum(2), q)
-    kappa = (torch.einsum("bhnd,bhnd->bhn", km.abs().cumsum(2), q.abs()) / den.abs())[:, 0]
-    well = kappa <= CAUSAL_KAPPA
+            layer = copy.deepcopy(attn).to(dev, dtype)
+            qs, ms, ps, ks = (t.to(dev, dtype) for t in (query, memory, pos, keys))
+            outs[side] = layer(qs, ms, ms, ps, mask=ks)[0].cpu().double()
     ref, errs = outs["float64"], {}
     for side in ("card", "CPU"):
         if not torch.isfinite(outs[side]).all():
-            raise AssertionError(f"causal witness: the {side} output is not finite")
+            raise AssertionError(f"{tag} witness: the {side} output is not finite")
         gap = (outs[side] - ref).abs().amax(-1)
         errs[side] = (float(gap.max() / ref.abs().max()),
                       float(gap[well].max() / ref[well].abs().max()))
-    print(f"causal SimpleAttention with its norm (d={d}, n={n}, batch={b}) vs float64, of "
-          f"the largest output: all rows card {errs['card'][0]:.3e}, CPU {errs['CPU'][0]:.3e}; "
-          f"the {100 * well.double().mean():.1f} % of rows with κ <= {CAUSAL_KAPPA:.0e} card "
-          f"{errs['card'][1]:.3e}, CPU {errs['CPU'][1]:.3e} (tol {TOL_SERVE:.1e}); largest κ "
-          f"{kappa.max():.3e}")
+    b, n, d = query.shape
+    print(f"{tag} (d={d}, n={n}, batch={b}) vs float64, of the largest output: all rows card "
+          f"{errs['card'][0]:.3e}, CPU {errs['CPU'][0]:.3e}; the "
+          f"{100 * well.double().mean():.1f} % of rows with κ <= {CAUSAL_KAPPA:.0e} card "
+          f"{errs['card'][1]:.3e}, CPU {errs['CPU'][1]:.3e} (tol {TOL_SERVE:.1e}); κ from "
+          f"{kappa.min():.3e}, median {kappa.median():.3e}, to {kappa.max():.3e}")
     if not max(errs["card"][1], errs["CPU"][1]) <= TOL_SERVE:
-        raise AssertionError("causal witness: a well-conditioned row is off float64")
+        raise AssertionError(f"{tag} witness: a well-conditioned row is off float64")
+    return kappa, {side: err[1] for side, err in errs.items()}
 
 
 def cosine_bf16_phase(seeds=range(4)) -> list:
@@ -2880,6 +2944,8 @@ def generators_phase():
 # the ex2 driver at its own grid: the data made by multigrid on the card, the
 # full-width model trained at the defaults' (n_f, n_c) = (141, 43)
 DARCY_421_SAMPLES = 32
+# what a phase leaves for a later one: `darcy_421_phase`'s checkpoint for `eval_phase`
+KEPT = {}
 
 
 def darcy_421_phase():
@@ -2888,8 +2954,9 @@ def darcy_421_phase():
     epoch, with the data made afresh by ``darcy_mg_torch`` on the card: the
     training and validation sets both from the device branch, each train
     step's graph exactly 6 ``galerkin_scores`` and 6 ``galerkin_scores_bwd``
-    and each eval step's 6 ``galerkin_scores``.  Returns the launch counts
-    of its run, the graph replays included."""
+    and each eval step's 6 ``galerkin_scores``; keeps a copy of its
+    checkpoint for `eval_phase`.  Returns the launch counts of its run, the
+    graph replays included."""
     reset_launches()
     t0 = time.perf_counter()
     with runner_hooks() as runners, tempfile.TemporaryDirectory() as tmp, fresh_data_dir():
@@ -2898,7 +2965,9 @@ def darcy_421_phase():
             val = ex2_darcy.main(["--n-samples", str(DARCY_421_SAMPLES), "--epochs", "1"],
                                  model_save_path=tmp)
         print(printed.getvalue(), end="")
-        _driver_outputs("ex2 421", tmp, val, 1)
+        ckpt = _driver_outputs("ex2 421", tmp, val, 1)
+        keep = tempfile.mkdtemp()
+        KEPT["ex2_421"] = (shutil.copy(ckpt, keep), val)   # for eval_phase, which removes it
     made = printed.getvalue().count("Darcy samples at 421² (device MG")
     if made != 2 or len(runners) != 1 or runners[0].replays == 0:
         raise AssertionError(f"ex2 421: {made} sets from the device generator, "
@@ -3368,6 +3437,369 @@ def round_trip(ckpt, cfg, batch, want, served):
           f"read back by content, each served bit-equal to the original")
 
 
+# decoder phase: one GalerkinTransformerDecoderLayer at the ex1 width (d 96,
+# 1 head, pos of one column, FFN 192) at n = 8192, batch 8, with per-head
+# LN in both attentions (layer_norm off), dropout 0; its forward and one
+# backward per attention type, with exactly these launches
+DECODER = dict(d_model=96, nhead=1, pos_dim=1, dim_feedforward=192, layer_norm=False,
+               dropout=0.0)
+DECODER_LAUNCHES = {"galerkin": ({"galerkin_scores": 1}, {"galerkin_scores_bwd": 1}),
+                    "fourier": ({"fourier_chain": 1}, {"fourier_chain": 3})}
+
+
+def decoder_phase(rng, n=RESOLUTIONS[0]):
+    """`GalerkinTransformerDecoderLayer` at the ex1 width on the card against
+    the same weights on the CPU, for galerkin and fourier self-attention:
+    a forward (exactly one ``galerkin_scores`` or ``fourier_chain``) on
+    the rows whose cross-attention keeps its float32 accuracy (κ_t <=
+    CAUSAL_KAPPA in every head) to TOL_SERVE, its cross-attention against
+    float64 on those rows (`causal_witness`), and one step (exactly one
+    ``galerkin_scores_bwd`` or three ``fourier_chain`` more) on the loss
+    Σ out² over those rows against the CPU; the forward and the step
+    timed.  Returns the launch counts."""
+    reset_launches()
+    t0 = time.perf_counter()
+    x, memory = (torch.from_numpy(rng.standard_normal((BATCH, n, 96)).astype(np.float32))
+                 for _ in range(2))
+    pos = torch.linspace(0, 1, n)[None, :, None].expand(BATCH, n, 1).contiguous()
+    for atype, (fwd, bwd) in DECODER_LAUNCHES.items():
+        cpu = GalerkinTransformerDecoderLayer(
+            **DECODER, attention_type=atype,
+            generator=torch.Generator().manual_seed(SEED)).eval()
+        gpu = copy.deepcopy(cpu).cuda()
+        xs, ms, ps = (t.cuda() for t in (x, memory, pos))
+        seen = {}
+        hook = gpu.cross_attn.register_forward_pre_hook(
+            lambda mod, args, kwargs: seen.update(x1=args[0]), with_kwargs=True)
+        before = launches()
+        with torch.no_grad():
+            out = gpu(xs, ms, ps)
+        torch.cuda.synchronize()
+        hook.remove()
+        got = Counter(launches()) - Counter(before)
+        if dict(got) != fwd:
+            raise AssertionError(f"decoder {atype}: a forward launched {dict(got)}, "
+                                 f"expected {fwd}")
+        kappa, wit = causal_witness(f"decoder {atype} cross-attention", gpu.cross_attn,
+                                    seen["x1"], memory, pos, torch.ones(BATCH, n))
+        well = kappa <= CAUSAL_KAPPA
+        with torch.no_grad():
+            ref = cpu(x, memory, pos)
+        out = out.cpu()
+        err = float((out - ref).abs()[well].max())
+        scale = float(ref[well].abs().max())
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: gpu(xs, ms, ps), 5)
+        with torch.no_grad():
+            print(f"  breakdown decoder {atype} forward: {breakdown(lambda: gpu(xs, ms, ps))}")
+        print(f"decoder {atype} (d=96, 1 head, n={n}, batch={BATCH}, per-head LN): forward "
+              f"{fwd_ms:.3f} ms, launches {fwd}; on the {100 * well.double().mean():.1f} % of "
+              f"rows with κ <= {CAUSAL_KAPPA:.0e}: card vs CPU max_abs_err={err:.3e} "
+              f"scale={scale:.3e} tol={TOL_SERVE:.1e}; cross-attention vs float64 on them: "
+              f"card {wit['card']:.3e}, CPU {wit['CPU']:.3e} (tol {TOL_SERVE:.1e})")
+        # at this n few rows are well conditioned (PERF.md §6, the decoder): at least
+        # 1 % of them, so that the check holds something
+        if not (torch.isfinite(out).all() and err <= TOL_SERVE * scale
+                and well.sum() >= well.numel() // 100):
+            raise AssertionError(f"decoder {atype}: the card and the CPU disagree")
+        weight = well[..., None].float()
+
+        def step_of(layer, dev):
+            inputs = [t.to(dev) for t in (x, memory, pos, weight)]
+
+            def step(_batch):
+                layer.zero_grad(set_to_none=True)
+                out = layer(*inputs[:3])
+                loss = (inputs[3] * out ** 2).sum() / (inputs[3].sum() * out.shape[-1])
+                loss.backward()
+                return [loss.detach()]
+            return step
+
+        gpu.train(), cpu.train()
+        steps = {"cuda": step_of(gpu, "cuda"), "cpu": step_of(cpu, "cpu")}
+        compare_step(f"decoder {atype}", steps, {"cuda": gpu, "cpu": cpu}, None,
+                     dict(Counter(fwd) + Counter(bwd)), TOL_TRAIN_LOSS, TOL_TRAIN_GRAD,
+                     floor=GRAD_FLOOR)
+        step_ms = time_ms(lambda: steps["cuda"](None), 3)
+        print(f"  decoder {atype} step (forward and backward) {step_ms:.3f} ms")
+        del gpu, steps
+        release_graphs()
+    print(f"decoder phase: {time.perf_counter() - t0:.1f} s")
+    return launches()
+
+
+# profiles phase: the four memory-profile drivers at their defaults.  The
+# encoder profile's softmax type keeps B·H·n² float32 probabilities a layer;
+# its step may reckon to peak (eagerly) at this share of the card's memory:
+# `measure` also captures the step in a CUDA graph, whose private pool needs
+# more than the eager peak (the first capture of the batch-8 step, 57.65 GiB
+# eager, ran out of the card's 79.18 GiB with 14.24 GiB of it reserved but
+# unallocated, PERF.md §6, the profiles)
+PROFILE_DRIVERS = (("ex1", ex1_memory_profile, 4), ("ex2", ex2_memory_profile, 6),
+                   ("ex3", ex3_memory_profile, 6), ("encoder", encoder_memory_profile, None))
+MEMORY_MARGIN = 0.5
+PROFILE_PER_LAYER = {"galerkin": {"galerkin_scores": 1, "galerkin_scores_bwd": 1},
+                     "fourier": {"fourier_chain": 4}}
+# the profiles' galerkin and fourier gradient steps at batch 1, card vs CPU:
+# each gradient to TOL_PROFILE_GRAD of its largest entry, or of
+# PROFILE_GRAD_FLOOR times the model's largest gradient where that is more.
+# Against the same steps in float64, so held (``--profile-float64`` on an
+# H100, PERF.md §6), float32 reads at most 2.213e-3 on the card and 1.436e-3
+# on the CPU, both at ex3 fourier: the chain's order, (A Bᵀ) C, which the
+# CPU's plain version shares (the card's step with the plain attention reads
+# 2.7e-6 there); every other step reads at most 5.5e-4 on the card and
+# 7.3e-4 on the CPU.  The bound is the sum of the two largest x1.25, rounded
+# up.  The kernel phases hold the kernels themselves, to 1e-4 of their plain
+# versions and 1e-5 of float64: the galerkin pair at the ex1, ex2 and encoder
+# profiles' shapes, the chain at the ex1 and encoder ones
+TOL_PROFILE_GRAD = 5e-3
+PROFILE_GRAD_FLOOR = 1e-1
+
+
+def profile_grads(tag, module, atype, args, cpu_step):
+    """The profile's gradient step `module.make_step(atype, args)` on the
+    card from the weights of the CPU's `cpu_step` (fn, params) on the same
+    inputs: every gradient within TOL_PROFILE_GRAD of its largest entry, or of
+    PROFILE_GRAD_FLOOR times the largest of all (`hold_grads`).  Returns
+    the card step's launches."""
+    fn, params = module.make_step(atype, args, torch.device("cuda"))
+    cpu_fn, cpu_params = cpu_step
+    with torch.no_grad():
+        for p, q in zip(params, cpu_params, strict=True):
+            p.copy_(q)
+    before = launches()
+    got = fn(params)
+    torch.cuda.synchronize()
+    ran = Counter(launches()) - Counter(before)
+    want = cpu_fn(cpu_params)
+    name = lambda i: f"#{i} {tuple(cpu_params[i].shape)}"
+    grad_err, worst = hold_grads(tag, {name(i): g for i, g in enumerate(got)},
+                                 {name(i): g for i, g in enumerate(want)}, TOL_PROFILE_GRAD,
+                                 PROFILE_GRAD_FLOOR)
+    print(f"  {tag}: card vs CPU at batch {args.batch_size}, {len(want)} gradients, max "
+          f"err/max|g| {grad_err:.3e} at parameter {worst} (tol {TOL_PROFILE_GRAD:.1e}, floor "
+          f"{PROFILE_GRAD_FLOOR:.0e} of the largest); launches {dict(ran)}")
+    return ran
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Inside the block the attention layers take their plain route (the
+    route of heads wider than the kernels take), in the parameters' type."""
+    saved = model_layers.GALERKIN_MAX_D, model_layers.FOURIER_MAX_D
+    model_layers.GALERKIN_MAX_D = model_layers.FOURIER_MAX_D = 0
+    try:
+        yield
+    finally:
+        model_layers.GALERKIN_MAX_D, model_layers.FOURIER_MAX_D = saved
+
+
+@contextlib.contextmanager
+def float64_profile_steps():
+    """Inside the block a profile driver's `make_step` builds its step in
+    float64 (parameters and inputs), and the attention is plain."""
+    holders = (ex1_memory_profile, ex2_memory_profile, encoder_memory_profile)
+    tensors = [m.tensor for m in holders]
+    for m in holders:
+        m.tensor = lambda a, device: torch.from_numpy(
+            np.ascontiguousarray(a, dtype=np.float64)).to(device)
+    torch.set_default_dtype(torch.float64)
+    try:
+        with plain_attention():
+            yield
+    finally:
+        torch.set_default_dtype(torch.float32)
+        for m, t in zip(holders, tensors):
+            m.tensor = t
+
+
+def profile_float64_phase() -> list:
+    """The readings behind PROFILE_GRAD_FLOOR: each profile's galerkin and
+    fourier gradient step at batch 1 in float32 on the card (the kernels),
+    on the card with the attention's plain route, and on the CPU, each
+    against the same step in float64 on the card from the same weights:
+    per step, the largest error of any gradient, of the model's largest
+    gradient (``of_model``) and as `profile_grads` holds it (``held``: of
+    its largest entry or PROFILE_GRAD_FLOOR of the model's largest, the
+    larger), and the three largest errors of a gradient, of its largest
+    entry (its size beside them, of the model's largest gradient)."""
+    dev, cpu, rows = torch.device("cuda"), torch.device("cpu"), []
+
+    def errors(got, ref):
+        big = max(float(r.abs().max()) for r in ref)
+        gaps = [float((g.double().cpu() - r.cpu()).abs().max()) for g, r in zip(got, ref)]
+        out = sorted(((gap / float(r.abs().max()), i, float(r.abs().max()) / big)
+                      for i, (gap, r) in enumerate(zip(gaps, ref))), reverse=True)
+        held = max(gap / max(float(r.abs().max()), PROFILE_GRAD_FLOOR * big)
+                   for gap, r in zip(gaps, ref))
+        return dict(of_model=max(gaps) / big, held=held,
+                    worst=[dict(err=e, param=i, size=m) for e, i, m in out[:3]])
+
+    for tag, module, _ in PROFILE_DRIVERS:
+        one = module.parser().parse_args(["--batch-size", "1"])
+        for atype in PROFILE_PER_LAYER:
+            cpu_fn, cpu_params = module.make_step(atype, one, cpu)
+            fn, params = module.make_step(atype, one, dev)
+            with float64_profile_steps():
+                fn64, params64 = module.make_step(atype, one, dev)
+            with torch.no_grad():
+                for p, p64, q in zip(params, params64, cpu_params, strict=True):
+                    p.copy_(q)
+                    p64.copy_(q)
+            kernel = [g.clone() for g in fn(params)]
+            with float64_profile_steps():
+                ref = fn64(params64)
+                if any(g.dtype != torch.float64 for g in ref):
+                    raise AssertionError(f"{tag} {atype}: the float64 step is not float64")
+            with plain_attention():
+                plain = fn(params)
+            row = dict(profile=tag, type=atype, kernel=errors(kernel, ref),
+                       card_plain=errors(plain, ref), cpu=errors(cpu_fn(cpu_params), ref))
+            print(f"profile {tag} {atype} at batch 1 vs float64: {row}")
+            rows.append(row)
+            del fn, params, fn64, params64
+            release_graphs()
+    return rows
+
+
+def profiles_phase(smi: str):
+    """Each ``examples/*_memory_profile.py`` of the port at its defaults on
+    the card (`compiled_cost` and `profile_step` per attention type, the
+    table printed): each row keeps its captured step's graph, and the
+    galerkin and fourier rows' graphs hold exactly one ``galerkin_scores``
+    and one ``galerkin_scores_bwd``, or four ``fourier_chain``, per encoder
+    layer, the others none; each row's FLOPs equal the CPU's count of the
+    same step (the plain versions counted by FlopCounterMode), taken at
+    batch 1 and times the batch (every count is linear in the batch,
+    ``tests/test_torch_profiling.py``); the galerkin and fourier steps at
+    batch 1 (the same shapes and kernels but the batch) give the CPU's
+    gradients (`profile_grads`, launches not counted as the path's).  The
+    encoder profile's softmax peak is reckoned first from its peak at
+    batch 1; a batch that would pass MEMORY_MARGIN of the card's memory is
+    cut to the largest that fits, and its line says so.  Returns the launch
+    counts, the graphs' replays included."""
+    reset_launches()
+    t0 = time.perf_counter()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    total = torch.cuda.get_device_properties(0).total_memory
+    counts, tables = Counter(), {}
+    for tag, module, layers in PROFILE_DRIVERS:
+        t1 = time.perf_counter()
+        parser = module.parser()
+        args = parser.parse_args([])
+        layers = layers or args.n_layers
+        runs = [(list(args.attention_types), args.batch_size)]
+        if tag == "encoder":
+            fn, params = module.make_step("softmax", parser.parse_args(["--batch-size", "1"]),
+                                          dev)
+            peak1 = compiled_cost(fn, params)["temp_size_in_bytes"]
+            del fn, params
+            release_graphs()
+            fits = int(MEMORY_MARGIN * total // peak1)
+            print(f"profile encoder softmax: peak {peak1 / 2 ** 20:.1f} MiB at batch 1, "
+                  f"reckoned {peak1 * args.batch_size / 2 ** 30:.2f} GiB at batch "
+                  f"{args.batch_size} of the card's {total / 2 ** 30:.2f} GiB (margin "
+                  f"{MEMORY_MARGIN}): {'fits' if fits >= args.batch_size else f'cut to batch {fits}'}")
+            if fits < args.batch_size:
+                runs = [([t for t in args.attention_types if t != "softmax"], args.batch_size),
+                        (["softmax"], fits)]
+        rows, batch_of = [], {}
+        for types, bsz in runs:
+            print(f"profile {tag}: {' '.join(types)} at batch {bsz} ({smi})")
+            result = module.main(["--attention-types", *types, "--batch-size", str(bsz)])
+            rows += result.rows
+            batch_of.update(dict.fromkeys(types, bsz))
+        counts.update(launches())
+        names = [r["name"] for r in rows]
+        if names != [t for types, _ in runs for t in types] or not all("graph" in r for r in rows):
+            raise AssertionError(f"profile {tag}: rows {names}, expected one with its captured "
+                                 f"graph per type run")
+        one = parser.parse_args(["--batch-size", "1"])
+        for row in rows:
+            record = row["graph"]
+            want = {k: v * layers for k, v in PROFILE_PER_LAYER.get(row["name"], {}).items()}
+            graph = dict(wrapper_launches(record["kernels"]))
+            if graph != want:
+                raise AssertionError(f"profile {tag} {row['name']}: the captured step holds "
+                                     f"{graph}, expected {want}")
+            counts.update(graph_launches([(record["kernels"], record["replays"])]))
+            cpu_step = module.make_step(row["name"], one, cpu)
+            cpu_gflops = compiled_cost(*cpu_step)["flops"] * batch_of[row["name"]] / 1e9
+            print(f"  {tag} {row['name']}: batch {batch_of[row['name']]}, {row['gflops']:.6f} "
+                  f"GFLOPs on the card, {cpu_gflops:.6f} on the CPU (batch 1 × "
+                  f"{batch_of[row['name']]}); {record['replays']} replays of a graph of "
+                  f"{len(record['kernels'])} kernels, launches/step {want or 0}")
+            if row["gflops"] != cpu_gflops:
+                raise AssertionError(f"profile {tag} {row['name']}: FLOPs differ from the CPU's")
+            if want:
+                ran = profile_grads(f"profile {tag} {row['name']}", module, row["name"], one,
+                                    cpu_step)
+                if dict(ran) != want:
+                    raise AssertionError(f"profile {tag} {row['name']}: the batch-1 step "
+                                         f"launched {dict(ran)}, expected {want}")
+            del cpu_step
+            release_graphs()
+        reset_launches()   # the batch-1 comparisons are not the path's launches
+        tables[tag] = rows
+        print(f"profile {tag}: {time.perf_counter() - t1:.1f} s")
+    print(json.dumps({"profiles": {tag: [{k: r[k] for k in ("name", "mean_s", "gflops",
+                                                           "tflops_per_s", "hbm_gb",
+                                                           "temp_mb")} for r in rows]
+                                   for tag, rows in tables.items()}, "card": smi}))
+    print(f"profiles phase: {time.perf_counter() - t0:.1f} s")
+    return {name: counts[name] for name in COUNTERS}
+
+
+def eval_phase():
+    """The evaluation drivers: ``eval/ex1_burgers_eval.py`` of the port on
+    the reference's checkpoint (galerkin, subsample 4, the calibration's
+    2148 samples and batches of 16, `checkpoints_phase`'s data), within
+    TOL_ANCHOR of the reference's 1.4932e-3; ``eval/ex2_darcy_eval.py`` on
+    the checkpoint that `darcy_421_phase` wrote (at its grids, its data
+    made afresh), printed beside that driver's validation metric.  Every
+    request's graph launches ``galerkin_scores`` in every encoder layer.
+    Returns the launch counts, the replays included."""
+    reset_launches()
+    t0 = time.perf_counter()
+    args = ex1_burgers_eval.parser().parse_args(
+        [ANCHOR, "--attention-type", "galerkin", "--subsample", str(SUBSAMPLE), "--n-samples",
+         str(ANCHOR_SAMPLES), "--val-batch-size", str(ANCHOR_VAL_BATCH)])
+    metric, pred, ds = ex1_burgers_eval.evaluate(args)
+    forwards = [c.forward for c in pred._captured.values()]
+    rel = abs(metric - ANCHOR_METRIC) / ANCHOR_METRIC
+    print(f"eval ex1 (port driver) on {os.path.basename(ANCHOR)}: validation metric "
+          f"{metric:.6e} on {len(ds)} fields at n={ds.n_grid} vs the reference's "
+          f"{ANCHOR_METRIC:.4e}: rel gap {rel:.3e} (tol {TOL_ANCHOR:.0e}); "
+          f"{len(forwards)} request shapes; {time.perf_counter() - t0:.1f} s")
+    if not rel <= TOL_ANCHOR:
+        raise AssertionError("eval ex1: the validation metric is off the reference's")
+    t1 = time.perf_counter()
+    ckpt, driver_val = KEPT.pop("ex2_421")
+    try:
+        with fresh_data_dir():
+            args2 = ex2_darcy_eval.parser().parse_args(
+                [ckpt, "--subsample-attn", "10", "--n-samples", str(DARCY_421_SAMPLES)])
+            metric2, pred2, n_grid = ex2_darcy_eval.evaluate(args2)
+    finally:
+        shutil.rmtree(os.path.dirname(ckpt))
+    forwards2 = [c.forward for c in pred2._captured.values()]
+    print(f"eval ex2 (port driver) on the ex2 421 checkpoint: validation metric "
+          f"{metric2:.4e} at n={n_grid} (normalizer from {4 * DARCY_421_SAMPLES} fresh training "
+          f"samples), the driver's last validation metric {driver_val:.4e}; "
+          f"{len(forwards2)} request shapes; {time.perf_counter() - t1:.1f} s")
+    for tag, fw, layers in (("ex1", forwards, 4), ("ex2", forwards2, 6)):
+        for forward in fw:
+            got = dict(wrapper_launches(forward.kernels()))
+            if got != {"galerkin_scores": layers}:
+                raise AssertionError(f"eval {tag}: a request holds {got}")
+    if not math.isfinite(metric2):
+        raise AssertionError(f"eval ex2: metric {metric2}")
+    counts = Counter(launches())
+    counts.update(forward_launches(forwards + forwards2))
+    print(f"eval phase: {time.perf_counter() - t0:.1f} s")
+    return {name: counts[name] for name in COUNTERS}
+
+
 # parallel phase: the multi-device paths on the one card.  World 1 over NCCL
 # (all-reducing one rank is the identity), then two ranks sharing cuda:0 over
 # gloo (NCCL refuses two ranks on one device; gloo takes CUDA tensors)
@@ -3733,6 +4165,10 @@ def main(argv=None) -> int:
                         help="only print bf16 cosine serving's distance from the float32 "
                              "model on four seeds, ex1 and ex2 (the readings behind "
                              "TOL_SERVE_COSINE_BF16 and TOL_SERVE_COSINE_BF16_2D)")
+    parser.add_argument("--profile-float64", action="store_true",
+                        help="only print the profiles' galerkin and fourier gradient "
+                             "steps at batch 1 (card, card plain route, CPU) against "
+                             "float64 (the readings behind PROFILE_GRAD_FLOOR)")
     parser.add_argument("--stage-sweep", action="store_true",
                         help="only time the float32 galerkin forward's stages at the "
                              "ex1 width over n (stage_sweep_phase)")
@@ -3761,6 +4197,9 @@ def main(argv=None) -> int:
     if args.stage_sweep:
         print(json.dumps({"card": smi, "stage_sweep": stage_sweep_phase()}))
         return 0
+    if args.profile_float64:
+        print(json.dumps({"card": smi, "profile_float64": profile_float64_phase()}))
+        return 0
 
     t0 = time.perf_counter()
     logs = _build.build()
@@ -3771,6 +4210,7 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(SEED)
     bf16 = torch.bfloat16
+    t_kernels = time.perf_counter()
     kernels = [fourier_phase(rng, dev, peak), galerkin_phase(rng, dev, peak),
                galerkin_bwd_phase(rng, dev, peak),
                galerkin_phase(rng, dev, peak, EX2_SHAPE, bf16, eps=1e-7),
@@ -3785,21 +4225,39 @@ def main(argv=None) -> int:
     galerkin_bwd_phase(rng, dev, peak, dtype=bf16)
     galerkin_bwd_phase(rng, dev, peak, EX2_TRAIN_SHAPE, eps=1e-7)
     fourier_bwd_phase(rng, dev, peak)
+    # and at the encoder profile's (4 heads of d_k 32 and one pos column; the
+    # chains at d = 33), which no model of the other paths has; their inputs
+    # from a generator of their own, so the other phases draw what they drew
+    enc, enc_rng = encoder_memory_profile.parser().parse_args([]), np.random.default_rng(SEED)
+    d_k = enc.d_model // enc.n_head
+    enc_scores = (enc.batch_size, enc.n_head, enc.seq_len, d_k, 1)
+    enc_chain = (enc.batch_size * enc.n_head, enc.seq_len, d_k + 1)
+    galerkin_phase(enc_rng, dev, peak, enc_scores)
+    galerkin_bwd_phase(enc_rng, dev, peak, enc_scores)
+    fourier_phase(enc_rng, dev, peak, shape=enc_chain)
+    fourier_bwd_phase(enc_rng, dev, peak, enc_chain)
     wide_phase(rng, dev)
-    paths = []
+    t_paths = time.perf_counter()
+    paths, seconds = [], []
     for phase in (lambda: serving_phase(rng), lambda: serving_2d_phase(rng),
                   lambda: serving_ex4_phase(rng), training_phase, training_2d_phase,
                   ex4_phase, device_loop_phase, lambda: recovery_phase(smi), driver_phase,
                   lambda: ex1_variants_phase(rng), lambda: variants_2d_phase(rng),
                   checkpoints_phase, generators_phase, darcy_421_phase, graph_phase,
-                  random_features_phase, lambda: parallel_phase(smi)):
+                  random_features_phase, lambda: decoder_phase(rng),
+                  lambda: profiles_phase(smi), eval_phase, lambda: parallel_phase(smi)):
         release_graphs()   # the graphs of the phases before
+        t1 = time.perf_counter()
         paths.append(phase())
+        seconds.append(round(time.perf_counter() - t1, 1))
     print(f"launches by main path (ex1 serving, ex2 serving, ex4 serving, ex1 training, "
           f"ex2 training, ex4 training, device loop, recovery, drivers, ex1 variants, "
           f"2D variants, checkpoints, generators, ex2 at 421, graph, random features, "
-          f"parallel): "
+          f"decoder, profiles, eval, parallel): "
           f"{paths}")
+    print(f"phase seconds (kernel phases, then the paths in that order): "
+          f"{round(t_paths - t_kernels, 1)}, {seconds}; {time.perf_counter() - t0:.1f} s "
+          f"with the build")
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in paths)
         if k["launches"] == 0:

@@ -6,10 +6,17 @@ kernel under ``csrc/``, built with ``nvcc`` on first use and bound with
 ``ctypes`` (``ops/cuda``).  Importing this package imports neither jax
 nor anything of the JAX package, and builds nothing.
 
+Namespaces, as in the JAX package: ``ops``, ``models``, ``data``,
+``train``, ``parallel`` (process groups are started only by its
+functions) and ``utils``.
+
 Entry points (``SimpleTransformer``, ``FourierTransformer2D``,
 ``FourierTransformer2DLite``, ``Predictor``) run on ``cuda``
 unless the caller passes ``device="cpu"``; without a GPU they raise.
 """
+__version__ = "0.1.0"
+
+from . import data, models, ops, parallel, train, utils  # noqa: F401
 from .models import FourierTransformer2D, FourierTransformer2DLite, SimpleTransformer
 from .serve import Predictor
 from .utils import load_config

@@ -23,6 +23,7 @@ import numpy as np
 
 from ..ops.fem import get_distance_matrix, get_laplacian_1d, get_mass_1d, krylov_powers
 from ..utils import config
+from ..utils.timing import timer
 from .synthetic import burgers_cole_hopf
 
 SYNTHETIC_VISCOSITY = 0.01
@@ -85,8 +86,9 @@ class BurgersDataset:
     def _load(self):
         if self.data_path is not None and os.path.exists(self.data_path):
             from scipy.io import loadmat
-            data = loadmat(self.data_path)
-            return np.asarray(data["a"]), np.asarray(data["u"])
+            with timer(f"Loading {os.path.basename(self.data_path)}"):
+                data = loadmat(self.data_path)
+                return np.asarray(data["a"]), np.asarray(data["u"])
         cache = os.path.join(
             config.DATA_PATH, f"burgers_synth_n{self.n_grid_fine}"
             f"_s{self.n_samples_synthetic}_v{self.synthetic_viscosity}"

@@ -33,7 +33,6 @@ says which), dense (n², n², C) or with ``sparse_edge`` as (values,
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional, Union
 
 import numpy as np
@@ -42,6 +41,7 @@ import torch
 from ..ops import fem
 from ..ops.interp import interp_matrix, resolve_interp_size
 from ..utils import config
+from ..utils.timing import timer
 from .normalizer import UnitGaussianNormalizer
 from .synthetic import darcy_fd
 
@@ -155,8 +155,9 @@ class DarcyDataset:
     def _load(self):
         if self.data_path is not None and os.path.exists(self.data_path):
             from scipy.io import loadmat
-            data = loadmat(self.data_path)
-            return np.asarray(data["coeff"]), np.asarray(data["sol"])
+            with timer(f"Loading {os.path.basename(self.data_path)}"):
+                data = loadmat(self.data_path)
+                return np.asarray(data["coeff"]), np.asarray(data["sol"])
         seed = self.random_state + (0 if self.train_data else 7)
         on_device = self.n_samples_synthetic * self.n_grid_fine ** 2 > DEVICE_WORK
         # _t3: the GRF correlation tag (tau = 3 fields); _torch: the device
@@ -169,12 +170,10 @@ class DarcyDataset:
                 return z["coeff"], z["sol"]
         if on_device:
             from .synthetic_torch import darcy_mg_torch
-            t0 = time.perf_counter()
-            coeff, sol = darcy_mg_torch(self.n_samples_synthetic, self.n_grid_fine, seed=seed,
-                                        device=self.device)
-            print(f"Generating {self.n_samples_synthetic} Darcy samples at "
-                  f"{self.n_grid_fine}² (device MG, {self.device or 'cuda'}) - done in "
-                  f"{time.perf_counter() - t0:.2f} s")
+            with timer(f"Generating {self.n_samples_synthetic} Darcy samples at "
+                       f"{self.n_grid_fine}² (device MG, {self.device or 'cuda'})"):
+                coeff, sol = darcy_mg_torch(self.n_samples_synthetic, self.n_grid_fine,
+                                            seed=seed, device=self.device)
         else:
             coeff, sol = darcy_fd(self.n_samples_synthetic, self.n_grid_fine, seed=seed)
         try:

@@ -14,11 +14,12 @@ axis split: input window [0, T_in), target [T_in, T_in + T_out).
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional, Union
 
 import numpy as np
 import torch
+
+from ..utils.timing import timer
 
 # trajectories × n² above which the data is made on the device (data/ns.py:56-57)
 DEVICE_WORK = 16 * 64 ** 2
@@ -65,8 +66,9 @@ class NavierStokesDatasetLite:
     def _load(self) -> np.ndarray:
         if self._from_file():
             import h5py
-            with h5py.File(self.data_path, mode="r") as data:
-                return np.transpose(data["u"])
+            with timer(f"Loading {os.path.basename(self.data_path)}"):
+                with h5py.File(self.data_path, mode="r") as data:
+                    return np.transpose(data["u"])
         from ..utils.config import DATA_PATH
         seed = self.random_state + (0 if self.train_data else 7)
         n_rec = self.time_steps_input + self.time_steps_output
@@ -79,19 +81,17 @@ class NavierStokesDatasetLite:
         if os.path.exists(cache):
             with np.load(cache) as z:
                 return z["u"]
-        t0 = time.perf_counter()
-        if on_device:
-            from .synthetic_torch import navier_stokes_spectral_torch
-            u = navier_stokes_spectral_torch(self.n_samples_synthetic, self.n_grid,
-                                             n_steps_record=n_rec, seed=seed,
-                                             device=self.device)
-        else:
-            from .synthetic import navier_stokes_spectral
-            u = navier_stokes_spectral(self.n_samples_synthetic, self.n_grid,
-                                       n_steps_record=n_rec, seed=seed)
-        print(f"Generating {self.n_samples_synthetic} NS trajectories at {self.n_grid}² "
-              f"({'torch, ' + str(self.device or 'cuda') if on_device else 'host'}) - "
-              f"done in {time.perf_counter() - t0:.2f} s")
+        with timer(f"Generating {self.n_samples_synthetic} NS trajectories at {self.n_grid}² "
+                   f"({'torch, ' + str(self.device or 'cuda') if on_device else 'host'})"):
+            if on_device:
+                from .synthetic_torch import navier_stokes_spectral_torch
+                u = navier_stokes_spectral_torch(self.n_samples_synthetic, self.n_grid,
+                                                 n_steps_record=n_rec, seed=seed,
+                                                 device=self.device)
+            else:
+                from .synthetic import navier_stokes_spectral
+                u = navier_stokes_spectral(self.n_samples_synthetic, self.n_grid,
+                                           n_steps_record=n_rec, seed=seed)
         try:
             os.makedirs(DATA_PATH, exist_ok=True)
             np.savez_compressed(cache, u=u)

@@ -12,6 +12,7 @@ from ..data import DataLoader
 from ..train import (AdamOneCycle, WeightedL2Loss2d, adam_plateau, make_darcy_steps,
                      run_train, validate_epoch)
 from ..utils.config import MODEL_PATH
+from ..utils.misc import get_num_params
 
 
 def train_and_report(model: torch.nn.Module, config: dict, args, train_dataset,
@@ -35,7 +36,7 @@ def train_and_report(model: torch.nn.Module, config: dict, args, train_dataset,
         print(k, "\t", v.shape)
     print(f"\nModel: FourierTransformer2D ({config['attention_type']}"
           f"{', bfloat16 encoder' if args.bf16 else ''})"
-          f"\t Number of params: {sum(p.numel() for p in model.parameters())}")
+          f"\t Number of params: {get_num_params(model)}")
 
     device = next(model.parameters()).device
     plateau = lr_schedule = None

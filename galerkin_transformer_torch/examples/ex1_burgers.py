@@ -38,7 +38,7 @@ from ..models import SimpleTransformer
 from ..train import (AdamOneCycle, WeightedL2Loss, adam_plateau, make_burgers_steps,
                      run_train, validate_epoch)
 from ..utils import config as port_config
-from ..utils import get_model_name, load_config, merge_config, resolve_device
+from ..utils import get_model_name, get_num_params, load_config, merge_config, resolve_device
 from ..utils.args import get_args_1d, set_matmul_precision
 from ..utils.config import MODEL_PATH
 
@@ -89,7 +89,7 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
     for k, v in sample.items():
         print(k, "\t", v.shape)
     print(f"\nModel: {config['attention_type'].capitalize()}Transformer"
-          f"\t Number of params: {sum(p.numel() for p in model.parameters())}")
+          f"\t Number of params: {get_num_params(model)}")
 
     ckpt_name, result_name = get_model_name(
         model="burgers", num_encoder_layers=config["num_encoder_layers"],

@@ -31,7 +31,7 @@ from ..models.layers import Identity
 from ..models.random_fourier import RandomFourierEncoderLayer, redraw_random_features
 from ..models.regressor import SpectralRegressor
 from ..train import AdamOneCycle, DeviceEpochRunner, WeightedL2Loss, make_burgers_steps
-from ..utils import resolve_device
+from ..utils import get_num_params, resolve_device
 from ..utils.args import get_args_1d, set_matmul_precision
 
 N_GRID_FINE = 2 ** 13
@@ -96,7 +96,7 @@ def main(argv=None) -> float:
         ffn_dropout=args.ffn_dropout, decoder_dropout=args.decoder_dropout, device=device,
         seed=args.seed)
     print(f"RandomFourierTransformer ({attention_type}) "
-          f"params: {sum(p.numel() for p in model.parameters())}")
+          f"params: {get_num_params(model)}")
 
     h = (1 / N_GRID_FINE) * args.subsample
     optimizer = AdamOneCycle(model.parameters(), args.lr, len(train_loader) * args.epochs,

@@ -26,7 +26,7 @@ from typing import Optional
 from ..data import BurgersDataset, DataLoader
 from ..models import SimpleTransformer
 from ..train import AdamOneCycle, WeightedL2Loss, make_burgers_steps, run_train, validate_epoch
-from ..utils import load_config, merge_config, resolve_device
+from ..utils import get_num_params, load_config, merge_config, resolve_device
 from ..utils.args import get_args_1d, set_matmul_precision
 from ..utils.config import MODEL_PATH
 
@@ -67,7 +67,7 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
     config = merge_config(config, args)
     model = SimpleTransformer.from_config(config, device=device, seed=args.seed)
 
-    print(f"params: {sum(p.numel() for p in model.parameters())}  "
+    print(f"params: {get_num_params(model)}  "
           f"train n={train_dataset.n_grid} eval n={valid_dataset.n_grid}")
 
     h_train = (1 / 2 ** 13) * extra.train_subsample

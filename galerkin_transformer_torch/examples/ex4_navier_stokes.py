@@ -26,7 +26,7 @@ from ..data import DataLoader, NavierStokesDatasetLite
 from ..models import FourierTransformer2DLite
 from ..train import (AdamOneCycle, WeightedL2Loss2d, adam_plateau, make_ns_steps, run_train,
                      validate_epoch)
-from ..utils import load_config, merge_config, resolve_device
+from ..utils import get_num_params, load_config, merge_config, resolve_device
 from ..utils.args import get_args_ns, set_matmul_precision
 from ..utils.config import MODEL_PATH
 
@@ -56,7 +56,7 @@ def main(argv=None, model_save_path: Optional[str] = None) -> float:
     for k, v in sample.items():
         print(k, "\t", v.shape)
     print(f"\nModel: FourierTransformer2DLite"
-          f"\t Number of params: {sum(p.numel() for p in model.parameters())}")
+          f"\t Number of params: {get_num_params(model)}")
 
     h = 1 / train_dataset.n_grid
     plateau = lr_schedule = None

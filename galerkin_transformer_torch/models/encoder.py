@@ -1,6 +1,7 @@
-"""Encoder blocks (counterpart of ``models/encoder.py``; reference
-libs/model.py:33-322): the block around `SimpleAttention`, and the vanilla
-softmax block of the reference's baseline."""
+"""Encoder and decoder blocks (counterpart of ``models/encoder.py``;
+reference libs/model.py:33-322): the block around `SimpleAttention`, the
+galerkin decoder block, and the vanilla softmax block of the reference's
+baseline."""
 from __future__ import annotations
 
 import math
@@ -122,6 +123,76 @@ class SimpleTransformerEncoderLayer(nn.Module):
         if self.layer_norm2 is not None:
             x = _layer_norm(self.layer_norm2, x, self.dtype)
         return (x, attn_weight) if self.attn_weight else x
+
+
+class GalerkinTransformerDecoderLayer(nn.Module):
+    """Decoder block: galerkin self-attention, causal cross-attention to a
+    memory, and a feed-forward (counterpart of encoder.py:123-190, JAX's
+    working redesign of the reference's dead code, model.py:142-241).
+
+    Each sublayer adds its output (after dropout) to x, then, with
+    `layer_norm`, a LayerNorm: ``self_attn`` then ``norm1``,
+    ``cross_attn`` then ``norm2``, ``ff`` then ``norm3``.  `attn_norm`
+    defaults to ``not layer_norm`` (encoder.py:151) and puts per-head norms
+    in both attentions.  The cross-attention is ``causal`` (queries from x,
+    keys and values from `memory`, the same `pos` on both) with the key
+    mask `mask`, by default ones over x's length (encoder.py:176), as in
+    JAX; a memory of another length than x raises, in both packages.
+
+    Kernels: the self-attention runs ``galerkin_scores`` (and its backward
+    ``galerkin_scores_bwd``) where it has per-head layer norm and its head
+    fits (``SimpleAttention``), or ``fourier_chain`` with
+    ``attention_type="fourier"``; the causal cross-attention is plain
+    PyTorch, as JAX runs it in XLA.  float32 only: JAX's layer has no
+    compute type.
+    """
+
+    def __init__(self, d_model: int, nhead: int, pos_dim: int = 1,
+                 dim_feedforward: int = 512, attention_type: str = "galerkin",
+                 layer_norm: bool = True, attn_norm: Optional[bool] = None,
+                 norm_type: str = "layer", norm_eps: float = 1e-5,
+                 xavier_init: float = 1e-2, diagonal_weight: float = 1e-2,
+                 dropout: float = 0.05, ffn_dropout: Optional[float] = None,
+                 activation_type: str = "relu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = _generator(generator)
+        attn_norm = default(attn_norm, not layer_norm)
+        ffn_dropout = default(ffn_dropout, dropout)
+
+        def attention(atype):
+            return SimpleAttention(
+                n_head=nhead, d_model=d_model, pos_dim=pos_dim, attention_type=atype,
+                dropout=dropout, xavier_init=xavier_init, diagonal_weight=diagonal_weight,
+                norm=attn_norm, norm_type=norm_type, eps=norm_eps, generator=g)
+
+        def norm():
+            return nn.LayerNorm(d_model, eps=norm_eps) if layer_norm else None
+
+        self.self_attn = attention(attention_type)
+        self.norm1 = norm()
+        self.cross_attn = attention("causal")
+        self.norm2 = norm()
+        self.ff = FeedForward(in_dim=d_model, dim_feedforward=dim_feedforward,
+                              activation=activation_type, dropout=ffn_dropout, generator=g)
+        self.norm3 = norm()
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x, memory, pos=None, mask=None):
+        sa, _ = self.self_attn(x, x, x, pos=pos)
+        x = x + self.dropout(sa)
+        if self.norm1 is not None:
+            x = self.norm1(x)
+        if mask is None:
+            mask = x.new_ones(x.shape[:2])
+        ca, _ = self.cross_attn(x, memory, memory, pos=pos, mask=mask)
+        x = x + self.dropout(ca)
+        if self.norm2 is not None:
+            x = self.norm2(x)
+        x = x + self.dropout(self.ff(x))
+        if self.norm3 is not None:
+            x = self.norm3(x)
+        return x
 
 
 class MultiHeadDotProductAttention(nn.Module):

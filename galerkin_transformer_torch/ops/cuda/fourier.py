@@ -16,7 +16,8 @@ backward.  ``fourier_attention_tiled`` is the attention on top of them:
 (Q Kᵀ · s) V with s = 1/(√d·n), d counting the pos columns, differentiable
 through ``FourierAttention`` (the counterpart of the custom VJP
 ``_fourier_fwd``/``_fourier_bwd``): its backward is three more chain
-launches, and nothing n×n is ever stored.
+launches, and nothing n×n is ever stored.  Each launch hands its analytic
+operation and byte counts to the active cost counters (``_cost.py``).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, _cost
+from ._cost import chain_cost
 
 MAX_D = 128   # d and d_out that the kernels take
 MMA_TILE = 16  # the tensor-core kernels' mma depth and tile width
@@ -107,6 +109,8 @@ def _launch(name, argtypes, a, b, c, parts, step, *flags) -> torch.Tensor:
                 bh, r, m, d, d_out, *flags, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    _cost.record(name, *chain_cost(bh, r, m, d, d_out,
+                                   tuple(t.element_size() for t in (a, b, c))))
     return out
 
 

@@ -16,7 +16,9 @@ on CPU tensors they run ``galerkin_scores_reference`` and
 functions.  The LN parameters are float32 in both forms.  Anything else,
 and K, V, pos of mixed types, raise.
 ``galerkin_attention_fused`` adds ``out = [pos, Q] @ dropout(S / n)`` and
-casts pos to the type of K before the kernel.
+casts pos to the type of K before the kernel.  Each launch hands its
+analytic operation and byte counts to the active cost counters
+(``_cost.py``), which cannot see a kernel called through ``ctypes``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from typing import Callable, Optional
 import torch
 
 from ..attention import per_head_layer_norm
-from . import _build
+from . import _build, _cost
+from ._cost import scores_bwd_cost, scores_cost
 
 # sequence rows per chunk of each kernel (kRows in each source): a CTA owns
 # a whole number of chunks
@@ -212,6 +215,8 @@ def _scores_forward(k, v, pos, scale_k, bias_k, scale_v, bias_v, eps,
                 b, h, n, d_k, p, rows, splits, eps, *([] if bf16 else [work]), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    if work == WORK_LN | WORK_PRODUCT:
+        _cost.record(name, *scores_cost(b, h, n, d_k, p, k.element_size()))
     if bf16:
         galerkin_scores_bf16.launches += 1
     else:
@@ -455,6 +460,7 @@ def _scores_backward(k, v, pos, scale_k, bias_k, scale_v, bias_v, ds, eps, need_
                 b, h, n, d_k, p, rows, splits, eps, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    _cost.record(name, *scores_bwd_cost(b, h, n, d_k, p, k.element_size(), need_dpos))
     if bf16:
         galerkin_scores_bwd_bf16.launches += 1
     else:

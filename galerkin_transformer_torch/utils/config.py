@@ -1,15 +1,32 @@
 """Model configs as Python dicts, and the data and checkpoint directories.
 
-The port does not read ``config.yml``: the GPU machine has no YAML
-parser.  Each block here mirrors its block of ``config.yml`` key for key
-(a CPU test holds them equal).
+By default the port does not read ``config.yml``: the GPU machine has no
+YAML parser.  Each block here mirrors its block of ``config.yml`` key for
+key (a CPU test holds them equal).  ``load_config(block, path=...)`` reads
+a YAML file of such blocks, as the JAX package's does, where PyYAML is
+installed.  Both ``load_config`` and ``merge_config`` return a `DotDict`.
 """
 from __future__ import annotations
 
 import argparse
 import copy
 import os
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
+
+class DotDict(dict):
+    """dict with attribute access (counterpart of ``utils/config.py``;
+    reference libs/utils.py:285-302): ``cfg.key`` reads, sets and deletes
+    ``cfg["key"]``, and a missing key reads as None."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError:
+            return None
+
+    __setattr__ = dict.__setitem__
+    __delattr__ = dict.__delitem__
+
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # the JAX package's default directories (both listed in .gitignore)
@@ -173,21 +190,35 @@ CONFIGS = {"ex1_burgers": EX1_BURGERS, "ex2_darcy": EX2_DARCY,
            "ex3_darcy_inv": EX3_DARCY_INV, "ex4_navier_stokes": EX4_NAVIER_STOKES}
 
 
-def load_config(block: str) -> dict:
-    """A fresh copy of one config block, so callers may update it."""
+def load_config(block: str, path: Optional[str] = None) -> DotDict:
+    """A fresh copy of one config block, so callers may update it.  With
+    `path`, the block is read from that YAML file (PyYAML is imported
+    here, and its absence raises)."""
+    if path is not None:
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(f"load_config(path={path!r}) reads YAML and needs the PyYAML "
+                              f"package, which is not installed; without path= the "
+                              f"embedded blocks {sorted(CONFIGS)} need nothing") from e
+        with open(path) as f:
+            cfg = yaml.safe_load(f)
+        if block not in cfg:
+            raise KeyError(f"config block {block!r} not in {path}")
+        return DotDict(cfg[block])
     if block not in CONFIGS:
         raise KeyError(f"config block {block!r} is not ported "
                        f"(ported: {sorted(CONFIGS)})")
-    return copy.deepcopy(CONFIGS[block])
+    return DotDict(copy.deepcopy(CONFIGS[block]))
 
 
-def merge_config(base: Mapping[str, Any], *overlays: Any) -> dict:
+def merge_config(base: Mapping[str, Any], *overlays: Any) -> DotDict:
     """`base` with each overlay laid over it in turn (counterpart of
     ``merge_config``).  An argparse namespace sets only keys that the
     config already has, and never with ``None`` (a flag not given), as the
     reference's copy-by-name loop does (ex1_burgers.py:54-57); a mapping
     sets all its keys."""
-    out = dict(base)
+    out = DotDict(base)
     for overlay in overlays:
         if overlay is None:
             continue

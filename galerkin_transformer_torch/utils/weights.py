@@ -18,6 +18,9 @@ name.  The graph extractors' ``gcn_layer{i}`` / ``gat_layer{i}`` become
 ``gcn_layer0`` and ``gcn_layers.{i-1}`` (``gat_...`` alike), their
 ``weight``, ``bias``, ``W`` and ``a`` (in, out) unchanged, and the edge
 encoder's ``lap_conv1`` / ``lap_conv2`` map as the other convolutions.
+A bare ``GalerkinTransformerDecoderLayer``'s ``self_attn`` and
+``cross_attn`` map as an encoder layer's ``attn``; its ``norm1``-``norm3``
+and ``ff`` keep their names.
 The JAX package's
 ``utils/torch_compat.py::convert_state_dict`` is the inverse map for the
 module families it knows.
@@ -57,6 +60,13 @@ _MODULE_RULES = [   # (JAX module path, port module name); \d groups carried
     (r"encoder_layer(\d+)/ff/lr([12])", "encoder_layers.{0}.ff.lr{1}"),
     (r"encoder_layer(\d+)/layer_norm([12])", "encoder_layers.{0}.layer_norm{1}"),
     (r"encoder_layer(\d+)/(linear[12]|norm[12])", "encoder_layers.{0}.{1}"),
+    # a bare GalerkinTransformerDecoderLayer
+    (r"(self_attn|cross_attn)/q_proj", "{0}.linears.0"),
+    (r"(self_attn|cross_attn)/k_proj", "{0}.linears.1"),
+    (r"(self_attn|cross_attn)/v_proj", "{0}.linears.2"),
+    (r"(self_attn|cross_attn)/fc", "{0}.fc"),
+    (r"ff/lr([12])", "ff.lr{0}"),
+    (r"(norm[123])", "{0}"),
     (r"(freq_fc[12])", "{0}"),
     (r"official_proj", "official_proj"),
     (r"freq_regressor/linear", "freq_regressor.linear"),
@@ -79,7 +89,8 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 def params_from_jax(tree: Mapping, random_features: Optional[Mapping] = None
                     ) -> Dict[str, torch.Tensor]:
     """JAX SimpleTransformer, FourierTransformer2D,
-    FourierTransformer2DLite or RandomFourierTransformer params (nested
+    FourierTransformer2DLite, RandomFourierTransformer or
+    GalerkinTransformerDecoderLayer params (nested
     dicts of arrays) -> state_dict.  `random_features`, the JAX
     ``random_features`` collection of a random-feature model, adds each
     layer's ω (``encoder_layers.{i}.attn.omega``).
@@ -101,11 +112,13 @@ def params_from_jax(tree: Mapping, random_features: Optional[Mapping] = None
             sd[f"feat_extract.{name}.{m.group(3)}"] = torch.from_numpy(
                 np.array(val, dtype=np.float32))
             continue
-        m = re.fullmatch(r"encoder_layer(\d+)/attn/norm_([KQV])_(scale|bias)", key)
+        m = re.fullmatch(r"(encoder_layer\d+/attn|self_attn|cross_attn)/"
+                         r"norm_([KQV])_(scale|bias)", key)
         if m:
             leaf = _LEAF[m.group(3)]
+            attn = re.sub(r"encoder_layer(\d+)/attn", r"encoder_layers.\1.attn", m.group(1))
             for h, row in enumerate(val):
-                sd[f"encoder_layers.{m.group(1)}.attn.norm_{m.group(2)}.{h}.{leaf}"] = \
+                sd[f"{attn}.norm_{m.group(2)}.{h}.{leaf}"] = \
                     torch.from_numpy(np.array(row, dtype=np.float32))
             continue
         m = re.fullmatch(r"regressor/spectral_conv(\d+)/fourier_weight(_pos|_neg)?", key)
@@ -198,9 +211,11 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], n_head=None) -> dict:
             i = 0 if m.group(2) is None else int(m.group(2)) + 1
             put(f"feat_extract/{m.group(1)}_layer{i}/{m.group(3)}", val)
             continue
-        m = re.fullmatch(r"encoder_layers\.(\d+)\.attn\.norm_([KQV])\.(\d+)\.(weight|bias)", key)
+        m = re.fullmatch(r"(encoder_layers\.\d+\.attn|self_attn|cross_attn)\."
+                         r"norm_([KQV])\.(\d+)\.(weight|bias)", key)
         if m:
-            heads.setdefault((m.group(1), m.group(2), m.group(4)), {})[int(m.group(3))] = val
+            attn = re.sub(r"encoder_layers\.(\d+)\.attn", r"encoder_layer\1/attn", m.group(1))
+            heads.setdefault((attn, m.group(2), m.group(4)), {})[int(m.group(3))] = val
             continue
         m = re.fullmatch(r"regressor\.spectral_conv\.(\d+)\.fourier_weight(\.[01])?", key)
         if m:
@@ -246,7 +261,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], n_head=None) -> dict:
                 break
         else:
             raise KeyError(f"no JAX parameter for port parameter {key!r}")
-    for (layer, which, leaf), rows in heads.items():
-        put(f"encoder_layer{layer}/attn/norm_{which}_{'scale' if leaf == 'weight' else 'bias'}",
+    for (attn, which, leaf), rows in heads.items():
+        put(f"{attn}/norm_{which}_{'scale' if leaf == 'weight' else 'bias'}",
             np.stack([rows[h] for h in range(len(rows))]))
     return tree

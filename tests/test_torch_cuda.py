@@ -1564,3 +1564,23 @@ def test_two_ranks_on_one_card_shard_the_sequence(dev, tmp_path):
         assert tuple(got["launches"]) == (2, 2)
         np.testing.assert_allclose(got["out"], got["want"], rtol=1e-4,
                                    atol=1e-4 * np.abs(got["want"]).max())
+
+
+def test_profile_rows_keep_the_captured_graph(dev):
+    """`profile_step` on the card times replays of one captured graph and
+    hands it to the row: its kernels hold the galerkin pair once per layer
+    of a small encoder stack, and it was replayed at least the timed
+    calls."""
+    from galerkin_transformer_torch.examples import encoder_memory_profile as EP
+    from galerkin_transformer_torch.utils.profiling import (ProfileResult, compiled_cost,
+                                                            profile_step)
+
+    args = EP.parser().parse_args(["--seq-len", "512", "--batch-size", "2", "--d-model", "32",
+                                   "--n-layers", "2"])
+    fn, params = EP.make_step("galerkin", args, dev)
+    result = ProfileResult()
+    result.add("galerkin", compiled_cost(fn, params), profile_step(fn, params, iters=4))
+    graph = result.rows[0]["graph"]
+    assert dict(wrapper_launches(graph["kernels"])) == {"galerkin_scores": 2,
+                                                        "galerkin_scores_bwd": 2}
+    assert graph["replays"] >= 4

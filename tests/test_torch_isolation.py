@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither jax (flax, optax) nor the JAX
 package, nor msgpack (its reader of JAX checkpoints is pure Python); nor
 does the module of rank functions that the multi-process tests spawn
-(``tests/torch_parallel_ranks.py``).
+(``tests/torch_parallel_ranks.py``).  Importing it imports neither
+matplotlib nor psutil, which the GPU machine lacks (the modules that use
+them import them inside their functions).
 
 The import check runs in a subprocess, because tests/conftest.py imports
 jax into the test process itself.
@@ -37,7 +39,13 @@ def test_port_modules_and_chip_smoke_import_no_jax():
                  "ops.sparse", "models.random_fourier",
                  "examples.ex1_burgers_random_fourier_features", "parallel",
                  "parallel.mesh", "parallel.galerkin", "parallel.launch",
-                 "examples.distributed_data_parallel"):
+                 "examples.distributed_data_parallel", "models.encoder",
+                 "utils.misc", "utils.prng", "utils.timing", "utils.system",
+                 "utils.plotting", "utils.profiling", "ops.cuda._cost",
+                 "examples._profile", "examples.ex1_memory_profile",
+                 "examples.ex2_memory_profile", "examples.ex3_memory_profile",
+                 "examples.encoder_memory_profile", "eval", "eval.ex1_burgers_eval",
+                 "eval.ex2_darcy_eval", "eval.ex3_darcy_inv_eval"):
         assert f"galerkin_transformer_torch.{name}" in modules
     code = "\n".join(
         [f"import {m}" for m in modules]
@@ -50,6 +58,8 @@ def test_port_modules_and_chip_smoke_import_no_jax():
            " or m in ('flax', 'optax', 'msgpack') or m.startswith('flax.')"
            " or m.startswith('msgpack.') or m.startswith('galerkin_transformer_tpu')]",
            "assert not bad, bad",
+           "lazy = [m for m in sys.modules if m.split('.')[0] in ('matplotlib', 'psutil')]",
+           "assert not lazy, lazy",
            "print('ok')"])
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)

@@ -20,9 +20,11 @@ import ctypes
 import gc
 import re
 from collections import Counter, deque
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+
+from ...utils.profiling import span
 
 _KERNEL_NODE = 0   # CU_GRAPH_NODE_TYPE_KERNEL
 
@@ -168,31 +170,42 @@ class Replayed:
     first use (kernels, ticket pools, occupancy, cached matrices, library
     workspaces) outside the graph.  A replay reads and writes the tensors
     the capture found, at their addresses, and runs on the caller's current
-    stream."""
+    stream.
 
-    def __init__(self, body: Callable, stream, warmup: int, generators=()):
+    With a `name` (``train_step``, ``eval_step``, ``request``) the eager
+    calls, the capture and each replay's launch are the program's spans
+    ``gt.eager.<name>``, ``gt.capture.<name>`` and ``gt.replay.<name>``
+    (``utils/profiling.py::span``)."""
+
+    def __init__(self, body: Callable, stream, warmup: int, generators=(),
+                 name: Optional[str] = None):
         self.body, self.stream, self.warmup = body, stream, warmup
         self.generators = generators
         self.graph = None
         self.eager = 0      # calls run eagerly (the CPU, or the warm-up)
         self.replays = 0    # replays of the captured body
+        self.spans = ((None,) * 3 if name is None else
+                      tuple(f"gt.{kind}.{name}" for kind in ("eager", "capture", "replay")))
 
     def __call__(self):
         if self.stream is None:
-            self.body()
+            with span(self.spans[0]):
+                self.body()
             self.eager += 1
             return
         if self.graph is None and self.eager < self.warmup:
-            current = torch.cuda.current_stream(self.stream.device)
-            self.stream.wait_stream(current)
-            with torch.cuda.stream(self.stream):
-                self.body()
-            current.wait_stream(self.stream)
+            with span(self.spans[0]):
+                current = torch.cuda.current_stream(self.stream.device)
+                self.stream.wait_stream(current)
+                with torch.cuda.stream(self.stream):
+                    self.body()
+                current.wait_stream(self.stream)
             self.eager += 1
             return
         if self.graph is None:
             self.capture()
-        self.graph.replay()
+        with span(self.spans[2]):
+            self.graph.replay()
         self.replays += 1
 
     def capture(self):
@@ -210,7 +223,7 @@ class Replayed:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with span(self.spans[1]), torch.cuda.graph(graph, stream=self.stream):
                 self.body()
         finally:
             if collecting:

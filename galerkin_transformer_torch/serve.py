@@ -43,6 +43,13 @@ after the forward, outside any captured graph.  A model built with a
 ``seq_mesh`` runs collectives inside its forward (a gloo collective cannot
 be captured in a CUDA graph), so such a model is served eagerly on every
 device, each request through the kernels as it comes.
+
+A request is the span ``gt.serve.request`` (``utils/profiling.py::span``),
+holding ``gt.serve.inputs`` (the batch as tensors and its key),
+``gt.serve.copy_in``, the key's ``gt.eager``, ``gt.capture`` or
+``gt.replay.request`` and ``gt.serve.copy_out`` (which waits for the
+device); an eager request is ``gt.serve.eager``; with a mesh the
+all-gather is ``gt.serve.gather``.
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ from .ops.cuda._graph import Replayed
 from .parallel.mesh import replicate, sharding_of
 from .train.checkpoint import load_jax_checkpoint, read_jax_payload
 from .utils.device import resolve_device
+from .utils.profiling import span
 from .utils.torch_compat import check_state_dict, load_torch_file, state_dict_of
 
 KEYS = ("node", "pos", "grid")
@@ -77,7 +85,7 @@ class _Captured:
         def forward():
             self.out = predictor._forward(*self.inputs)
 
-        self.forward = Replayed(forward, predictor._stream, warmup=1)
+        self.forward = Replayed(forward, predictor._stream, warmup=1, name="request")
 
 
 class Predictor:
@@ -141,13 +149,15 @@ class Predictor:
         return self.model(node, edge, pos, grid, **kwargs)["preds"]
 
     def __call__(self, batch: dict) -> np.ndarray:
-        if self.mesh is None:
-            return self._serve(batch).numpy()
-        shardings = {k: sharding_of(self.mesh, k, batch[k]) for k in self._keys}
-        out = self._serve({k: s.put(batch[k]) for k, s in shardings.items()})
-        if shardings["node"].axis is not None:
-            out = self._gather(out)
-        return out.numpy()
+        with span("gt.serve.request"):
+            if self.mesh is None:
+                return self._serve(batch).numpy()
+            shardings = {k: sharding_of(self.mesh, k, batch[k]) for k in self._keys}
+            out = self._serve({k: s.put(batch[k]) for k, s in shardings.items()})
+            if shardings["node"].axis is not None:
+                with span("gt.serve.gather"):
+                    out = self._gather(out)
+            return out.numpy()
 
     def _gather(self, out: torch.Tensor) -> torch.Tensor:
         """The data group's outputs, in rank order along the batch (on the
@@ -161,20 +171,23 @@ class Predictor:
     def _serve(self, batch: dict) -> torch.Tensor:
         """The prediction of `batch` (this rank's part of it) on the host."""
         if self._stream is None:
-            with torch.inference_mode():
+            with span("gt.serve.eager"), torch.inference_mode():
                 inputs = (_as_input(batch[k], self.device) for k in self._keys)
                 return self._forward(*inputs).cpu()
-        inputs = _inputs(batch, self._keys)
-        key = _key(inputs)
+        with span("gt.serve.inputs"):
+            inputs = _inputs(batch, self._keys)
+            key = _key(inputs)
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.inference_mode(), torch.cuda.stream(self._stream):
             captured = self._captured.get(key)
             if captured is None:
                 captured = self._captured[key] = _Captured(self, key)
-            for buf, x in zip(captured.inputs, inputs):
-                buf.copy_(x)
+            with span("gt.serve.copy_in"):
+                for buf, x in zip(captured.inputs, inputs):
+                    buf.copy_(x)
             captured.forward()
-            out = captured.out.cpu()   # before a capture or replay rewrites it
+            with span("gt.serve.copy_out"):   # waits for the device, then copies
+                out = captured.out.cpu()   # before a capture or replay rewrites it
             if captured.forward.graph is None:
                 captured.forward.capture()
         return out

@@ -25,6 +25,12 @@ and replayed for every step:
     epoch, or once per block of k epochs (`run_block`, which keeps the best
     metric and parameters on the device).
 
+An epoch is the span ``gt.loop.epoch`` (``utils/profiling.py::span``),
+holding ``gt.loop.shuffle``, ``gt.loop.train`` (the steps' launches: the
+train step's ``gt.eager``, ``gt.capture`` and ``gt.replay.train_step``),
+``gt.loop.validate`` (the eval step's spans) and ``gt.loop.host_read``;
+construction's ``gt.loop.stack`` and ``gt.loop.to_device`` are set-up.
+
 Semantics vs the host loop: the same batch maths (the same ``train_step``),
 but the shuffle stream is ``torch.randperm`` on the device instead of
 numpy's (and not ``jax.random.permutation`` either: the two packages'
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda._graph import Replayed
+from ..utils.profiling import span
 from .schedule import ClippedAdam
 
 # eager steps on the capture stream before the capture: they make what a
@@ -144,8 +151,9 @@ class DeviceEpochRunner:
         self.ema_decay = ema_decay
         self.epochs_per_dispatch = max(1, int(epochs_per_dispatch))
 
-        train_np = stack_dataset(train_loader.dataset)
-        valid_np = stack_dataset(valid_loader.dataset)
+        with span("gt.loop.stack"):
+            train_np = stack_dataset(train_loader.dataset)
+            valid_np = stack_dataset(valid_loader.dataset)
         self.n_train = len(train_loader.dataset)
         self.n_batches = self.n_train // self.batch_size
         if verbose:
@@ -169,18 +177,18 @@ class DeviceEpochRunner:
         if self.n_batches == 0:
             raise ValueError(f"the train set ({self.n_train} samples) holds no batch of "
                              f"{self.batch_size}")
-        self.train_data = self._on_device(train_np)
-
         # pre-batch the validation set: full batches + optional ragged tail
         vbs = valid_loader.batch_size
         n_valid = len(valid_loader.dataset)
         n_full = n_valid // vbs
-        self.valid_full = self._on_device(
-            {k: None if v is None else v[: n_full * vbs].reshape((n_full, vbs) + v.shape[1:])
-             for k, v in valid_np.items()}) if n_full else None
-        self.valid_tail = (self._on_device({k: None if v is None else v[n_full * vbs:]
-                                            for k, v in valid_np.items()})
-                           if n_valid % vbs else None)
+        with span("gt.loop.to_device"):
+            self.train_data = self._on_device(train_np)
+            self.valid_full = self._on_device(
+                {k: None if v is None else v[: n_full * vbs].reshape((n_full, vbs) + v.shape[1:])
+                 for k, v in valid_np.items()}) if n_full else None
+            self.valid_tail = (self._on_device({k: None if v is None else v[n_full * vbs:]
+                                                for k, v in valid_np.items()})
+                               if n_valid % vbs else None)
         self._valid_counts = (n_full, n_full * vbs, n_valid % vbs)
 
         # follow the DataLoader's seed (the driver's --seed) so device- and
@@ -209,8 +217,8 @@ class DeviceEpochRunner:
         self._metrics = torch.zeros(n_full, dtype=torch.float32, device=dev)
         stream = torch.cuda.Stream(dev) if self.graphed else None
         self._train = Replayed(self._step, stream, WARMUP_STEPS,
-                                getattr(train_step, "generators", ()))
-        self._eval = Replayed(self._eval_step, stream, EVAL_WARMUP_STEPS)
+                                getattr(train_step, "generators", ()), name="train_step")
+        self._eval = Replayed(self._eval_step, stream, EVAL_WARMUP_STEPS, name="eval_step")
 
     @property
     def eager_steps(self) -> int:
@@ -271,20 +279,22 @@ class DeviceEpochRunner:
         """The train steps of epoch `epoch_idx`: its shuffle, then one step
         per batch.  Returns the device buffer of the per-step losses,
         (n_batches, n_losses), which the next epoch overwrites."""
-        if self.shuffle:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(shuffle_seed(self.seed, epoch_idx))
-            perm = torch.randperm(self.n_train, generator=gen, device=self.device)
-        else:
-            perm = torch.arange(self.n_train, device=self.device)
-        self._ids.copy_(perm[: self.n_batches * self.batch_size].view(self._ids.shape))
-        self._index.zero_()
+        with span("gt.loop.shuffle"):
+            if self.shuffle:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(shuffle_seed(self.seed, epoch_idx))
+                perm = torch.randperm(self.n_train, generator=gen, device=self.device)
+            else:
+                perm = torch.arange(self.n_train, device=self.device)
+            self._ids.copy_(perm[: self.n_batches * self.batch_size].view(self._ids.shape))
+            self._index.zero_()
         count = getattr(self.optimizer, "count", None)
         before = getattr(self.train_step, "before_step", None)
-        for _ in range(self.n_batches):
-            if before is not None:
-                before()
-            self._train()
+        with span("gt.loop.train"):
+            for _ in range(self.n_batches):
+                if before is not None:
+                    before()
+                self._train()
         if self.graphed:   # the capture moved the host count, the replays did not
             self.optimizer.count = count + self.n_batches
         return self._losses
@@ -296,7 +306,7 @@ class DeviceEpochRunner:
         CPU eagerly), the ragged tail eagerly."""
         n_full, n_full_samples, n_tail = self._valid_counts
         total = None
-        with ema_weights(self.model, self.ema):
+        with span("gt.loop.validate"), ema_weights(self.model, self.ema):
             if self.valid_full is not None:
                 self._vindex.zero_()
                 for _ in range(n_full):
@@ -312,9 +322,11 @@ class DeviceEpochRunner:
     def epoch(self, epoch_idx: int):
         """One epoch on the device.  Returns (losses [np, (n_batches,
         n_losses)], val_metric [float]), read from the device at once."""
-        losses = self.train_epoch(epoch_idx)
-        val = self.validate()
-        host = torch.cat([losses.flatten().float(), val.float().view(1)]).cpu().numpy()
+        with span("gt.loop.epoch"):
+            losses = self.train_epoch(epoch_idx)
+            val = self.validate()
+            with span("gt.loop.host_read"):
+                host = torch.cat([losses.flatten().float(), val.float().view(1)]).cpu().numpy()
         return host[:-1].reshape(losses.shape), float(host[-1])
 
     def run_block(self, best_val: float, best_params: Dict[str, torch.Tensor],
@@ -334,18 +346,22 @@ class DeviceEpochRunner:
         """
         best = torch.full((), best_val, dtype=torch.float32, device=self.device)
         losses, vals = [], []
-        for epoch in range(start_epoch, start_epoch + k):
-            losses.append(self.train_epoch(epoch).clone())
-            val = self.validate().float()
-            vals.append(val)
-            better = torch.isfinite(val) & (val > best if self.mode == "max" else val < best)
-            best = torch.where(better, val, best)
-            with ema_weights(self.model, self.ema), torch.no_grad():
-                for key, value in self.model.state_dict().items():
-                    best_params[key].copy_(torch.where(better, value, best_params[key]))
-        losses = torch.stack(losses)
-        host = torch.cat([losses.flatten().float(), torch.stack(vals),
-                          best.view(1)]).cpu().numpy()
+        last = start_epoch + k - 1
+        for epoch in range(start_epoch, last + 1):
+            with span("gt.loop.epoch"):
+                losses.append(self.train_epoch(epoch).clone())
+                val = self.validate().float()
+                vals.append(val)
+                better = torch.isfinite(val) & (val > best if self.mode == "max" else val < best)
+                best = torch.where(better, val, best)
+                with ema_weights(self.model, self.ema), torch.no_grad():
+                    for key, value in self.model.state_dict().items():
+                        best_params[key].copy_(torch.where(better, value, best_params[key]))
+                if epoch == last:   # the block's one host read closes its last epoch
+                    with span("gt.loop.host_read"):
+                        losses = torch.stack(losses)
+                        host = torch.cat([losses.flatten().float(), torch.stack(vals),
+                                          best.view(1)]).cpu().numpy()
         n = losses.numel()
         return (float(host[-1]), best_params, host[:n].reshape(losses.shape),
                 host[n:-1])

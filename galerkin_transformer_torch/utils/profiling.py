@@ -36,13 +36,21 @@ by op, and each number says what it counts.
   result also holds the captured graph's kernels and replays.
 * `ProfileResult` gathers rows into the JAX package's table (a row keeps
   the captured graph, which the table does not show).
+* `span(name)` marks a stretch of host work of the program (``gt.*``
+  names: the device loop's epochs and steps, a served request's copies and
+  replay).  Under ``torch.profiler`` it is a ``record_function`` on the
+  profiler's timeline; under `recording()` it is kept in the record (name,
+  start, end, parent), stamped on the profiler's clock.  When nothing
+  records it is one shared null context after one check.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
+import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -230,3 +238,107 @@ class ProfileResult:
                 f"{r['gflops']:>10.2f}{r['tflops_per_s']:>10.3f}"
                 f"{r['hbm_gb']:>10.3f}{r['temp_mb']:>10.1f}")
         return "\n".join(lines)
+
+
+# ---------------------------------------------------------------- spans
+
+_profiler_on = torch._C._autograd._profiler_enabled
+_NULL = contextlib.nullcontext()
+
+
+class SpanRecord:
+    """The program's spans, kept in memory while `recording()` is on, in
+    the order they opened: each one's name, start and end and its parent,
+    the index of the span it opened inside on its thread (None for a root:
+    the index of a root identifies its request or epoch).  Times are ns on
+    the clock that ``torch.profiler`` stamps its host events with
+    (``CLOCK_REALTIME`` on Linux, read by ``time.time_ns()``, with no
+    offset), so a span lines up with a trace of the same stretch.  An open
+    span's end is 0."""
+
+    def __init__(self):
+        self.names: List[str] = []
+        self.starts: List[int] = []
+        self.ends: List[int] = []
+        self.parents: List[Optional[int]] = []
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def open(self, name: str, parent: Optional[int], start: int) -> int:
+        """Add an open span; returns its index."""
+        with self._lock:
+            self.names.append(name)
+            self.starts.append(start)
+            self.ends.append(0)
+            self.parents.append(parent)
+            return len(self.names) - 1
+
+    def totals(self) -> Dict[str, float]:
+        """Seconds of the closed spans, summed by name."""
+        out: Dict[str, float] = {}
+        for name, start, end in zip(self.names, self.starts, self.ends):
+            if end:
+                out[name] = out.get(name, 0.0) + (end - start) * 1e-9
+        return out
+
+
+class _OpenSpans(threading.local):
+    def __init__(self):
+        self.stack: list = []     # (record, index) of this thread's open spans
+
+
+_OPEN = _OpenSpans()
+_ACTIVE: Optional[SpanRecord] = None     # the record of `recording()`
+
+
+class _Span:
+    __slots__ = ("name", "record", "index", "label")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.record = record = _ACTIVE
+        if record is not None:
+            stack = _OPEN.stack
+            parent = stack[-1][1] if stack and stack[-1][0] is record else None
+            self.index = record.open(self.name, parent, time.time_ns())
+            stack.append((record, self.index))
+        self.label = torch.profiler.record_function(self.name) if _profiler_on() else None
+        if self.label is not None:
+            self.label.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.label is not None:
+            self.label.__exit__(*exc)
+        if self.record is not None:
+            self.record.ends[self.index] = time.time_ns()
+            _OPEN.stack.pop()
+        return False
+
+
+def span(name: Optional[str]):
+    """A context manager around a stretch of the program's host work named
+    `name` (None: no span).  When neither `recording()` nor
+    ``torch.profiler`` is on it is one shared null context, after one
+    check; else it is a ``record_function`` under the profiler and kept in
+    the record under `recording()`.  Spans nest on their thread."""
+    if (_ACTIVE is None and not _profiler_on()) or name is None:
+        return _NULL
+    return _Span(name)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[SpanRecord]:
+    """Keep the spans of the block in a new `SpanRecord`, which it
+    yields."""
+    global _ACTIVE
+    outer, record = _ACTIVE, SpanRecord()
+    _ACTIVE = record
+    try:
+        yield record
+    finally:
+        _ACTIVE = outer

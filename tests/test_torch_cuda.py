@@ -1584,3 +1584,58 @@ def test_profile_rows_keep_the_captured_graph(dev):
     assert dict(wrapper_launches(graph["kernels"])) == {"galerkin_scores": 2,
                                                         "galerkin_scores_bwd": 2}
     assert graph["replays"] >= 4
+
+
+# ------------------------------------------------------------------ spans
+
+def _span_tree(record) -> list:
+    return [(name, None if parent is None else record.names[parent])
+            for name, parent in zip(record.names, record.parents)]
+
+
+def test_served_request_spans_on_the_card(dev):
+    """The first request of a key: inputs, copy-in, the eager forward, the
+    copy-out and the capture; every later one: copy-in, the replay's launch
+    and the copy-out, each request one root."""
+    from galerkin_transformer_torch import Predictor
+    from galerkin_transformer_torch.utils.profiling import recording
+    model, normalizer, batch = _ex1_served(dev)
+    pred = Predictor(model, normalizer=normalizer)
+    with recording() as record:
+        pred(batch(0))
+        pred(batch(1))
+    inner = [("gt.serve.inputs", "gt.serve.request"), ("gt.serve.copy_in", "gt.serve.request")]
+    assert _span_tree(record) == (
+        [("gt.serve.request", None)] + inner + [("gt.eager.request", "gt.serve.request"),
+                                                ("gt.serve.copy_out", "gt.serve.request"),
+                                                ("gt.capture.request", "gt.serve.request")]
+        + [("gt.serve.request", None)] + inner + [("gt.replay.request", "gt.serve.request"),
+                                                  ("gt.serve.copy_out", "gt.serve.request")])
+
+
+def test_device_loop_spans_on_the_card(dev):
+    """An epoch on the card: two eager train steps, the capture and the
+    replays under the train span; the eval step's eager step, capture and
+    replay under the validation span."""
+    from galerkin_transformer_torch.data import DataLoader
+    from galerkin_transformer_torch.train import DeviceEpochRunner
+    from galerkin_transformer_torch.utils.profiling import recording
+    data = _ex1_samples(20)
+    model, opt, train_step, eval_step = _ex1_steps(dev, "galerkin", None)
+    runner = DeviceEpochRunner(model, train_step, eval_step, opt,
+                               DataLoader(data, 4, drop_last=True), DataLoader(data[:6], 2),
+                               verbose=False)
+    with recording() as record:
+        runner.epoch(0)
+    train = [("gt.eager.train_step", "gt.loop.train")] * 2 + \
+        [("gt.capture.train_step", "gt.loop.train")] + \
+        [("gt.replay.train_step", "gt.loop.train")] * 3
+    valid = [("gt.eager.eval_step", "gt.loop.validate"),
+             ("gt.capture.eval_step", "gt.loop.validate"),
+             ("gt.replay.eval_step", "gt.loop.validate"),
+             ("gt.replay.eval_step", "gt.loop.validate")]
+    assert _span_tree(record) == (
+        [("gt.loop.epoch", None), ("gt.loop.shuffle", "gt.loop.epoch"),
+         ("gt.loop.train", "gt.loop.epoch")] + train +
+        [("gt.loop.validate", "gt.loop.epoch")] + valid +
+        [("gt.loop.host_read", "gt.loop.epoch")])

@@ -206,3 +206,140 @@ def test_profile_driver_flops_grow_with_the_batch(name):
             counts[atype, bsz] = TP.compiled_cost(fn, params)["flops"]
     for atype in ("galerkin", "softmax"):
         assert counts[atype, 3] == 3 * counts[atype, 1] > 0
+
+
+# ---------------------------------------------------------------- spans
+
+def _tree(record) -> list:
+    """(name, parent's name) of each span of `record`, in opening order."""
+    return [(name, None if parent is None else record.names[parent])
+            for name, parent in zip(record.names, record.parents)]
+
+
+def test_span_is_a_shared_null_context_when_nothing_records(monkeypatch):
+    """With neither the profiler nor a record on, a span enters no
+    ``record_function`` and keeps nothing: one shared null context."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert TP.span("gt.serve.request") is TP.span("gt.loop.epoch")
+    with TP.span("gt.serve.request"), TP.span("gt.serve.copy_in"):
+        pass
+    with TP.recording() as record:
+        with TP.span("gt.loop.epoch"):   # the record's, still no profiler
+            pass
+        assert TP.span(None) is TP.span(None) and TP.span("gt.x") is not TP.span("gt.x")
+    assert record.names == ["gt.loop.epoch"] and record.ends[0] >= record.starts[0] > 0
+    with TP.span("gt.serve.request"):
+        pass
+    assert len(record) == 1
+
+
+def test_recording_nests_spans_and_sums_them_by_name():
+    with TP.recording() as record:
+        with TP.span("gt.a"):
+            with TP.span("gt.b"):
+                pass
+            with TP.span(None), TP.span("gt.b"):
+                pass
+        with TP.recording() as inner, TP.span("gt.c"):
+            pass
+        with TP.span("gt.a"):
+            pass
+    assert _tree(record) == [("gt.a", None), ("gt.b", "gt.a"), ("gt.b", "gt.a"),
+                             ("gt.a", None)]
+    assert _tree(inner) == [("gt.c", None)]
+    totals = record.totals()
+    assert set(totals) == {"gt.a", "gt.b"} and totals["gt.a"] >= totals["gt.b"] > 0
+
+
+def _served():
+    """A tiny ex1 model behind a CPU Predictor and one batch for it."""
+    from galerkin_transformer_torch import Predictor, SimpleTransformer, load_config
+    cfg = load_config("ex1_burgers")
+    cfg.update(n_hidden=16, num_encoder_layers=1, dim_feedforward=32, freq_dim=8,
+               fourier_modes=4, attention_type="galerkin")
+    pred = Predictor(SimpleTransformer.from_config(cfg, device="cpu", seed=0), device="cpu")
+    pos = np.linspace(0, 1, 32, dtype=np.float32)[None, :, None].repeat(2, 0)
+    node = np.random.default_rng(0).standard_normal((2, 32, 1)).astype(np.float32)
+    return pred, dict(node=node, pos=pos, grid=pos)
+
+
+def test_predictor_request_records_its_spans():
+    """A CPU request is one root, ``gt.serve.request``, holding the eager
+    forward; each request is a root of its own."""
+    pred, batch = _served()
+    with TP.recording() as record:
+        pred(batch)
+        pred(batch)
+    assert _tree(record) == [("gt.serve.request", None),
+                             ("gt.serve.eager", "gt.serve.request")] * 2
+    assert [i for i, p in enumerate(record.parents) if p is None] == [0, 2]
+
+
+def _runner(n_train=12, n_valid=5, batch=4, val_batch=2):
+    """A tiny ex1 DeviceEpochRunner on the CPU."""
+    from galerkin_transformer_torch import SimpleTransformer, load_config
+    from galerkin_transformer_torch.data import DataLoader
+    from galerkin_transformer_torch.train import (AdamOneCycle, DeviceEpochRunner,
+                                                  WeightedL2Loss, make_burgers_steps)
+    cfg = load_config("ex1_burgers")
+    cfg.update(n_hidden=16, num_encoder_layers=1, dim_feedforward=32, freq_dim=8,
+               fourier_modes=4, attention_type="galerkin")
+    model = SimpleTransformer.from_config(cfg, device="cpu", seed=0)
+    opt = AdamOneCycle(model.parameters(), 1e-3, 20)
+    train_step, eval_step = make_burgers_steps(
+        model, WeightedL2Loss(regularizer=True, h=1 / 32, gamma=0.1),
+        WeightedL2Loss(h=1 / 32), opt)
+    rng = np.random.default_rng(0)
+    pos = np.linspace(0, 1, 32, dtype=np.float32)[:, None]
+    samples = [dict(node=rng.standard_normal((32, 1)).astype(np.float32), pos=pos, grid=pos,
+                    target=rng.standard_normal((32, 2)).astype(np.float32))
+               for _ in range(n_train + n_valid)]
+    return DeviceEpochRunner(model, train_step, eval_step, opt,
+                             DataLoader(samples[:n_train], batch, shuffle=True,
+                                        drop_last=True),
+                             DataLoader(samples[n_train:], val_batch), verbose=False)
+
+
+def test_device_loop_epoch_records_its_spans():
+    """Construction stacks and copies the sets (two roots); an epoch is one
+    root holding the shuffle, the train steps (one eager step span per
+    batch), the validation (one eager eval step per full batch) and the
+    host read; each epoch of `run_block` is a root of its own, the last
+    holding the block's one host read."""
+    with TP.recording() as record:
+        runner = _runner()
+        runner.epoch(0)
+    epoch = [("gt.loop.epoch", None), ("gt.loop.shuffle", "gt.loop.epoch"),
+             ("gt.loop.train", "gt.loop.epoch")] + \
+        [("gt.eager.train_step", "gt.loop.train")] * 3 + \
+        [("gt.loop.validate", "gt.loop.epoch")] + \
+        [("gt.eager.eval_step", "gt.loop.validate")] * 2 + \
+        [("gt.loop.host_read", "gt.loop.epoch")]
+    assert _tree(record) == [("gt.loop.stack", None), ("gt.loop.to_device", None)] + epoch
+    model = runner.model
+    best = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    with TP.recording() as block:
+        runner.run_block(float("inf"), best, 1, 2)
+    assert _tree(block) == epoch[:-1] + epoch
+    assert [block.names[i] for i, p in enumerate(block.parents) if p is None] == \
+        ["gt.loop.epoch"] * 2
+
+
+def test_spans_lie_on_the_profilers_clock():
+    """Under ``torch.profiler`` each span is also a host event of the trace,
+    whose start and end agree with the record's within 1 ms."""
+    pred, batch = _served()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        pred(batch)   # the profiler's first record_function
+        with TP.recording() as record:
+            pred(batch)
+    traced = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("gt.")]
+    assert [n for n, _, _ in traced] == ["gt.serve.request", "gt.serve.eager"] * 2
+    kept = list(zip(record.names, record.starts, record.ends))
+    assert [n for n, _, _ in kept] == ["gt.serve.request", "gt.serve.eager"]
+    for (name, t0, t1), (_, r0, r1) in zip(sorted(traced[2:]), sorted(kept)):
+        assert abs(t0 - r0) < 1e6 and abs(t1 - r1) < 1e6, (name, t0 - r0, t1 - r1)

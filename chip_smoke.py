@@ -718,10 +718,13 @@ def fourier_phase(rng, dev, peak, dtype=None, shape=(BATCH, RESOLUTIONS[0], 97))
     tol = TOL_BF16_KERNEL if bf16 else TOL_FOURIER
     a, b, c = (_tensor(rng.standard_normal((bh, n, d)), dev, dtype) for _ in range(3))
     counter = COUNTERS[name]
-    before = counter.launches
+    before = counter.launches, FC.fourier_chain.tail_launches
     got = FC.fourier_chain(a, b, c)
-    if counter.launches != before + 1:
+    if counter.launches != before[0] + 1:
         raise AssertionError(f"{name} did not count its launch")
+    tail = FC.chain_tiles(name, d, d)[1]
+    if FC.fourier_chain.tail_launches != before[1] + (tail > 0):
+        raise AssertionError(f"{name} did not count its tail of {tail} columns")
     ref = FC.fourier_chain_reference(a, b, c)
     torch.cuda.synchronize()
     err, scale = max_err(got, ref)
@@ -1023,13 +1026,20 @@ AB_SHAPES = {"galerkin_scores_bwd": ((EX1_SHAPE, 1e-5), (EX2_TRAIN_SHAPE, 1e-7))
              "galerkin_scores_bf16": ((EX1_SHAPE, 1e-5), (EX2_SHAPE, 1e-7),
                                       (EX2_TRAIN_SHAPE, 1e-7)),
              "galerkin_scores": ((EX1_SHAPE, 1e-5), (EX2_SHAPE, 1e-7), (EX2_TRAIN_SHAPE, 1e-7)),
-             # (BH, n, d): the forward at ex1 serving, the three backward
-             # sweeps at ex1 training
-             "fourier_chain": ((BATCH, RESOLUTIONS[0], 97), (BATCH, TRAIN_N, 97)),
+             # (work, (BH, n, d)): the forward at ex1 serving, the three
+             # backward sweeps at the benchmark's ex1 training (n = 8192) and
+             # at ex1_burgers' default (n = 2048); a tail of two columns (d = 98);
+             # the encoder profile's forward (d = 33)
+             "fourier_chain": (("forward", (BATCH, RESOLUTIONS[0], 97)),
+                               ("backward", (BATCH, RESOLUTIONS[0], 97)),
+                               ("backward", (BATCH, TRAIN_N, 97)),
+                               ("forward", (BATCH, RESOLUTIONS[0], 98)),
+                               ("forward", (32, RESOLUTIONS[0], 33))),
              # the bfloat16 forward at ex1 serving and at ex1 training
-             "fourier_chain_bf16": ((BATCH, RESOLUTIONS[0], 97), (BATCH, TRAIN_N, 97)),
+             "fourier_chain_bf16": (("forward", (BATCH, RESOLUTIONS[0], 97)),
+                                    ("forward", (BATCH, TRAIN_N, 97))),
              # the three sweeps of the bfloat16 backward at ex1 training
-             "fourier_chain_mixed": ((BATCH, TRAIN_N, 97),)}
+             "fourier_chain_mixed": (("backward", (BATCH, TRAIN_N, 97)),)}
 CHAINS = ("fourier_chain", "fourier_chain_bf16", "fourier_chain_mixed")
 ERROR_DRAWS = 8   # more input draws on which `--against` ranks the chains' errors
 
@@ -1127,14 +1137,14 @@ def against_phase(roots, names=tuple(AB_SHAPES)) -> dict:
                if bf16_chain_path else {})}
 
 
-def chain_ops(name, rng, dev, bh, n, d):
+def chain_ops(name, work, rng, dev, bh, n, d):
     """What one A/B call of chain `name` does at (bh, n, d), and its operand
-    triples: the forward (one triple), or the three sweeps of the backward
-    (float32 q, k, v, g for ``fourier_chain``; bfloat16 q, k, v and a
-    float32 g for ``fourier_chain_mixed``)."""
+    triples: the forward (one triple), or, `work` "backward", the three
+    sweeps of the backward (float32 q, k, v, g for ``fourier_chain``;
+    bfloat16 q, k, v and a float32 g for ``fourier_chain_mixed``)."""
     def t(dtype=None):
         return _tensor(rng.standard_normal((bh, n, d)), dev, dtype)
-    if name == "fourier_chain_mixed" or (name == "fourier_chain" and n != RESOLUTIONS[0]):
+    if work == "backward":
         dtype = torch.bfloat16 if name == "fourier_chain_mixed" else None
         q, k, v = (t(dtype) for _ in range(3))
         g = t()
@@ -1161,8 +1171,8 @@ def chain_against(name, fports, rng, dev) -> list:
     the library call (two matmuls; in float32 for the mixed sweeps); a
     backward is timed whole and sweep by sweep."""
     rows = []
-    for bh, n, d in AB_SHAPES[name]:
-        what, ops = chain_ops(name, rng, dev, bh, n, d)
+    for work, (bh, n, d) in AB_SHAPES[name]:
+        what, ops = chain_ops(name, work, rng, dev, bh, n, d)
         plains = [FC.fourier_chain_reference(*o) for o in ops]
         tols = [chain_tolerance(name, o) for o in ops]
         refs = [chain_float64(*o) for o in ops] if name == "fourier_chain" else None
@@ -1194,7 +1204,8 @@ def chain_against(name, fports, rng, dev) -> list:
         lib_ops = [[x.float() for x in o] for o in ops] if name == "fourier_chain_mixed" else ops
         library_ms = time_ms(lambda: [torch.matmul(torch.matmul(a, b.transpose(1, 2)), c)
                                       for a, b, c in lib_ops], iters)
-        draws = error_draws(name, fports, rng, dev, (bh, n, d)) if n == TRAIN_N else None
+        draws = (error_draws(name, work, fports, rng, dev, (bh, n, d)) if n == TRAIN_N
+                 else None)
         rows.append(dict(name=name, work=what, shape=[bh, n, d], ms=times, sweeps_ms=each,
                          rel_err=errs, rel_err_f64=errs64, library_ms=library_ms,
                          rel_err_draws=draws))
@@ -1207,7 +1218,7 @@ def chain_against(name, fports, rng, dev) -> list:
     return rows
 
 
-def error_draws(name, fports, rng, dev, shape, draws: int = ERROR_DRAWS) -> dict:
+def error_draws(name, work, fports, rng, dev, shape, draws: int = ERROR_DRAWS) -> dict:
     """Chain `name` of each checkout against this checkout's plain version
     on `draws` more input draws at `shape` (a bfloat16 score tile that
     lands near a rounding boundary may round either way, so one draw does
@@ -1216,7 +1227,7 @@ def error_draws(name, fports, rng, dev, shape, draws: int = ERROR_DRAWS) -> dict
     checkout's error is above each other's."""
     out = {tag: [] for tag in fports}
     for _ in range(draws):
-        _, ops = chain_ops(name, rng, dev, *shape)
+        _, ops = chain_ops(name, work, rng, dev, *shape)
         plains = [FC.fourier_chain_reference(*o) for o in ops]
         for tag, port in fports.items():
             got = [getattr(port, name)(*o) for o in ops]
@@ -1296,8 +1307,8 @@ def chain_path_phase(fports, dtype=None, repeats: int = 5) -> list:
     # the device time)
     kernels = {tag: set() for tag in fports}
     for name in names:
-        for bh, n, d in AB_SHAPES[name]:
-            _, ops = chain_ops(name, rng, dev, bh, n, d)
+        for work, (bh, n, d) in AB_SHAPES[name]:
+            _, ops = chain_ops(name, work, rng, dev, bh, n, d)
             for tag, port in fports.items():
                 fn = getattr(port, name)
                 kernels[tag] |= {k for k in device_kernels(lambda fn=fn: [fn(*o) for o in ops])
@@ -1317,6 +1328,20 @@ def chain_path_phase(fports, dtype=None, repeats: int = 5) -> list:
     kind = dtype_name(dtype)
     works = {f"ex1 fourier {kind} request n={RESOLUTIONS[0]} batch={BATCH}": lambda: gpu(batch),
              f"ex1 fourier {kind} train step n={TRAIN_N} batch={BATCH}": lambda: step(batches[0])}
+    if dtype is None:
+        # each float32 chain of ex1 (d = 97) sums its tail on the CUDA cores:
+        # 16 launches a train step (a forward and three backward sweeps per
+        # layer), 4 a request, all of them with the tail
+        for work, fn, want in (("train step", lambda: step(batches[0]), 16),
+                               ("request", lambda: eager_request(gpu.model, None, batch), 4)):
+            before = FC.fourier_chain.launches, FC.fourier_chain.tail_launches
+            fn()
+            got = (FC.fourier_chain.launches - before[0],
+                   FC.fourier_chain.tail_launches - before[1])
+            print(f"ex1 fourier float32 {work}: fourier_chain launches, tail launches {got}")
+            if got != (want, want):
+                raise AssertionError(f"an ex1 fourier float32 {work} launched {got} float32 "
+                                     f"chains and tails, expected {want} of each")
     impls = {tag: {name: getattr(port, name) for name in names}
              for tag, port in fports.items()}
     rows = profile_swapped(FC, impls, works, kernels, repeats)

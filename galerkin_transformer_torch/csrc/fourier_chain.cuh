@@ -34,7 +34,7 @@
 //    (unpadded rows of d and d_out columns) and writes their parts into a
 //    workspace, each step's tile whole: B per 8 columns, C transposed per 8
 //    rows, zero past M, d and d_out, K-major core matrices of 8 rows x 16
-//    bytes without swizzle;
+//    bytes without swizzle; with a tail, everything of a step together;
 //  * grid (ceil(R / 128), BH) of two warpgroups, 64 output rows each, one CTA
 //    per SM; a thread loads its A fragments once (a float32 A split into its
 //    parts) and keeps them in registers;
@@ -49,7 +49,24 @@
 //    thread 0 refills the stage of the step before the current one, so one
 //    warpgroup may run a step ahead of the other;
 //  * the running sums stay in registers, or, where they would spill, in
-//    shared memory, one slot per thread.
+//    shared memory, one slot per thread;
+//  * the tail (kTailMax > 0, the float32 chain): where the wider of d and
+//    d_out is 16 T + U with T >= 1 and 1 <= U <= kTailMax, the tiles are
+//    W = 16 T wide and the U columns past them are summed in float32 on the
+//    CUDA cores instead of padding the tiles to 16 (T + 1).  The prologue
+//    writes B's and C's tail columns as float32 after the step's part tiles,
+//    and lays each step's tiles and tails out together, so that one bulk
+//    copy fills a stage (two more small copies a stage, the tails apart,
+//    cost more than the 16 columns saved: 2.14 against 2.04 ms at (8, 8192,
+//    97), and 1.74 ms as one copy).  A thread loads its rows' tail of A
+//    once.  Each step it sums a[r, tail] b[m, tail] for its score elements
+//    while the tensor cores run the first product and adds them to the score
+//    tile (kept apart from the accumulator, which only wgmma writes), so the
+//    score is complete over d before it is split; while the tensor cores run
+//    the second product it sums s[r, m] c[m, tail] for its rows from the
+//    unsplit float32 score.  After the last step the four lanes that share a
+//    row add their sums by shuffles in a fixed order (no atomics: bit-equal
+//    run to run).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -62,29 +79,35 @@ constexpr int kThreads = 256;   // two warpgroups of 64 output rows
 constexpr int kTR = 128;        // output rows per CTA
 constexpr int kSmem = 232448;   // shared memory one CTA may use
 // values a thread may hold across a step before its running sums go to shared
-// memory (the float32 chain holds 236 in 239 registers at W = 112, the dQ
-// sweep 244 in 232)
+// memory (the float32 chain holds 236 in 239 registers at W = 112 without a
+// tail, 212 in 237 at W = 96 with a tail of one column, the dQ sweep 244 in
+// 232)
 constexpr int kRegisters = 248;
 
 // parts of an operand stored as X: three for float32, one for bf16 (uint16_t)
 template <typename X>
 constexpr int kParts = sizeof(X) == 4 ? 3 : 1;
 
-template <int T, int TM, int NA, int NB, int NC, bool kFresh>
+// U: the tail, columns past the tiles summed in float32 (0: none)
+template <int T, int TM, int NA, int NB, int NC, bool kFresh, int U = 0>
 struct Tile {
-  static constexpr int W = 16 * T;              // padded d and d_out
+  static constexpr int W = 16 * T;              // padded d and d_out, or their whole blocks
   static constexpr int NS = NC == 3 ? 3 : 1;    // parts of the score tile
   static constexpr int kTile = TM * W;          // bf16 elements of one part tile
   static constexpr int kStage = (NB + NC) * kTile;
-  // A's parts, the score tile and its parts, the running sums and the fresh ones
-  static constexpr int kHeld = NA * T * 4 + TM / 2 + NS * TM / 4 + (kFresh ? W : W / 2);
+  static constexpr int kTail = TM * U;          // float32 tail values of B, and of C, a step
+  static constexpr int kStageBytes = kStage * 2 + 2 * kTail * 4;
+  // A's parts, the score tile and its parts, the running sums and the fresh
+  // ones, A's tail and the tail's sums
+  static constexpr int kHeld =
+      NA * T * 4 + TM / 2 + NS * TM / 4 + (kFresh ? W : W / 2) + 4 * U;
   static constexpr bool kSumsInRegisters = kHeld <= kRegisters;
   static_assert(kFresh || kSumsInRegisters, "a tensor-core sum stays in registers");
   static constexpr int kSumBytes = kSumsInRegisters ? 0 : kTR * W * 4;
-  static constexpr int kFit = (kSmem - 1024 - kSumBytes) / (kStage * 2);
+  static constexpr int kFit = (kSmem - 1024 - kSumBytes) / kStageBytes;
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static_assert(kStages >= 2, "two stages of shared memory");
-  static constexpr int bytes = kStages * kStage * 2 + kSumBytes;
+  static constexpr int bytes = kStages * kStageBytes + kSumBytes;
 };
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -341,6 +364,19 @@ __device__ __forceinline__ void split3(float x, float (&part)[3]) {
   part[2] = r - part[1];
 }
 
+// the 2 U float32 values at p (8 U-byte aligned) in one shared-memory load
+template <int U>
+__device__ __forceinline__ void load_pairs(const float* p, float (&v)[2 * U]) {
+  static_assert(U == 1 || U == 2, "tails of one or two columns");
+  if constexpr (U == 1) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  }
+}
+
 // the bf16 values held by two float32 as a bf16 pair, the first in the low half
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
@@ -352,39 +388,70 @@ __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The parts of B and C in the layouts the chain copies whole, part q at
-// q * part: B as [bh][Mt / TM][W / 8][TM][8] (per step, per 8 columns), C
-// transposed as [bh][Mt / 8][W][8] (per 8 rows, every column), after the
-// parts of B; zero past M, d and d_out.  blockIdx.y: 0 for B, 1 for C;
-// blockIdx.z: bh.  A thread lays out 8 values.
-template <int TM, typename TB, typename TC>
+// The parts of B and C in the layouts the chain copies whole: B's tile of a
+// step as [W / 8][TM][8] (per 8 columns), C's transposed as [TM / 8][W][8]
+// (per 8 rows, every column); zero past M, d and d_out.  Without a tail, part
+// q of every step lies together, [q][bh][Mt / TM][tile], C's parts after B's.
+// With a tail of U columns, everything of a step lies together, so that one
+// bulk copy carries it: [bh][Mt / TM][B's parts, C's parts, B's tail, C's
+// tail], each tail the float32 values of columns W .. W + U - 1 as [TM][U].
+// blockIdx.y: 0 for B, 1 for C; blockIdx.z: bh.  A thread lays out 8 values
+// of every part, or the tail of one row.
+template <int TM, typename TB, typename TC, int U = 0>
 __global__ void layout_kernel(const TB* __restrict__ b, const TC* __restrict__ c,
                               uint16_t* __restrict__ parts, int M, int Mt, int d, int d_out,
                               int W) {
+  constexpr int NB = kParts<TB>, NC = kParts<TC>;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Mt * (W / 8)) return;
-  const int bh = blockIdx.z;
+  const int tiles = Mt * (W / 8);
+  if (i >= tiles + (U > 0 ? Mt : 0)) return;
+  const int bh = blockIdx.z, tile = TM * W;
   const size_t part = (size_t)gridDim.z * Mt * W;
+  // where part q's tile of step k starts
+  const size_t step = (size_t)(NB + NC) * tile + 4 * TM * U;
+  auto tile_at = [&](int k, int q) -> size_t {
+    if constexpr (U > 0) return ((size_t)bh * (Mt / TM) + k) * step + (size_t)q * tile;
+    else return q * part + ((size_t)bh * Mt + (size_t)k * TM) * W;
+  };
+  if constexpr (U > 0) {
+    if (i >= tiles) {
+      const int m = i - tiles, y = blockIdx.y;
+      float* tail = reinterpret_cast<float*>(parts + tile_at(m / TM, NB + NC)) +
+                    (y * TM + m % TM) * U;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int col = W + u;
+        float x = 0.f;
+        if (m < M && y == 0 && col < d) x = to_float(b[((size_t)bh * M + m) * d + col]);
+        if (m < M && y == 1 && col < d_out) x = to_float(c[((size_t)bh * M + m) * d_out + col]);
+        tail[u] = x;
+      }
+      return;
+    }
+  }
   float x[8];
-  size_t at;
-  int n;   // parts of this operand
+  size_t at;   // part 0's element, part q's lies q parts further
+  int n, q0;   // parts of this operand, and the first one's index
   if (blockIdx.y == 0) {
     const int m = i % Mt, s = i / Mt;
     const TB* row = b + ((size_t)bh * M + m) * d;
 #pragma unroll
     for (int u = 0; u < 8; ++u)
       x[u] = (m < M && 8 * s + u < d) ? to_float(row[8 * s + u]) : 0.f;
-    at = (size_t)bh * Mt * W + (((size_t)(m / TM) * (W / 8) + s) * TM + m % TM) * 8;
-    n = kParts<TB>;
+    at = tile_at(m / TM, 0) + ((size_t)s * TM + m % TM) * 8;
+    n = NB;
+    q0 = 0;
   } else {
     const int j = i % W, g = i / W;
     const TC* col = c + (size_t)bh * M * d_out + j;
 #pragma unroll
     for (int u = 0; u < 8; ++u)
       x[u] = (8 * g + u < M && j < d_out) ? to_float(col[(size_t)(8 * g + u) * d_out]) : 0.f;
-    at = kParts<TB> * part + (size_t)bh * Mt * W + ((size_t)g * W + j) * 8;
-    n = kParts<TC>;
+    at = tile_at(8 * g / TM, 0) + ((size_t)(g % (TM / 8)) * W + j) * 8;
+    n = NC;
+    q0 = NB;
   }
+  const size_t apart = tile_at(0, 1) - tile_at(0, 0);   // from one part to the next
   uint32_t p[3][4];
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
@@ -397,16 +464,18 @@ __global__ void layout_kernel(const TB* __restrict__ b, const TC* __restrict__ c
 #pragma unroll
   for (int q = 0; q < 3; ++q)
     if (q < n)
-      *reinterpret_cast<uint4*>(parts + q * part + at) =
+      *reinterpret_cast<uint4*>(parts + at + (q0 + q) * apart) =
           make_uint4(p[q][0], p[q][1], p[q][2], p[q][3]);
 }
 
 // acc (+)= cast_C(s) C_m for one step: sp holds the NS parts of the score
-// tile as A fragments, Ct the NC part tiles of C_m^T; `fresh` starts acc anew
-template <int W, int TM, int NS, int NC>
+// tile as A fragments, Ct the NC part tiles of C_m^T; `fresh` starts acc anew;
+// `during` runs on the CUDA cores while the tensor cores work
+template <int W, int TM, int NS, int NC, typename F>
 __device__ __forceinline__ void second_product(float (&acc)[W / 2],
                                                const uint32_t (&sp)[NS][TM / 16][4],
-                                               const uint16_t* Ct, int tile, bool fresh) {
+                                               const uint16_t* Ct, int tile, bool fresh,
+                                               F&& during) {
   fence_registers(acc);
   wgmma_fence();
 #pragma unroll
@@ -419,23 +488,28 @@ __device__ __forceinline__ void second_product(float (&acc)[W / 2],
         wgmma<W>(acc, sp[ps][ks], desc, !fresh || ks + pc + ps > 0);
     }
   wgmma_commit();
+  during();
   wgmma_wait();
   fence_registers(acc);
 }
 
 // a: (BH, R, d) of TA (float32, or bf16 as uint16_t); bp, cp: part 0 of B
-// and of C^T (see layout_kernel), part q starts q * part elements later
-template <int T, int TM, typename TA, int NB, int NC, bool kFresh>
+// and of C^T (see layout_kernel), part q starts q * part elements later; with
+// a tail, bp is the workspace, each step's parts and tails together
+template <int T, int TM, typename TA, int NB, int NC, bool kFresh, int U = 0>
 __global__ void __launch_bounds__(kThreads, 1)
 chain_kernel(const TA* __restrict__ a, const uint16_t* __restrict__ bp,
              const uint16_t* __restrict__ cp, float* __restrict__ out, int R, int M, int Mt,
              int d, int d_out, size_t part) {
   constexpr int NA = kParts<TA>;
-  using K = Tile<T, TM, NA, NB, NC, kFresh>;
+  using K = Tile<T, TM, NA, NB, NC, kFresh, U>;
   constexpr int W = K::W, NS = K::NS, S = K::kStages;
   extern __shared__ __align__(128) unsigned char smem_bytes[];
-  uint16_t* St = reinterpret_cast<uint16_t*>(smem_bytes);   // S stages of NB + NC part tiles
-  float* Os = reinterpret_cast<float*>(St + S * K::kStage); // sums without registers
+  // S stages of NB + NC part tiles and the tails of B and C
+  auto stage = [&](int k) {
+    return reinterpret_cast<uint16_t*>(smem_bytes + (k % S) * K::kStageBytes);
+  };
+  float* Os = reinterpret_cast<float*>(smem_bytes + S * K::kStageBytes);  // sums without registers
 
   const int bh = blockIdx.y, r0 = blockIdx.x * kTR;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -444,13 +518,19 @@ chain_kernel(const TA* __restrict__ a, const uint16_t* __restrict__ bp,
   const uint16_t* cb = cp + (size_t)bh * Mt * W;
 
   // a stage: each part tile of B as [W / 8][TM][8], of C^T as [TM / 8][W][8],
-  // both whole in the workspace; thread 0 copies them, `full` counts the bytes
+  // both whole in the workspace, then the step's tails of B and C as [TM][U];
+  // thread 0 copies them, `full` counts the bytes
   __shared__ __align__(8) uint64_t full[S], empty[S];
   const int steps = Mt / TM;
   auto produce = [&](int k) {
     uint64_t* bar = &full[k % S];
-    uint16_t* dst = St + (k % S) * K::kStage;
-    mbar_expect_tx(bar, K::kStage * 2);
+    uint16_t* dst = stage(k);
+    mbar_expect_tx(bar, K::kStageBytes);
+    if constexpr (U > 0) {   // the whole step in one copy
+      bulk_copy(dst, bp + ((size_t)bh * steps + k) * (K::kStageBytes / 2), K::kStageBytes,
+                bar);
+      return;
+    }
 #pragma unroll
     for (int q = 0; q < NB; ++q)
       bulk_copy(dst + q * K::kTile, bb + q * part + (size_t)k * K::kTile, K::kTile * 2, bar);
@@ -485,6 +565,17 @@ chain_kernel(const TA* __restrict__ a, const uint16_t* __restrict__ bp,
 #pragma unroll
       for (int q = 0; q < NA; ++q) af[q][kk][e] = pack(x0[q], x1[q]);
     }
+  // the tail of A on this thread's rows row0 and row0 + 8, and the sums of
+  // s[r, m] c[m, tail] on them
+  float at[2][U > 0 ? U : 1], ot[2][U > 0 ? U : 1];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = row0 + 8 * h, col = W + u;
+      at[h][u] = r < R && col < d ? to_float(a[((size_t)bh * R + r) * d + col]) : 0.f;
+      ot[h][u] = 0.f;
+    }
 
   // fragment element 4 j + e: row g + 8 (e / 2), column 8 j + 2 t + e % 2
   float s[TM / 2], oc[kFresh ? W / 2 : 1], o[K::kSumsInRegisters ? W / 2 : 1];
@@ -498,8 +589,10 @@ chain_kernel(const TA* __restrict__ a, const uint16_t* __restrict__ bp,
 
   for (int k = 0; k < steps; ++k) {
     mbar_wait(&full[k % S], (k / S) & 1);
-    const uint16_t* Bt = St + (k % S) * K::kStage;
+    const uint16_t* Bt = stage(k);
     const uint16_t* Ct = Bt + NB * K::kTile;
+    const float* Bx = reinterpret_cast<const float*>(Bt + K::kStage);   // [TM][U]
+    const float* Cx = Bx + K::kTail;
 
     // s = A_r B_m^T: 64 rows x TM a warpgroup, complete over d and the parts.
     // With one three-part operand (three passes) the part products run from
@@ -527,8 +620,51 @@ chain_kernel(const TA* __restrict__ a, const uint16_t* __restrict__ bp,
             }
         }
     wgmma_commit();
+    // the tail's terms of the score on the CUDA cores, while the tensor cores
+    // run the first product; kept apart from s, which only wgmma writes
+    float st[U > 0 ? TM / 2 : 1];
+    if constexpr (U > 0) {
+#pragma unroll
+      for (int j = 0; j < TM / 8; ++j) {
+        float bt[2 * U];
+        load_pairs<U>(Bx + (8 * j + 2 * t) * U, bt);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e / 2, x = e % 2;
+          float v = at[h][0] * bt[x * U];
+#pragma unroll
+          for (int u = 1; u < U; ++u) v = fmaf(at[h][u], bt[x * U + u], v);
+          st[4 * j + e] = v;
+        }
+      }
+    }
     wgmma_wait();
     fence_registers(s);
+    // the score tile complete over d: the tiles' sum, then the tail's terms
+    if constexpr (U > 0) {
+#pragma unroll
+      for (int i = 0; i < TM / 2; ++i) st[i] = s[i] + st[i];
+    }
+    auto score = [&](int i) -> float {
+      if constexpr (U > 0) return st[i];
+      else return s[i];
+    };
+    // the tail of the output, s[r, m] c[m, tail] summed on the CUDA cores
+    // while the tensor cores run the second product
+    auto tail_sums = [&] {
+      if constexpr (U > 0) {
+#pragma unroll
+        for (int j = 0; j < TM / 8; ++j) {
+          float ct[2 * U];
+          load_pairs<U>(Cx + (8 * j + 2 * t) * U, ct);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+              ot[e / 2][u] = fmaf(st[4 * j + e], ct[(e % 2) * U + u], ot[e / 2][u]);
+        }
+      }
+    };
 
     // cast_C(s) as the A fragments of the second product: the accumulator
     // layout of two neighbouring 8-column score tiles is the A-fragment
@@ -543,14 +679,14 @@ chain_kernel(const TA* __restrict__ a, const uint16_t* __restrict__ bp,
           sp[0][ks][e] = pack_rn(s[4 * j + x], s[4 * j + x + 1]);
         } else {
           float lo[3], hi[3];
-          split3(s[4 * j + x], lo);
-          split3(s[4 * j + x + 1], hi);
+          split3(score(4 * j + x), lo);
+          split3(score(4 * j + x + 1), hi);
 #pragma unroll
           for (int q = 0; q < 3; ++q) sp[q][ks][e] = pack(lo[q], hi[q]);
         }
       }
-    if constexpr (kFresh) second_product<W, TM, NS, NC>(oc, sp, Ct, K::kTile, true);
-    else second_product<W, TM, NS, NC>(o, sp, Ct, K::kTile, false);
+    if constexpr (kFresh) second_product<W, TM, NS, NC>(oc, sp, Ct, K::kTile, true, tail_sums);
+    else second_product<W, TM, NS, NC>(o, sp, Ct, K::kTile, false, tail_sums);
 
     // this warpgroup is done with the stage; thread 0 refills the stage of
     // the step before, which both warpgroups have left by now, so that one
@@ -579,13 +715,24 @@ chain_kernel(const TA* __restrict__ a, const uint16_t* __restrict__ bp,
     if constexpr (K::kSumsInRegisters) ob[(size_t)r * d_out + col] = o[i];
     else ob[(size_t)r * d_out + col] = Os[i * kThreads + tid];
   }
+  // the tail's sums over the four lanes of a row, in a fixed order
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float v = ot[h][u];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const int r = row0 + 8 * h, col = W + u;
+      if (t == 0 && r < R && col < d_out) ob[(size_t)r * d_out + col] = v;
+    }
 }
 
-template <int T, int TM, typename TA, int NB, int NC, bool kFresh>
+template <int T, int TM, typename TA, int NB, int NC, bool kFresh, int U>
 int launch(const TA* a, const uint16_t* parts, float* out, int BH, int R, int M, int Mt,
            int d, int d_out, cudaStream_t stream) {
-  using K = Tile<T, TM, kParts<TA>, NB, NC, kFresh>;
-  auto kernel = chain_kernel<T, TM, TA, NB, NC, kFresh>;
+  using K = Tile<T, TM, kParts<TA>, NB, NC, kFresh, U>;
+  auto kernel = chain_kernel<T, TM, TA, NB, NC, kFresh, U>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::bytes);
   if (err != cudaSuccess) return (int)err;
@@ -596,23 +743,13 @@ int launch(const TA* a, const uint16_t* parts, float* out, int BH, int R, int M,
   return (int)cudaGetLastError();
 }
 
-// One call of the chain: the layout prologue, then the chain kernel.
-// a: (BH, R, d) of TA, b: (BH, M, d) of TB, c: (BH, M, d_out) of TC, out:
-// (BH, R, d_out) float32, all contiguous; float for float32, uint16_t for
-// bf16; d, d_out <= 128.  parts: bf16 scratch of (NB + NC) BH Mt W elements,
-// NB and NC the parts of B and C (3 for float32, 1 for bf16), Mt = TM
-// ceil(M / TM), W = 16 ceil(max(d, d_out) / 16).  Returns the CUDA error code
-// of the launches (0 on success).
-template <int TM, typename TA, typename TB, typename TC, bool kFresh>
-int run(const void* a, const void* b, const void* c, float* out, void* parts, int BH, int R,
-        int M, int d, int d_out, cudaStream_t s) {
-  if (BH < 1 || BH > 65535 || R < 1 || M < 1 || M > (1 << 24) || d < 1 || d_out < 1 ||
-      d > 128 || d_out > 128)
-    return (int)cudaErrorInvalidValue;
-  const int T = ((d > d_out ? d : d_out) + 15) / 16, W = 16 * T;
-  const int Mt = (M + TM - 1) / TM * TM;
-  uint16_t* p = (uint16_t*)parts;
-  layout_kernel<TM, TB, TC><<<dim3((Mt * (W / 8) + 255) / 256, 2, BH), 256, 0, s>>>(
+// The layout prologue, then the chain kernel, with a tail of U columns past
+// the tiles of W = 16 T columns.
+template <int U, int TM, typename TA, typename TB, typename TC, bool kFresh>
+int run_tiles(const void* a, const void* b, const void* c, float* out, uint16_t* p, int BH,
+              int R, int M, int Mt, int d, int d_out, int T, cudaStream_t s) {
+  const int W = 16 * T, threads = Mt * (W / 8) + (U > 0 ? Mt : 0);
+  layout_kernel<TM, TB, TC, U><<<dim3((threads + 255) / 256, 2, BH), 256, 0, s>>>(
       (const TB*)b, (const TC*)c, p, M, Mt, d, d_out, W);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -620,12 +757,52 @@ int run(const void* a, const void* b, const void* c, float* out, void* parts, in
   const TA* pa = (const TA*)a;
   switch (T) {
 #define GT_CHAIN_CASE(T) \
-  case T: return launch<T, TM, TA, NB, NC, kFresh>(pa, p, out, BH, R, M, Mt, d, d_out, s);
+  case T: return launch<T, TM, TA, NB, NC, kFresh, U>(pa, p, out, BH, R, M, Mt, d, d_out, s);
     GT_CHAIN_CASE(1) GT_CHAIN_CASE(2) GT_CHAIN_CASE(3) GT_CHAIN_CASE(4)
-    GT_CHAIN_CASE(5) GT_CHAIN_CASE(6) GT_CHAIN_CASE(7) GT_CHAIN_CASE(8)
+    GT_CHAIN_CASE(5) GT_CHAIN_CASE(6) GT_CHAIN_CASE(7)
 #undef GT_CHAIN_CASE
+    case 8:   // 128 columns leave no tail
+      if constexpr (U == 0) return launch<8, TM, TA, NB, NC, kFresh, 0>(pa, p, out, BH, R, M,
+                                                                        Mt, d, d_out, s);
+      return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// run_tiles with the tail U, the one instantiated tail of at most kTail that
+// equals `tail`
+template <int kTail, int TM, typename TA, typename TB, typename TC, bool kFresh>
+int run_tail(int tail, const void* a, const void* b, const void* c, float* out, uint16_t* p,
+             int BH, int R, int M, int Mt, int d, int d_out, int T, cudaStream_t s) {
+  if constexpr (kTail > 0)
+    if (tail != kTail)
+      return run_tail<kTail - 1, TM, TA, TB, TC, kFresh>(tail, a, b, c, out, p, BH, R, M, Mt,
+                                                          d, d_out, T, s);
+  return run_tiles<kTail, TM, TA, TB, TC, kFresh>(a, b, c, out, p, BH, R, M, Mt, d, d_out, T,
+                                                  s);
+}
+
+// One call of the chain: the layout prologue, then the chain kernel.
+// a: (BH, R, d) of TA, b: (BH, M, d) of TB, c: (BH, M, d_out) of TC, out:
+// (BH, R, d_out) float32, all contiguous; float for float32, uint16_t for
+// bf16; d, d_out <= 128.  The tiles are W = 16 ceil(D / 16) wide, D the
+// wider of d and d_out, or, where D >= 16 and 1 <= D mod 16 <= kTailMax,
+// W = D - U with a tail of U = D mod 16 columns.  parts: bf16 scratch of
+// (NB + NC) BH Mt W elements and 4 BH Mt U more (the tails, float32), NB and
+// NC the parts of B and C (3 for float32, 1 for bf16), Mt = TM ceil(M / TM).
+// Returns the CUDA error code of the launches (0 on success).
+template <int TM, typename TA, typename TB, typename TC, bool kFresh, int kTailMax = 0>
+int run(const void* a, const void* b, const void* c, float* out, void* parts, int BH, int R,
+        int M, int d, int d_out, cudaStream_t s) {
+  if (BH < 1 || BH > 65535 || R < 1 || M < 1 || M > (1 << 24) || d < 1 || d_out < 1 ||
+      d > 128 || d_out > 128)
+    return (int)cudaErrorInvalidValue;
+  const int D = d > d_out ? d : d_out;
+  const int U = D >= 16 && D % 16 <= kTailMax ? D % 16 : 0;
+  const int T = (D - U + 15) / 16;
+  const int Mt = (M + TM - 1) / TM * TM;
+  return run_tail<kTailMax, TM, TA, TB, TC, kFresh>(U, a, b, c, out, (uint16_t*)parts, BH, R,
+                                                    M, Mt, d, d_out, T, s);
 }
 
 }  // namespace chain

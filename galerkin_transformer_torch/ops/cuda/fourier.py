@@ -5,7 +5,9 @@
 without storing the score matrix.  On CUDA tensors it launches
 ``csrc/fourier_chain.cu`` (float32 inputs, on the tensor cores by wgmma:
 each float32 operand in three bfloat16 parts whose sum is exact, six part
-products per product, float32 sums) or
+products per product, float32 sums; a tail of one or two columns past
+the whole 16-column blocks summed in float32 on the CUDA cores,
+`chain_tiles`) or
 ``csrc/fourier_chain_bf16.cu`` (bfloat16 inputs, tensor cores; the score
 tile is rounded to bfloat16 before the second product); on CPU tensors it
 runs ``fourier_chain_reference``, the plain PyTorch version of both.
@@ -31,6 +33,8 @@ from ._cost import chain_cost
 
 MAX_D = 128   # d and d_out that the kernels take
 MMA_TILE = 16  # the tensor-core kernels' mma depth and tile width
+# the widest tail that csrc/fourier_chain.cu sums on the CUDA cores (kTailMax)
+CHAIN_TAIL_MAX = 2
 # middle rows per step (kTM) of csrc/fourier_chain.cu, fourier_chain_bf16.cu
 # and fourier_chain_mixed.cu: each call's workspace holds whole steps
 CHAIN_STEP = 32
@@ -81,26 +85,46 @@ def _check_types(a, b, c):
                         f"{b.dtype}, {c.dtype}")
 
 
-def workspace_elements(parts: int, bh: int, m: int, width: int, step: int) -> int:
+def chain_tiles(name: str, d: int, d_out: int) -> tuple:
+    """(width, tail) of a call of chain `name` (``fourier_chain``,
+    ``fourier_chain_bf16`` or ``fourier_chain_mixed``): the width W of its
+    tensor-core tiles and the columns past them.  The float32 chain, where
+    D = max(d, d_out) is at least 16 and D mod 16 is 1 to CHAIN_TAIL_MAX,
+    takes D's whole 16-column blocks into its tiles and sums the tail of
+    D mod 16 columns in float32 on the CUDA cores; every other call pads
+    its tiles to W = 16 ⌈D / 16⌉ and has no tail."""
+    widest = max(d, d_out)
+    tail = widest % MMA_TILE
+    if name == "fourier_chain" and widest >= MMA_TILE and tail <= CHAIN_TAIL_MAX:
+        return widest - tail, tail
+    return math.ceil(widest / MMA_TILE) * MMA_TILE, 0
+
+
+def workspace_elements(parts: int, bh: int, m: int, width: int, step: int,
+                       tail: int = 0) -> int:
     """bfloat16 elements of a chain call's workspace: `parts` part tiles of
     b and c (three for a float32 operand, one for a bfloat16 one), each of
-    `bh` × (m rounded up to the kernel's `step`) × `width`."""
-    return parts * bh * math.ceil(m / step) * step * width
+    `bh` × (m rounded up to the kernel's `step`) × `width`, and the `tail`
+    columns of b and of c in float32 (two bfloat16 elements a value) for
+    the same rows."""
+    rows = bh * math.ceil(m / step) * step
+    return parts * rows * width + 2 * 2 * rows * tail
 
 
 def _launch(name, argtypes, a, b, c, parts, step, *flags) -> torch.Tensor:
     """One call of ``csrc/<name>.cu`` on CUDA tensors a, b, c where they lie
     (no padded copies): its layout prologue writes the `parts` part tiles of
-    b and c into a workspace of whole steps of `step` rows, then its chain
-    kernel runs (two device kernels).  `flags` go to the kernel after d_out."""
+    b and c (and their tails, `chain_tiles`) into a workspace of whole steps
+    of `step` rows, then its chain kernel runs (two device kernels).
+    `flags` go to the kernel after d_out."""
     if a.device.type != "cuda":
         raise ValueError(f"fourier_chain runs on cpu or cuda, not {a.device}")
     _check(a, b, c)
     bh, r, d = a.shape
     m, d_out = c.shape[1], c.shape[2]
-    width = math.ceil(max(d, d_out) / MMA_TILE) * MMA_TILE
-    ws = torch.empty(workspace_elements(parts, bh, m, width, step), dtype=torch.bfloat16,
-                     device=a.device)
+    width, tail = chain_tiles(name, d, d_out)
+    ws = torch.empty(workspace_elements(parts, bh, m, width, step, tail),
+                     dtype=torch.bfloat16, device=a.device)
     out = torch.empty((bh, r, d_out), dtype=torch.float32, device=a.device)
     fn = _build.function(name, f"{name}_launch", argtypes)
     with torch.cuda.device(a.device):
@@ -121,8 +145,10 @@ def fourier_chain(a, b, c) -> torch.Tensor:
     tensors run the plain version; CUDA tensors launch a kernel, which
     takes contiguous tensors with d, d_out <= 128.  Each float32 launch
     (the split of b and c into their bfloat16 parts, then the chain: two
-    device kernels) adds one to ``fourier_chain.launches``, each
-    bfloat16 launch one to ``fourier_chain_bf16.launches``.  The counters
+    device kernels) adds one to ``fourier_chain.launches``, and one to
+    ``fourier_chain.tail_launches`` where it sums a tail on the CUDA cores
+    (`chain_tiles`: ex1's d = 97 among others); each bfloat16 launch one to
+    ``fourier_chain_bf16.launches``.  The counters
     are Python attributes that move when the wrapper runs: a call under
     CUDA graph capture counts once, and the graph's replays do not count
     (their launches are the graph's kernels times the replays,
@@ -135,10 +161,13 @@ def fourier_chain(a, b, c) -> torch.Tensor:
         return fourier_chain_reference(a, b, c)
     out = _launch("fourier_chain", _ARGTYPES, a, b, c, 6, CHAIN_STEP)
     fourier_chain.launches += 1
+    if chain_tiles("fourier_chain", a.shape[2], c.shape[2])[1]:
+        fourier_chain.tail_launches += 1
     return out
 
 
 fourier_chain.launches = 0
+fourier_chain.tail_launches = 0
 
 
 def fourier_chain_bf16(a, b, c) -> torch.Tensor:

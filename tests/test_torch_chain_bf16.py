@@ -65,53 +65,84 @@ def truncate(s):
     return (s.view(torch.int32) & -65536).view(torch.float32)
 
 
-def layout(b, c, step):
-    """What ``layout_kernel`` writes, and how often each workspace element is
-    written, and which elements hold a value of b or c (the rest is
-    padding): its threads (blockIdx.y 0 for B, 1 for C, blockIdx.z the bh),
-    each laying out 8 values of every part.  Returns (workspace, writes,
-    held, width, Mt)."""
+def layout(b, c, step, name):
+    """What ``layout_kernel`` of chain `name` writes, and how often each
+    workspace element is written, and which elements hold a value of b or c
+    (the rest is padding): its threads (blockIdx.y 0 for B, 1 for C,
+    blockIdx.z the bh), each laying out 8 values of every part, or the
+    float32 tail of one row (``TF.chain_tiles``).  Without a tail part q of
+    every step lies together; with one, everything of a step (its part
+    tiles, then the tails of b and of c) lies together.  Here a float32
+    tail value is one element.  Returns (workspace, writes, held, width,
+    tail, Mt)."""
     bh, m, d = b.shape
     d_out = c.shape[2]
-    width = -(-max(d, d_out) // 16) * 16
+    width, tail = TF.chain_tiles(name, d, d_out)
     mt = -(-m // step) * step
     pb, pc = split3(b), split3(c)
+    nparts, tile = len(pb) + len(pc), step * width
     part = bh * mt * width
-    ws = torch.full(((len(pb) + len(pc)) * part,), float("nan"))
+    block = nparts * tile + 2 * step * tail   # a step's elements with a tail
+
+    def tile_at(z, k, q):   # where part q's tile of step k starts
+        return (z * (mt // step) + k) * block + q * tile if tail else \
+            q * part + (z * mt + k * step) * width
+
+    ws = torch.full((nparts * part + 2 * bh * mt * tail,), float("nan"))
     writes = torch.zeros(ws.shape, dtype=torch.int64)
     held = torch.zeros(ws.shape, dtype=torch.bool)
     i = np.arange(mt * (width // 8))[:, None]
     u = np.arange(8)[None, :]
     for z in range(bh):
         for y, parts in enumerate((pb, pc)):
-            if y == 0:   # B per step per 8 columns: [Mt / step][W / 8][step][8]
+            if y == 0:   # B per step per 8 columns: [W / 8][step][8]
                 row, col = i % mt + 0 * u, 8 * (i // mt) + u
-                at = z * mt * width + (((row // step) * (width // 8) + i // mt) * step
-                                       + row % step) * 8 + u
+                at = tile_at(z, row // step, 0) + ((i // mt) * step + row % step) * 8 + u
                 valid = (row < m) & (col < d)
-            else:        # C transposed per 8 rows: [Mt / 8][W][8]
+            else:        # C transposed per 8 rows: [step / 8][W][8]
                 row, col = 8 * (i // width) + u, i % width + 0 * u
-                at = len(pb) * part + z * mt * width + ((i // width) * width + col) * 8 + u
+                at = (tile_at(z, row // step, len(pb))
+                      + (((row // 8) % (step // 8)) * width + col) * 8 + u % 8)
                 valid = (row < m) & (col < d_out)
             for q, p in enumerate(parts):
                 src = p[z][np.where(valid, row, 0), np.where(valid, col, 0)]
-                idx = torch.from_numpy(q * part + at).reshape(-1)
+                idx = torch.from_numpy(at + q * (tile_at(z, 0, 1) - tile_at(z, 0, 0)))
+                idx = idx.reshape(-1)
                 ws[idx] = torch.where(torch.from_numpy(valid), src, 0.0).reshape(-1)
                 writes[idx] += 1
                 held[idx] = torch.from_numpy(valid).reshape(-1)
-    return ws, writes, held, width, mt
+            # the tail threads, one a row: columns W .. W + tail - 1 as
+            # float32, [step][tail] after the step's part tiles
+            x, cols = (b, d) if y == 0 else (c, d_out)
+            for r in range(mt):
+                for t in range(tail):
+                    idx = tile_at(z, r // step, nparts) + (y * step + r % step) * tail + t
+                    keep = r < m and width + t < cols
+                    ws[idx] = x[z, r, width + t].float() if keep else 0.0
+                    writes[idx] += 1
+                    held[idx] = keep
+    return ws, writes, held, width, tail, mt
 
 
-def unlayout(ws, bh, mt, width, step, nb, nc):
+def unlayout(ws, bh, mt, width, step, nb, nc, tail=0):
     """The parts of B, each (BH, Mt, W), and of C, as the chain kernel reads
-    them from the workspace: step k's tile of B part q as [W / 8][step][8]
-    at q * part + (bh Mt + k step) W, C's parts after B's as [step / 8][W][8]."""
-    part = bh * mt * width
-    tiles = ws.reshape(nb + nc, bh, mt // step, step * width)
+    them from the workspace: step k's tile of B part q as [W / 8][step][8],
+    C's parts after B's as [step / 8][W][8]; then the tails of B and C, each
+    (BH, Mt, tail)."""
+    n, tile = nb + nc, step * width
+    assert ws.numel() == n * bh * mt * width + 2 * bh * mt * tail
+    if tail:   # [bh][step][parts, tails]
+        blocks = ws.reshape(bh, mt // step, n * tile + 2 * step * tail)
+        tiles = blocks[..., :n * tile].reshape(bh, mt // step, n, tile).permute(2, 0, 1, 3)
+        tails = blocks[..., n * tile:].reshape(bh, mt // step, 2, step, tail)
+        tails = tails.permute(2, 0, 1, 3, 4).reshape(2, bh, mt, tail)
+    else:      # [part][bh][step][tile]
+        tiles = ws.reshape(n, bh, mt // step, tile)
+        tails = ws.new_zeros(2, bh, mt, 0)
     b = tiles[:nb].reshape(nb, bh, mt // step, width // 8, step, 8).permute(0, 1, 2, 4, 3, 5)
     c = tiles[nb:].reshape(nc, bh, mt // 8, width, 8).permute(0, 1, 2, 4, 3)
-    assert ws.numel() == (nb + nc) * part
-    return (list(b.reshape(nb, bh, mt, width)), list(c.reshape(nc, bh, mt, width)))
+    return (list(b.reshape(nb, bh, mt, width)), list(c.reshape(nc, bh, mt, width)),
+            tuple(tails))
 
 
 def chain_emulated(a, b, c, step, cast=round_nearest):
@@ -123,8 +154,10 @@ def chain_emulated(a, b, c, step, cast=round_nearest):
     step's second product added into the float32 sum."""
     bh, r, d = a.shape
     d_out = c.shape[2]
-    ws, _, _, width, mt = layout(b, c, step)
-    bp, cp = unlayout(ws, bh, mt, width, step, len(split3(b)), len(split3(c)))
+    name = "fourier_chain_bf16" if len(split3(a) + split3(b) + split3(c)) == 3 else \
+        "fourier_chain_mixed"
+    ws, _, _, width, _, mt = layout(b, c, step, name)
+    bp, cp, _ = unlayout(ws, bh, mt, width, step, len(split3(b)), len(split3(c)))
     pa = [torch.nn.functional.pad(p, (0, width - d)) for p in split3(a)]
     out = torch.zeros(bh, r, width)
     for m0 in range(0, mt, step):
@@ -158,24 +191,30 @@ KINDS = {"bf16": ("fourier_chain_bf16", BF16),
          "f32": ("fourier_chain", (torch.float32,) * 3)}
 
 
-# (BH, M, d, d_out): ragged steps, d != d_out, d of one column and of 128
+# (BH, M, d, d_out): ragged steps, d != d_out, d of one column and of 128;
+# for the float32 chain, tails of one and of two columns
 @pytest.mark.parametrize("bh,m,d,d_out", [(2, 100, 17, 17), (1, 130, 97, 97), (2, 64, 8, 40),
-                                          (1, 1, 128, 128), (3, 70, 33, 16)])
+                                          (1, 1, 128, 128), (3, 70, 33, 16), (2, 40, 97, 98)])
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_layout_writes_every_workspace_element_once_and_zero_fills(kind, bh, m, d, d_out):
     name, types = KINDS[kind]
     b, c = _ops(((bh, m, d), (bh, m, d_out)), types[1:], m + d)
-    ws, writes, held, width, mt = layout(b, c, STEPS[name])
+    ws, writes, held, width, tail, mt = layout(b, c, STEPS[name], name)
     assert torch.equal(writes, torch.ones_like(writes))
     nb, nc = len(split3(b)), len(split3(c))
-    assert ws.numel() == TF.workspace_elements(nb + nc, bh, m, width, STEPS[name])
-    assert held.sum() == bh * m * (nb * d + nc * d_out)
+    # a float32 tail value takes two bfloat16 elements of the workspace
+    assert ws.numel() + 2 * bh * mt * tail == TF.workspace_elements(
+        nb + nc, bh, m, width, STEPS[name], tail)
+    in_tiles = lambda cols: min(cols, width)
+    assert held.sum() == bh * m * (nb * in_tiles(d) + nc * in_tiles(d_out)
+                                   + d - in_tiles(d) + d_out - in_tiles(d_out))
     assert (ws[~held] == 0).all()
-    # read back as the chain reads its tiles, the parts sum to the operands
-    bp, cp = unlayout(ws, bh, mt, width, STEPS[name], nb, nc)
-    for parts, x in ((bp, b), (cp, c)):
-        want = torch.nn.functional.pad(x.float(), (0, width - x.shape[2], 0, mt - m))
-        assert torch.equal(sum(parts[1:], parts[0]), want)
+    # read back as the chain reads its tiles, the parts and the tail make
+    # the operands
+    bp, cp, tails = unlayout(ws, bh, mt, width, STEPS[name], nb, nc, tail)
+    for parts, x, xt in ((bp, b, tails[0]), (cp, c, tails[1])):
+        want = torch.nn.functional.pad(x.float(), (0, width + tail - x.shape[2], 0, mt - m))
+        assert torch.equal(torch.cat([sum(parts[1:], parts[0]), xt], -1), want)
 
 
 @pytest.mark.parametrize("bh,r,m,d", [(4, 128, 128, 17), (2, 200, 200, 34), (3, 65, 130, 9),

@@ -90,15 +90,22 @@ def test_galerkin_scores_kernel_is_float32_against_float64(dev, b, h, n, d_k, p)
     assert torch.equal(got, GS.galerkin_scores(k, v, pos, *params))
 
 
+# tails of one column (d = 17, 97, 33) and of two (98 beside 97), a tail
+# from d_out alone (24 beside 97) or beside a narrower d_out (97 beside 40),
+# no tail (96, 128) and a padded width (8 beside 40)
 @pytest.mark.parametrize("bh,r,m,d,d_out", [
     (4, 128, 128, 17, 17), (2, 200, 77, 97, 97), (3, 65, 300, 8, 40),
-    (1, 1, 1, 128, 128), (8, 1000, 1000, 97, 97), (8, 2048, 2048, 97, 97)])
+    (1, 1, 1, 128, 128), (8, 1000, 1000, 97, 97), (8, 2048, 2048, 97, 97),
+    (3, 300, 333, 33, 33), (3, 2100, 2050, 98, 97), (8, 4096, 4096, 97, 97),
+    (2, 500, 600, 96, 96), (2, 300, 200, 97, 40), (2, 200, 300, 24, 97)])
 def test_fourier_chain_kernel_matches_plain(dev, bh, r, m, d, d_out):
     rng = np.random.default_rng(r + m)
     a, b, c = _t(rng, (bh, r, d), dev), _t(rng, (bh, m, d), dev), _t(rng, (bh, m, d_out), dev)
-    before = FC.fourier_chain.launches
+    before = FC.fourier_chain.launches, FC.fourier_chain.tail_launches
     got = FC.fourier_chain(a, b, c)
-    assert FC.fourier_chain.launches == before + 1
+    assert FC.fourier_chain.launches == before[0] + 1
+    split = FC.chain_tiles("fourier_chain", d, d_out)[1] > 0
+    assert FC.fourier_chain.tail_launches == before[1] + split
     want = FC.fourier_chain_reference(a, b, c)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
 
@@ -113,9 +120,11 @@ def _chain_float64(a, b, c, row_block=2048):
 
 
 # (BH, R, M, d, d_out) of n >= 2048: the ex1 training sweeps, the ex1
-# serving width at n = 4096, and ragged edges at full width
+# serving width at n = 4096, and ragged edges at full width; tails of one
+# and two columns, none (96)
 @pytest.mark.parametrize("bh,r,m,d,d_out", [
-    (8, 2048, 2048, 97, 97), (8, 4096, 4096, 97, 97), (3, 2100, 2050, 128, 100)])
+    (8, 2048, 2048, 97, 97), (8, 4096, 4096, 97, 97), (3, 2100, 2050, 128, 100),
+    (3, 300, 333, 33, 33), (3, 2100, 2050, 98, 97), (2, 2048, 2048, 96, 96)])
 def test_fourier_chain_kernel_is_float32_against_float64(dev, bh, r, m, d, d_out):
     """The tensor-core chain keeps float32 accuracy: within 1e-5 of the
     largest entry of a float64 reference (one-pass TF32 is about 1e-4 off),
@@ -356,7 +365,8 @@ def _chain_call(dev, types, bh, r, m, d, d_out):
 
 
 @pytest.mark.parametrize("kind", list(CHAIN_TYPES))
-@pytest.mark.parametrize("bh,r,m,d,d_out", [(2, 200, 77, 97, 97), (8, 2048, 2048, 97, 97)])
+@pytest.mark.parametrize("bh,r,m,d,d_out", [(2, 200, 77, 97, 97), (8, 2048, 2048, 97, 97),
+                                            (3, 300, 333, 33, 33)])
 def test_chain_kernels_are_two_device_kernels_without_copies(dev, kind, bh, r, m, d, d_out):
     """A chain call is its layout prologue and the chain, which read the
     operands where they lie: no padded or converted copy runs."""
@@ -366,7 +376,8 @@ def test_chain_kernels_are_two_device_kernels_without_copies(dev, kind, bh, r, m
 
 
 @pytest.mark.parametrize("kind", list(CHAIN_TYPES))
-@pytest.mark.parametrize("bh,r,m,d,d_out", [(3, 65, 300, 8, 40), (8, 2048, 2048, 97, 97)])
+@pytest.mark.parametrize("bh,r,m,d,d_out", [(3, 65, 300, 8, 40), (8, 2048, 2048, 97, 97),
+                                            (3, 300, 333, 33, 33)])
 def test_chain_kernels_are_bit_equal_run_to_run(dev, kind, bh, r, m, d, d_out):
     call = _chain_call(dev, CHAIN_TYPES[kind], bh, r, m, d, d_out)
     first = call()

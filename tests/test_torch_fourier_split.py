@@ -4,12 +4,17 @@
 cores: every float32 value is cut into three bfloat16 parts whose sum is
 exact, a product of two float32 operands is the six part products down to
 about 2^-22 of the largest, and the second product is summed per step of
-32 middle rows and added into a running float32 sum.  The kernel runs only
+32 middle rows and added into a running float32 sum.  Where the wider of
+d and d_out is 16 T + 1 or 16 T + 2 (ex1's d = 97), the tiles hold only
+the whole 16-column blocks and the tail columns are summed in plain
+float32: their terms join the score before it is split, and the output's
+tail columns are float32 sums of the unsplit score.  The kernel runs only
 on a GPU (tests/test_torch_cuda.py holds it against float64 there); here a
 plain PyTorch emulation of that arithmetic is held to float64, to the plain
 version and to the JAX Pallas kernel in interpret mode, and a one-pass TF32
 or bfloat16 emulation is shown to miss the same bar.
 """
+import math
 import re
 from pathlib import Path
 
@@ -47,15 +52,24 @@ def is_bf16(v: torch.Tensor) -> bool:
 def chain_emulated(a, b, c, step=STEP):
     """(A Bᵀ) C as the kernel computes it: three parts of each operand and
     of each step's float32 score tile, the six part products of each
-    product (exact in float32), float32 sums, each step's second product
-    added into the running sum."""
-    pa, pb, pc = split3(a), split3(b), split3(c)
-    out = torch.zeros(a.shape[0], a.shape[1], c.shape[2])
+    product (exact in float32) over the tiles' columns, float32 sums, each
+    step's second product added into the running sum.  The tail columns
+    (``TF.chain_tiles``) are plain float32: their terms are added into the
+    score before it is split, and the output's tail columns sum the
+    unsplit score times c's tail."""
+    d_out = c.shape[2]
+    width, tail = TF.chain_tiles("fourier_chain", a.shape[2], d_out)
+    a, b, c = (torch.nn.functional.pad(x, (0, width + tail - x.shape[2])) for x in (a, b, c))
+    pa, pb, pc = (split3(x[..., :width]) for x in (a, b, c))
+    ta, tb, tc = (x[..., width:] for x in (a, b, c))
+    out = torch.zeros(a.shape[0], a.shape[1], width + tail)
     for m0 in range(0, b.shape[1], step):
         s = sum(pa[i] @ pb[j][:, m0:m0 + step].transpose(1, 2) for i, j in PASSES)
+        s = s + ta @ tb[:, m0:m0 + step].transpose(1, 2)
         ps = split3(s)
-        out += sum(ps[i] @ pc[j][:, m0:m0 + step] for i, j in PASSES)
-    return out
+        out[..., :width] += sum(ps[i] @ pc[j][:, m0:m0 + step] for i, j in PASSES)
+        out[..., width:] += s @ tc[:, m0:m0 + step]
+    return out[..., :d_out]
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -113,8 +127,12 @@ def test_split3_of_subnormals_drops_only_what_bfloat16_cannot_hold():
     assert lost < 2.0 ** -133
 
 
-# (BH, R, M, d, d_out): ragged steps, d != d_out, full ex1 width
-SHAPES = [(2, 64, 100, 17, 17), (3, 50, 300, 40, 24), (2, 70, 257, 97, 97)]
+# (BH, R, M, d, d_out): ragged steps, d != d_out, full ex1 width; tails of
+# one column (d = 97, 33, 17) and of two (98 beside 97), no tail (96), d
+# inside the tiles beside d_out's tail (24 beside 97)
+SHAPES = [(2, 64, 100, 17, 17), (3, 50, 300, 40, 24), (2, 70, 257, 97, 97),
+          (2, 60, 150, 33, 33), (2, 50, 200, 98, 97), (2, 40, 130, 96, 96),
+          (2, 50, 100, 24, 97)]
 
 
 @pytest.mark.parametrize("bh,r,m,d,d_out", SHAPES)
@@ -131,7 +149,7 @@ def test_emulated_kernel_is_float32_against_float64(bh, r, m, d, d_out):
     assert ((got - plain).abs().max() / plain.abs().max()).item() <= 1e-4
 
 
-@pytest.mark.parametrize("n,d", [(128, 17), (200, 97)])
+@pytest.mark.parametrize("n,d", [(128, 17), (200, 97), (150, 33), (130, 98), (140, 96)])
 def test_emulated_kernel_matches_the_pallas_kernel(n, d):
     """The emulation, the plain version and ``_tiled_abc`` in interpret mode
     (through ``fourier_attention_tiled``, as tests/test_torch_kernels.py
@@ -164,6 +182,30 @@ def test_one_pass_rounding_misses_the_float64_bar(rounding):
 
 def test_the_wrapper_sizes_the_workspace_by_the_kernels_step():
     """The wrapper allocates the parts of b and c for m rounded up to
-    CHAIN_STEP rows; the kernel copies whole steps of kTM rows."""
+    CHAIN_STEP rows, and their float32 tails for the same rows; the kernel
+    copies whole steps of kTM rows and sums tails of up to kTailMax
+    columns."""
     src = (Path(TF.__file__).resolve().parents[2] / "csrc" / "fourier_chain.cu").read_text()
     assert int(re.search(r"constexpr int kTM = (\d+);", src).group(1)) == TF.CHAIN_STEP
+    assert int(re.search(r"constexpr int kTailMax = (\d+);", src).group(1)) == TF.CHAIN_TAIL_MAX
+    # ex1 at n = 8192: six part tiles of 96 columns, one float32 tail column
+    # of b and of c (two bfloat16 elements a value)
+    width, tail = TF.chain_tiles("fourier_chain", 97, 97)
+    assert TF.workspace_elements(6, 8, 8192, width, STEP, tail) == 8 * 8192 * (6 * 96 + 2 * 2)
+    assert TF.workspace_elements(6, 2, 70, 112, STEP) == 6 * 2 * 96 * 112
+
+
+# (d, d_out) -> the float32 chain's (width, tail): the split takes the whole
+# 16-column blocks of the wider of d and d_out where 1 or 2 columns are left
+# and that is at least 16; every other width pads to 16 columns
+@pytest.mark.parametrize("d,d_out,want", [
+    (97, 97, (96, 1)), (98, 97, (96, 2)), (97, 98, (96, 2)), (33, 33, (32, 1)),
+    (17, 17, (16, 1)), (18, 16, (16, 2)), (97, 40, (96, 1)), (8, 33, (32, 1)),
+    (114, 114, (112, 2)), (96, 96, (96, 0)), (128, 128, (128, 0)), (16, 16, (16, 0)),
+    (99, 99, (112, 0)), (40, 24, (48, 0)), (111, 100, (112, 0)), (8, 40, (48, 0)),
+    (1, 1, (16, 0)), (2, 2, (16, 0)), (15, 15, (16, 0))])
+def test_the_launcher_splits_off_small_tails_of_the_float32_chain_only(d, d_out, want):
+    assert TF.chain_tiles("fourier_chain", d, d_out) == want
+    padded = (math.ceil(max(d, d_out) / 16) * 16, 0)
+    for name in ("fourier_chain_bf16", "fourier_chain_mixed"):
+        assert TF.chain_tiles(name, d, d_out) == padded

@@ -14,7 +14,10 @@ generator state, in the reference's order.  Four numbers:
 * ``grad_gap``: per parameter, |‖g‖ − ‖g_ref‖| / max(‖g_ref‖, the median
   leaf's ‖g_ref‖), g a replayed step's clipped gradient as Adam took it
   (worked out from its first moments before and after the step), the
-  worst of the replayed steps;
+  worst of the replayed steps; where the cell sets ``grad_common_factor``,
+  each leaf's ‖g‖ is first divided by the median leaf's ‖g‖ / ‖g_ref‖
+  (a global-norm clip on every step makes the rounding of the leaves that
+  dominate the norm one factor of all the others: ``PERF.md``);
 * ``change_gap``: the same gap of each parameter's change over the steps,
   leaving out leaves whose reference gradient is under a thousandth of
   the median leaf's (Adam moves those by rounding alone);
@@ -133,12 +136,17 @@ def altered_metric(eval_step):
 
 
 def leaf_gaps(ours: List[torch.Tensor], ref: List[torch.Tensor],
-              keep: Optional[List[bool]] = None) -> np.ndarray:
+              keep: Optional[List[bool]] = None, common: bool = False) -> np.ndarray:
     """Per leaf, |‖a‖ − ‖b‖| / max(‖b‖, median leaf ‖b‖) (NaN where `keep`
-    is False)."""
+    is False).  With `common`, each ‖a‖ is first divided by the median
+    leaf's ‖a‖ / ‖b‖, where that is above 0: a factor that every leaf
+    shares is left out."""
     a = np.array([float(torch.linalg.vector_norm(t.double())) for t in ours])
     b = np.array([float(torch.linalg.vector_norm(t.double())) for t in ref])
     keep = np.ones(len(b), dtype=bool) if keep is None else np.asarray(keep)
+    if common:
+        ratio = np.median(a[keep & (b > 0)] / b[keep & (b > 0)])
+        a = a / ratio if ratio > 0 else a
     gaps = np.abs(a - b) / np.maximum(b, np.median(b[keep]))
     return np.where(keep, gaps, np.nan)
 
@@ -193,7 +201,9 @@ def train_steps(ctx, program: dict, weights: Dict[str, torch.Tensor], train_set,
             losses.append(float(loss.detach()))
     losses = np.array(losses)
     watch = program["watch"]
-    by_step = [leaf_gaps(watch.gradients(program["beta1"], k), [g.cpu() for g in grads[k - 1]])
+    common = ctx.cell.workload.get("grad_common_factor", False)
+    by_step = [leaf_gaps(watch.gradients(program["beta1"], k), [g.cpu() for g in grads[k - 1]],
+                         common=common)
                for k in range(first_replay, n + 1)]
     grad = np.nanmax(by_step, axis=0)
     g_norm = np.array([float(torch.linalg.vector_norm(g.double())) for g in grads[0]])

@@ -83,8 +83,8 @@ def reference_loss(ref, batch: dict, train_cfg: dict, grid: dict, norm) -> torch
     return burgers_loss(pred[..., 0], batch["target"], spacing(grid), train_cfg["gamma"])
 
 
-def reference_predict(ref, batch: dict, norm) -> torch.Tensor:
-    return ref(batch["node"], batch["pos"], batch["grid"])
+def reference_predict(ref, batch: dict, norm, training: bool = False) -> torch.Tensor:
+    return ref(batch["node"], batch["pos"], batch["grid"], training=training)
 
 
 def reference_metric(ref, batch: dict, grid: dict, norm) -> torch.Tensor:

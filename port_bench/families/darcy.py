@@ -100,8 +100,8 @@ def reference_loss(ref, batch: dict, train_cfg: dict, grid: dict, norm) -> torch
                       batch["coeff"], 1.0 / grid["fine"], train_cfg["gamma"])
 
 
-def reference_predict(ref, batch: dict, norm) -> torch.Tensor:
-    return ref(batch["node"], batch["pos"], batch["grid"], norm[1])
+def reference_predict(ref, batch: dict, norm, training: bool = False) -> torch.Tensor:
+    return ref(batch["node"], batch["pos"], batch["grid"], norm[1], training=training)
 
 
 def reference_metric(ref, batch: dict, grid: dict, norm) -> torch.Tensor:

@@ -12,8 +12,30 @@ that ``BENCHMARK.json`` gives:
   module under ``traffic/`` that runs that kind of mix;
 * ``workloads/<cell>.json``: the cell's configuration and traffic, its
   model FLOPs, the limits of its correctness check and, for training,
-  the leaf quantile of its gradient and change gaps;
+  the leaf quantile of its gradient and change gaps and, where set,
+  ``grad_common_factor`` (``check.py``);
 * ``metrics/<metric>.py``: one per-layer metric's reader.
+
+A family module provides what the runs call: ``BATCH_KEYS`` (the keys of a
+training sample), ``build_program``, ``build_reference``, ``make_data``,
+``normalizer``, ``normalize``, ``program_steps``, ``reference_loss``,
+``reference_predict``, ``reference_metric`` and ``served_normalizer``;
+``attention_op`` only where a roofline reader applies to its cells.
+``reference_predict`` takes ``training`` (the reference's dropout on or
+off): the CPU tests hold the port's forward to it both ways, and the loss
+that ``program_steps``' training step reports to ``reference_loss``.
+
+A new cell is added by new files and appended entries alone:
+
+* its configuration (with ``config_yml``: the name of the reference's
+  ``config.yml`` block that its ``model`` is, which no run reads), its
+  traffic mix, ``tests/tiny/<traffic>.json`` (the mix cut to a size that
+  a CPU test holds) and its workload file;
+* in the workload file, ``flops`` from ``python port_bench/flops.py
+  <cell>`` and ``limits`` from ``control.py``'s runs on the card;
+* in ``BENCHMARK.json``, its configuration and cell, and its name
+  appended to the ``workloads`` lists of the end-to-end and per-layer
+  metrics it reports.
 """
 from __future__ import annotations
 

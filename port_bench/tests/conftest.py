@@ -2,6 +2,7 @@
 the checkout; tiny versions of the cells run on the CPU."""
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -11,13 +12,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-# each traffic mix cut to a size that a CPU test holds
-TINY = {"train-n8192": dict(grid=dict(n=64), batch=2, val_batch=2, train_samples=12,
-                            valid_samples=4),
-        "train-f141": dict(grid=dict(fine=41, coarse=11), batch=2, val_batch=2,
-                           train_samples=12, valid_samples=4),
-        "serve-n8192": dict(grid=dict(n=64), batch=2, pool=3),
-        "serve-f211": dict(grid=dict(fine=41, coarse=11), batch=2, pool=3)}
+# each traffic mix cut to a size that a CPU test holds: tiny/<traffic>.json
+TINY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tiny")
+
+
+def _load(name: str) -> dict:
+    with open(os.path.join(TINY_DIR, name)) as f:
+        return json.load(f)
+
+
+TINY = {name[:-len(".json")]: _load(name) for name in sorted(os.listdir(TINY_DIR))
+        if name.endswith(".json")}
 
 
 def tiny(name: str):

@@ -30,6 +30,33 @@ def test_sound_run_is_correct(cell):
     assert result["attempted"] > 0 and result["failed"] == 0
 
 
+def test_common_factor_leaves_out_a_shared_scale():
+    import torch
+    from port_bench.check import leaf_gaps
+    ref = [torch.full((4,), 1.0), torch.full((2, 2), 1.0), torch.full((1,), 2.0)]
+    scaled = [t * 1.01 for t in ref]
+    assert leaf_gaps(scaled, ref) == pytest.approx([0.01] * 3)
+    assert leaf_gaps(scaled, ref, common=True) == pytest.approx([0.0] * 3, abs=1e-7)
+    one_off = [ref[0] * 1.3] + scaled[1:]
+    assert leaf_gaps(one_off, ref, common=True)[0] == pytest.approx(0.29 / 1.01, rel=1e-6)
+    # an unmoved state: no factor to leave out
+    assert leaf_gaps([t * 0 for t in ref], ref, common=True) == pytest.approx([1.0] * 3)
+
+
+@pytest.mark.parametrize("cell", TRAIN)
+def test_cell_sets_the_gradient_common_factor(cell, monkeypatch):
+    """The three replays' gradient gaps leave a common factor out where the
+    cell's workload file says so; the change gap never does."""
+    from port_bench import check
+    seen, real = [], check.leaf_gaps
+    monkeypatch.setattr(check, "leaf_gaps",
+                        lambda *args, **kwargs: seen.append(kwargs.get("common", False))
+                        or real(*args, **kwargs))
+    assert _run(cell)["correct"]
+    common = tiny(cell).workload.get("grad_common_factor", False)
+    assert seen == [common] * 3 + [False]
+
+
 @pytest.mark.parametrize("fault", ["frozen", "half_batch", "stale_batch", "altered"])
 @pytest.mark.parametrize("cell", TRAIN)
 def test_training_fault_is_not_correct(cell, fault):

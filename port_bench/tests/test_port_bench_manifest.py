@@ -102,9 +102,10 @@ def test_config_files(config):
 
 
 def test_model_configs_match_config_yml():
-    """Each configuration's model block is the reference's config.yml block,
-    as the port embeds it."""
+    """Each configuration's model block is the reference's config.yml block
+    that its ``config_yml`` names, as the port embeds it."""
     from galerkin_transformer_torch.utils.config import CONFIGS
-    for name, block in (("ex1-fourier", "ex1_burgers"), ("ex2-galerkin", "ex2_darcy")):
-        data = harness.load_json(harness.BENCH_DIR, "configs", f"{name}.json")
-        assert data["model"] == json.loads(json.dumps(CONFIGS[block]))
+    for config in BENCH["configs"]:
+        data = harness.load_json(ROOT, config["file"])
+        block = CONFIGS[data["config_yml"]]
+        assert data["model"] == json.loads(json.dumps(block)), config["name"]

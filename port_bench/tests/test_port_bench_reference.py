@@ -10,7 +10,18 @@ from conftest import TINY, tiny
 from port_bench import harness
 from port_bench.reference import train as ref_train
 
-FAMILIES = {"burgers": "ex1-fourier.train-n8192", "darcy": "ex2-galerkin.train-f141"}
+
+def _training_cell_per_family() -> dict:
+    """The first training cell of each family among the manifest's cells."""
+    cells = {}
+    for entry in harness.manifest()["workloads"]:
+        cell = harness.Cell.load(entry["name"])
+        if cell.mix["driver"] == "train_loop":
+            cells.setdefault(cell.config["family"], cell.name)
+    return cells
+
+
+FAMILIES = _training_cell_per_family()
 
 
 def _setup(cell_name: str, count: int = 3):
@@ -41,35 +52,37 @@ def test_forward_matches_port(cell_name, training):
     torch.manual_seed(11)
     ours = _program_preds(model, data, norm, fam)
     torch.manual_seed(11)
-    if cell.config["family"] == "darcy":
-        want = ref(data["node"], data["pos"], data["grid"], norm[1], training=training)
-    else:
-        want = ref(data["node"], data["pos"], data["grid"], training=training)
+    want = fam.reference_predict(ref, data, norm, training=training)
     scale = want.abs().max()
     assert float((ours - want).abs().max() / scale) < 2e-5
 
 
+class _Returns(torch.nn.Module):
+    """A stand-in for the port's model that returns `preds` whatever its
+    inputs."""
+
+    def __init__(self, preds):
+        super().__init__()
+        self.preds = preds
+        self.zero = torch.nn.Parameter(torch.zeros(()))
+
+    def forward(self, *args, **kwargs):
+        return {"preds": self.preds + self.zero, "preds_latent": None}
+
+
 @pytest.mark.parametrize("cell_name", list(FAMILIES.values()))
 def test_loss_matches_port(cell_name):
+    """The loss that the family's training step reports against the
+    reference's, both of the same predictions."""
     cell, fam, data, norm, model, ref = _setup(cell_name)
     train_cfg, grid = cell.config["train"], cell.mix["grid"]
     preds = torch.randn(data["target"].shape[:-1] + (1,), generator=torch.Generator().manual_seed(2))
-    if cell.config["family"] == "darcy":
-        from galerkin_transformer_torch.train import WeightedL2Loss2d
-        res = WeightedL2Loss2d(regularizer=True, h=1 / grid["fine"], gamma=train_cfg["gamma"])(
-            preds[..., 0], data["target"][..., 0], preds[..., 1:], data["target_grad"],
-            K=data["coeff"])
-        ours = res.loss + res.reg
-        want = ref_train.darcy_loss(preds[..., 0], data["target"][..., 0], data["target_grad"],
-                                    data["coeff"], 1 / grid["fine"], train_cfg["gamma"])
-    else:
-        from galerkin_transformer_torch.train import WeightedL2Loss
-        h = fam.spacing(grid)
-        t = data["target"]
-        res = WeightedL2Loss(regularizer=True, h=h, gamma=train_cfg["gamma"])(
-            preds[..., 0], t[..., 0], targets_prime=t[..., 1])
-        ours = res.loss + res.reg + res.ortho
-        want = ref_train.burgers_loss(preds[..., 0], t, h, train_cfg["gamma"])
+    stand_in = _Returns(preds)
+    train_step, _ = fam.program_steps(stand_in, cell.config["model"], train_cfg, grid,
+                                      torch.optim.SGD(stand_in.parameters(), lr=0.0), norm)
+    ours = train_step(data)[0]
+    # the reference's model stood in for alike
+    want = fam.reference_loss(lambda *args, **kwargs: preds, data, train_cfg, grid, norm)
     assert abs(float(ours) - float(want)) <= 1e-6 * abs(float(want))
 
 

@@ -43,11 +43,13 @@ refuses it: data-parallel training runs the host loop, as in JAX).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..parallel.mesh import combine_metric, mean_over, replicate
+from ..utils.profiling import set_counter, span
 
 
 class _DarcyLosses(NamedTuple):
@@ -254,24 +256,46 @@ def make_ns_steps(model: torch.nn.Module, loss_fn, metric_fn,
     (steps.py:179-236): `time_steps` applications of the model, each
     prediction fed back as the newest step of the input window.  Training
     sums ``loss + reg`` over the rollout with one backward through all of
-    it; eval is the mean of the per-step metrics."""
+    it; eval is the mean of the per-step metrics.
+
+    Each application is the span ``gt.rollout.step`` (in eager steps and
+    captures; a replay runs no Python).  The counter
+    ``rollout.saved_bytes`` (``utils/profiling.py::set_counter``) holds the
+    bytes that autograd saves for the backward of the first train step's
+    forward (one microbatch's with `accum_steps`), each storage counted
+    once, parameters and inputs included, read by saved-tensor hooks on
+    that forward alone."""
     device = next(model.parameters()).device
     params = [p for p in model.parameters() if p.requires_grad]
+    measured = False
 
     def rollout(batch, per_step):
         x, pos, grid = batch["node"], batch["pos"], batch["grid"]   # x: (B, n, n, T_in)
         out = []
         for t in range(time_steps):
-            u_pred = model(x, None, pos, grid)["preds"]               # (B, n, n, 1)
+            with span("gt.rollout.step"):
+                u_pred = model(x, None, pos, grid)["preds"]           # (B, n, n, 1)
             out.append(per_step(u_pred[..., 0], t))
             x = torch.cat([x[..., 1:], u_pred], dim=-1)
         return out
 
     def rollout_loss(batch):
+        nonlocal measured
         u, gradu = batch["target"], batch["target_grad"]   # (B, n, n, T), (B, n, n, 2, T)
-        res = rollout(batch, lambda pred, t: loss_fn(pred, u[..., t],
-                                                     targets_prime=gradu[..., t]))
-        total = torch.stack([r.loss + r.reg for r in res]).sum()
+        storages: Dict[int, int] = {}   # bytes of each saved storage, by address
+
+        def pack(t: torch.Tensor) -> torch.Tensor:
+            storages[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+            return t
+
+        with (contextlib.nullcontext() if measured
+              else torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t)):
+            res = rollout(batch, lambda pred, t: loss_fn(pred, u[..., t],
+                                                         targets_prime=gradu[..., t]))
+            total = torch.stack([r.loss + r.reg for r in res]).sum()
+        if not measured:
+            measured = True
+            set_counter("rollout.saved_bytes", sum(storages.values()))
         return total, _RolloutLosses(total, torch.stack([r.reg for r in res]).sum())
 
     value_and_grad = microbatched_value_and_grad(rollout_loss, accum_steps)

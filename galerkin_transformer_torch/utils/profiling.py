@@ -42,6 +42,10 @@ by op, and each number says what it counts.
   profiler's timeline; under `recording()` it is kept in the record (name,
   start, end, parent), stamped on the profiler's clock.  When nothing
   records it is one shared null context after one check.
+* `set_counter(name, value)` sets a process-wide counter of what the
+  program reports of its own work (``rollout.saved_bytes``:
+  ``train/steps.py::make_ns_steps``), and `counters()` returns a copy of
+  them all.
 """
 from __future__ import annotations
 
@@ -342,3 +346,22 @@ def recording() -> Iterator[SpanRecord]:
         yield record
     finally:
         _ACTIVE = outer
+
+
+# ------------------------------------------------------------- counters
+
+_COUNTERS: Dict[str, float] = {}
+_COUNTERS_LOCK = threading.Lock()
+
+
+def set_counter(name: str, value: float) -> None:
+    """Set the process-wide counter `name` to `value` (the last value set
+    is the one read)."""
+    with _COUNTERS_LOCK:
+        _COUNTERS[name] = value
+
+
+def counters() -> Dict[str, float]:
+    """A copy of every counter set in this process, by name."""
+    with _COUNTERS_LOCK:
+        return dict(_COUNTERS)
